@@ -970,13 +970,62 @@ class MarvelClient:
             )
         return self.cluster.remove_node(node_id)
 
-    def serving(self, *args: Any, **kwargs: Any):
-        """Not ported yet: the KV-paging serving pool (DESIGN.md §14) is
-        the next slice of the port (ROADMAP.md, queue A item 8 and queue
-        B #2, ``decode_attention_fwd``)."""
-        raise NotImplementedError(
-            "MarvelClient.serving() is not ported yet: see ROADMAP.md, "
-            "queue A item 8 (serving slice)"
+    def serving(
+        self,
+        params: Any,
+        model_cfg: Any,
+        *,
+        prompt_len: int,
+        max_tokens: int,
+        config: Optional[ServingConfig] = None,
+        app: str = "serve",
+        fn_name: str = "decode",
+        device: Any = "cuda",
+    ):
+        """Build the KV-paging serving pool (DESIGN.md §14) over this
+        client's tier stack and gateway: a paged decode function is
+        registered, warm-pool evictions route the victim's KV blocks
+        through the pager, and the gateway's load snapshots grow
+        resident/paged session counts.  ``config`` falls back to
+        ``ClusterConfig.serving``, then subsystem defaults.  Returns a
+        :class:`~repro_torch.serving.ServingPool`.
+
+        Prefill and decode run on ``device``: the GPU unless the caller
+        passes ``device="cpu"`` (the kernels' plain versions, for CPU
+        tests); a CUDA device without CUDA raises :class:`ConfigError`.
+        ``params`` must already lie on that device."""
+        self._check_open()
+        if self.cluster is not None:
+            raise ConfigError(
+                "serving() drives a single-stack client; sharded serving "
+                "is not supported yet"
+            )
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise ConfigError(
+                "serving() runs on a CUDA GPU; pass device='cpu' to run the "
+                "kernels' plain versions on the CPU (CPU CI)"
+            )
+        from repro_torch.serving import KVPager, PagedDecoder, ServingPool
+
+        scfg = config or self.config.serving or ServingConfig()
+        scfg.validate()
+        pager = KVPager(
+            self.state,
+            device=device,
+            block_tokens=scfg.block_tokens,
+            lossless=scfg.lossless,
+            dram_budget_bytes=scfg.dram_budget_bytes,
+            prefetch_on_resume=scfg.prefetch_on_resume,
+        )
+        decoder = PagedDecoder(
+            params, model_cfg, pager,
+            prompt_len=prompt_len, max_tokens=max_tokens, name=fn_name,
+        )
+        self.register(decoder.fn)
+        return ServingPool(
+            self.gateway, pager, decoder, app=app,
+            admission=scfg.admission,
         )
 
     def autoscaler(self, *args: Any, **kwargs: Any):

@@ -2,7 +2,14 @@
 Pallas TPU kernels, each with a plain PyTorch version beside it:
 
   * bucket_histogram: MapReduce shuffle partition counting
-    (``csrc/bucket_histogram.cu``)
+    (``csrc/bucket_histogram.cu``);
+  * flash_attention: prefill attention forward
+    (``csrc/flash_attention.cu``);
+  * decode_attention: single-token attention over a KV cache, every
+    decode step (``csrc/decode_attention.cu``).
+
+The Mamba-2 SSD kernel of the reference package waits for a later slice
+(ROADMAP.md, queue B).
 
 Sources are compiled with ``nvcc`` at first use (``_build.py``).
 """

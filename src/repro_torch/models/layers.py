@@ -1,0 +1,161 @@
+"""Shared neural layers: norms, RoPE, attention entry points onto the
+port's kernels, gated MLPs.
+
+All functions are pure; parameters arrive as dicts built from the
+:mod:`repro_torch.models.param` definition trees.  The reference package
+computes attention with XLA twins of its Pallas kernels
+(``chunked_attention``, ``decode_attention``); here both entry points call
+the hand-written kernels through :mod:`repro_torch.kernels.ops`, which take
+the plain PyTorch versions only for tensors on the CPU.  Norms, RoPE and
+the MLP are plain torch ops, as the reference leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.param import FSDP, TP, ParamDef
+
+__all__ = [
+    "rms_norm",
+    "layer_norm",
+    "softcap",
+    "rope_freqs",
+    "apply_rope",
+    "chunked_attention",
+    "decode_attention",
+    "mlp_defs",
+    "mlp_apply",
+]
+
+
+# -- norms ---------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             plus_one: bool = False) -> torch.Tensor:
+    """RMSNorm in fp32; ``plus_one`` uses the gemma ``(1 + scale)`` form."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    s = scale.float()
+    if plus_one:
+        s = 1.0 + s
+    return (normed * s).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    normed = (xf - mu) * torch.rsqrt(var + eps)
+    return (normed * scale.float() + bias.float()).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: ``cap * tanh(x / cap)``."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# -- rotary embeddings -----------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def rope_freqs(dh_rot: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, f32 ``(dh_rot / 2,)`` (cached per device: every
+    layer of every step asks for the same ones)."""
+    exps = torch.arange(0, dh_rot, 2, dtype=torch.float32, device=device) / dh_rot
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(
+    x: torch.Tensor,  # (..., T, H, Dh)
+    positions: torch.Tensor,  # (..., T) int
+    theta: float = 10000.0,
+    dh_rot: Optional[int] = None,
+) -> torch.Tensor:
+    """Rotary embedding on the first ``dh_rot`` head dims (rest pass through)."""
+    dh = x.shape[-1]
+    dh_rot = dh if dh_rot is None else dh_rot
+    freqs = rope_freqs(dh_rot, theta, device=x.device)
+    angles = positions[..., None].float() * freqs  # (..., T, dh_rot/2)
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    xr = x[..., :dh_rot].float()
+    x1, x2 = xr[..., : dh_rot // 2], xr[..., dh_rot // 2:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rotated.to(x.dtype), x[..., dh_rot:]], dim=-1)
+
+
+# -- attention ---------------------------------------------------------------
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, Tq, H, Dh)
+    k: torch.Tensor,  # (B, Tk, Kv, Dh)
+    v: torch.Tensor,  # (B, Tk, Kv, Dh)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    attn_softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Full-sequence attention through the flash kernel -> (B, Tq, H, Dh).
+
+    The reference's ``q_chunk``/``kv_chunk`` tile its XLA twin; the kernel
+    picks its own tiles and computes the same function."""
+    return ops.flash_attention(q, k, v, causal=causal, scale=scale,
+                               softcap=attn_softcap, window=window)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, H, Dh): one new token per sequence
+    k_cache: torch.Tensor,  # (B, S, Kv, Dh)
+    v_cache: torch.Tensor,  # (B, S, Kv, Dh)
+    length: torch.Tensor,  # (B,) int32 valid cache entries (incl. current)
+    *,
+    attn_softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token attention over a KV cache through the decode kernel.
+    Raises when q and the cache lie on different devices."""
+    return ops.decode_attention(q, k_cache, v_cache, length, scale=scale,
+                                softcap=attn_softcap)
+
+
+# -- MLP ---------------------------------------------------------------
+
+def mlp_defs(d_model: int, d_ff: int, gated: bool = True) -> Dict[str, ParamDef]:
+    if gated:
+        return {
+            "wi_gate": ParamDef((d_model, d_ff), (FSDP, TP)),
+            "wi_up": ParamDef((d_model, d_ff), (FSDP, TP)),
+            "wo": ParamDef((d_ff, d_model), (TP, FSDP)),
+        }
+    return {
+        "wi": ParamDef((d_model, d_ff), (FSDP, TP)),
+        "wo": ParamDef((d_ff, d_model), (TP, FSDP)),
+    }
+
+
+_ACTS = {
+    "silu": F.silu,
+    "gelu": lambda y: F.gelu(y, approximate="tanh"),
+    "gelu_exact": F.gelu,
+    "relu": F.relu,
+}
+
+
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+              act: str = "silu") -> torch.Tensor:
+    act_fn = _ACTS[act]
+    if "wi_gate" in p:
+        h = act_fn(x @ p["wi_gate"]) * (x @ p["wi_up"])
+    else:
+        h = act_fn(x @ p["wi"])
+    return h @ p["wo"]

@@ -1,0 +1,307 @@
+"""Model assembly: frontend → prelude → period body → postlude → final
+norm → unembed, for blocks whose mixer is attention (``attn``/``local``)
+and whose FFN is dense.
+
+The port of ``repro/models/transformer.py``.  The parameter tree and the
+cache tree keep the reference's layout and names: the repeating block
+pattern is stacked along a leading ``n_periods`` axis (``params["body"]``
+and ``cache["body"]``), so a reference tree converts leaf by leaf and the
+KV pager pages the stacked body cache as one leaf.  The reference scans
+over that axis with ``lax.scan``; here a Python loop indexes it.  Decode
+writes each layer's new K/V row into the stacked cache in place.
+
+The other mixers (``mla``, ``ssm``, ``rglru``) and the MoE FFN are not
+ported yet and raise ``NotImplementedError`` (ROADMAP.md, queue A item 9).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import attention
+from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.models.layers import layer_norm, mlp_apply, mlp_defs, rms_norm, softcap
+from repro_torch.models.param import FSDP, TP, ParamDef, stack_defs
+from repro_torch.models.quant_cache import init_quant_cache
+
+__all__ = ["model_defs", "forward", "logits_fn", "decode_step", "init_cache"]
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: see ROADMAP.md, queue A item 9 "
+        "(remaining mixers and configs)"
+    )
+
+
+# -- defs ---------------------------------------------------------------
+
+def _norm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    if cfg.norm == "ln":
+        return {
+            "scale": ParamDef((cfg.d_model,), (None,), init_value=1.0),
+            "bias": ParamDef((cfg.d_model,), (None,), init_scale=0.0),
+        }
+    init = 0.0 if cfg.rms_plus_one else 1.0
+    return {"scale": ParamDef((cfg.d_model,), (None,), init_value=init)}
+
+
+def _norm_apply(p, x, cfg: ModelConfig):
+    if cfg.norm == "ln":
+        return layer_norm(x, p["scale"], p["bias"])
+    return rms_norm(x, p["scale"], plus_one=cfg.rms_plus_one)
+
+
+def _mixer_defs(blk: BlockSpec, cfg: ModelConfig) -> Dict[str, ParamDef]:
+    if blk.mixer in ("attn", "local"):
+        return attention.attn_defs(cfg)
+    raise _unported(f"mixer {blk.mixer!r}")
+
+
+def _ffn_defs(blk: BlockSpec, cfg: ModelConfig) -> Optional[Dict[str, ParamDef]]:
+    if blk.ffn == "dense":
+        # encoder-style plain MLP when act is gelu_plain
+        return mlp_defs(cfg.d_model, cfg.d_ff, gated=cfg.act != "gelu_plain")
+    if blk.ffn == "none":
+        return None
+    raise _unported(f"ffn {blk.ffn!r}")
+
+
+def _block_defs(blk: BlockSpec, cfg: ModelConfig) -> Dict[str, Any]:
+    defs: Dict[str, Any] = {
+        "norm1": _norm_defs(cfg),
+        "mixer": _mixer_defs(blk, cfg),
+    }
+    if blk.ffn != "none":
+        defs["norm2"] = _norm_defs(cfg)
+        defs["ffn"] = _ffn_defs(blk, cfg)
+    if cfg.post_block_norm:
+        defs["post1"] = _norm_defs(cfg)
+        if blk.ffn != "none":
+            defs["post2"] = _norm_defs(cfg)
+    return defs
+
+
+def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    D, V = cfg.d_model, cfg.vocab
+    defs: Dict[str, Any] = {}
+    if cfg.frontend in ("tokens", "tokens+patches"):
+        defs["embed"] = ParamDef((V, D), (None, FSDP), init_scale=0.02)
+    if cfg.frontend == "frames":
+        fd = cfg.frame_dim or D
+        defs["frame_proj"] = {
+            "w": ParamDef((fd, D), (None, FSDP)),
+            "b": ParamDef((D,), (None,), init_scale=0.0),
+        }
+    defs["prelude"] = [_block_defs(b, cfg) for b in cfg.prelude]
+    defs["body"] = [
+        stack_defs(_block_defs(b, cfg), cfg.n_periods) for b in cfg.pattern
+    ]
+    defs["postlude"] = [_block_defs(b, cfg) for b in cfg.postlude]
+    defs["final_norm"] = _norm_defs(cfg)
+    defs["unembed"] = ParamDef((D, V), (None, TP))
+    return defs
+
+
+# -- tree helpers ---------------------------------------------------------
+
+def _period(tree: Any, i: int) -> Any:
+    """Period ``i`` of a stacked parameter or cache tree (views, no copy)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, dict):
+        return {k: _period(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_period(v, i) for v in tree))
+    return type(tree)(_period(v, i) for v in tree)
+
+
+def _stack(caches: List[Any]) -> Any:
+    """Stack per-period caches along a new leading period axis."""
+    first = caches[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(caches)
+    return type(first)(*(_stack(list(f)) for f in zip(*caches)))
+
+
+# -- apply ---------------------------------------------------------------
+
+def _embed_scale(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if not cfg.embed_scale:
+        return x
+    # the constant rounded to x's type first, as the reference does
+    c = torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
+    return x * c
+
+
+def _frontend(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor]):
+    if cfg.frontend == "tokens":
+        x = F.embedding(inputs["tokens"].long(), params["embed"])
+    elif cfg.frontend == "frames":
+        fp = params["frame_proj"]
+        x = inputs["frames"] @ fp["w"] + fp["b"]
+    elif cfg.frontend == "tokens+patches":
+        tok = F.embedding(inputs["tokens"].long(), params["embed"])
+        x = torch.cat([inputs["patches"].to(tok.dtype), tok], dim=1)
+    else:
+        raise ValueError(cfg.frontend)
+    return _embed_scale(x, cfg)
+
+
+def _mixer_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
+                 collect_cache: bool = False, cache_len=None):
+    if blk.mixer not in ("attn", "local"):
+        raise _unported(f"mixer {blk.mixer!r}")
+    out = attention.attn_apply(
+        p, x, cfg,
+        window=blk.window if blk.mixer == "local" else None,
+        collect_cache=collect_cache, cache_len=cache_len,
+    )
+    return out if collect_cache else (out, None)
+
+
+def _ffn_apply(p, x, blk: BlockSpec, cfg: ModelConfig) -> torch.Tensor:
+    if blk.ffn == "dense":
+        act = "gelu" if cfg.act == "gelu_plain" else cfg.act
+        return mlp_apply(p, x, act)
+    raise _unported(f"ffn {blk.ffn!r}")
+
+
+def _finish_block(p, x, h, blk: BlockSpec, cfg: ModelConfig):
+    """The residual add of the mixer output ``h``, then the FFN sub-block
+    (prefill and decode alike)."""
+    if cfg.post_block_norm:
+        h = _norm_apply(p["post1"], h, cfg)
+    x = x + h
+    if blk.ffn != "none":
+        h = _ffn_apply(p["ffn"], _norm_apply(p["norm2"], x, cfg), blk, cfg)
+        if cfg.post_block_norm:
+            h = _norm_apply(p["post2"], h, cfg)
+        x = x + h
+    return x
+
+
+def _block_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
+                 collect_cache: bool = False, cache_len=None):
+    h, cache = _mixer_apply(
+        p["mixer"], _norm_apply(p["norm1"], x, cfg), blk, cfg,
+        collect_cache, cache_len,
+    )
+    return _finish_block(p, x, h, blk, cfg), cache
+
+
+def forward(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    inputs: Dict[str, torch.Tensor],
+    collect_cache: bool = False,
+    cache_len: Optional[int] = None,
+):
+    """Full-sequence forward.  Returns (hidden (B, T, D), aux loss) or,
+    with ``collect_cache`` (prefill), (hidden, aux, cache tree).
+    ``cache_len`` reserves decode headroom in the collected caches.  The
+    aux loss is the MoE balance loss, 0 for the dense FFNs ported so far."""
+    x = _frontend(params, cfg, inputs)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches: Dict[str, List[Any]] = {"prelude": [], "body": [], "postlude": []}
+
+    for p, blk in zip(params["prelude"], cfg.prelude):
+        x, c = _block_apply(p, x, blk, cfg, collect_cache, cache_len)
+        caches["prelude"].append(c)
+
+    body: List[List[Any]] = [[] for _ in cfg.pattern]
+    for i in range(cfg.n_periods):
+        for j, blk in enumerate(cfg.pattern):
+            x, c = _block_apply(_period(params["body"][j], i), x, blk, cfg,
+                                collect_cache, cache_len)
+            body[j].append(c)
+    if collect_cache and cfg.n_periods > 0:
+        caches["body"] = [_stack(cs) for cs in body]
+
+    for p, blk in zip(params["postlude"], cfg.postlude):
+        x, c = _block_apply(p, x, blk, cfg, collect_cache, cache_len)
+        caches["postlude"].append(c)
+
+    x = _norm_apply(params["final_norm"], x, cfg)
+    if collect_cache:
+        return x, aux, caches
+    return x, aux
+
+
+def logits_fn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final logits (fp32, softcapped). x: (..., D)."""
+    return softcap((x @ params["unembed"]).float(), cfg.final_softcap)
+
+
+# -- decode ---------------------------------------------------------------
+
+def _mixer_cache(blk: BlockSpec, cfg: ModelConfig, batch: int, seq_len: int,
+                 dtype, quant_attn: bool, device):
+    if blk.mixer not in ("attn", "local"):
+        raise _unported(f"mixer {blk.mixer!r}")
+    window = blk.window if blk.mixer == "local" else None
+    if quant_attn:
+        return init_quant_cache(cfg, batch, seq_len, window, device=device)
+    return attention.init_attn_cache(cfg, batch, seq_len, window, dtype,
+                                     device=device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype=torch.bfloat16, quant_attn: bool = False, device=None):
+    """Decode cache tree; ``quant_attn`` uses int8 attention caches.  Body
+    caches carry the leading ``n_periods`` axis."""
+    mk = lambda b: _mixer_cache(b, cfg, batch, seq_len, dtype, quant_attn, device)
+    return {
+        "prelude": [mk(b) for b in cfg.prelude],
+        "body": [_stack([mk(b) for _ in range(cfg.n_periods)])
+                 if cfg.n_periods else mk(b) for b in cfg.pattern],
+        "postlude": [mk(b) for b in cfg.postlude],
+    }
+
+
+def _block_decode(p, x, cache, t: int, blk: BlockSpec, cfg: ModelConfig):
+    if blk.mixer not in ("attn", "local"):
+        raise _unported(f"mixer {blk.mixer!r}")
+    h, new_cache = attention.attn_decode(
+        p["mixer"], _norm_apply(p["norm1"], x, cfg), cache, t, cfg
+    )
+    return _finish_block(p, x, h, blk, cfg), new_cache
+
+
+def decode_step(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # (B, 1) current token ids
+    cache: Dict[str, Any],
+    t: int,  # position of `tokens`
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One-token decode.  Returns (logits (B, V) fp32, the cache tree),
+    whose layers were updated in place."""
+    x = _frontend(params, cfg, {"tokens": tokens})
+
+    new_prelude = []
+    for p, c, blk in zip(params["prelude"], cache["prelude"], cfg.prelude):
+        x, nc = _block_decode(p, x, c, t, blk, cfg)
+        new_prelude.append(nc)
+
+    for i in range(cfg.n_periods):
+        for j, blk in enumerate(cfg.pattern):
+            x, _ = _block_decode(_period(params["body"][j], i), x,
+                                 _period(cache["body"][j], i), t, blk, cfg)
+
+    new_postlude = []
+    for p, c, blk in zip(params["postlude"], cache["postlude"], cfg.postlude):
+        x, nc = _block_decode(p, x, c, t, blk, cfg)
+        new_postlude.append(nc)
+
+    x = _norm_apply(params["final_norm"], x, cfg)
+    logits = logits_fn(params, cfg, x[:, 0])
+    return logits, {
+        "prelude": new_prelude,
+        "body": list(cache["body"]),
+        "postlude": new_postlude,
+    }

@@ -1,4 +1,5 @@
-"""The port's façade: device validation and the parts not ported yet.
+"""The port's façade: device validation and the parts not ported yet
+(``autoscaler``, and ``serving`` over the mixers of later slices).
 
 On a machine without CUDA, ``device=True`` is refused unless the caller
 asks for the CPU with ``device_interpret=True``, as the reference refuses
@@ -10,6 +11,8 @@ import torch
 
 import repro.api as japi
 from repro_torch.api import ClusterConfig, ConfigError, MarvelClient
+from repro_torch.configs import get_config
+from repro_torch.models import reduced_for_smoke
 
 
 @pytest.fixture
@@ -46,4 +49,8 @@ def test_interpret_runs_on_the_cpu():
 def test_not_ported_yet(method):
     with MarvelClient(ClusterConfig()) as c:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(c, method)()
+            if method == "serving":  # dense attention is ported, Mamba-2 not
+                cfg = reduced_for_smoke(get_config("mamba2-2.7b"))
+                c.serving({}, cfg, prompt_len=4, max_tokens=2, device="cpu")
+            else:
+                c.autoscaler()

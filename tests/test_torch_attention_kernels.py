@@ -1,0 +1,212 @@
+"""The port's attention kernels against the reference package, on the CPU.
+
+On the CPU the wrappers take the kernels' plain versions
+(``flash_attention_torch``, ``decode_attention_torch``); these tests hold
+them against the reference's Pallas kernels run in interpret mode and
+against both packages' ``kernels/ref.py`` oracles, on the same inputs made
+with numpy.  Tolerances: 2e-5 in f32, 2e-2 in bf16 (the reference's
+flash tests'; its decode tests allow 3e-2 in bf16).  The CUDA kernels
+themselves are held against the same plain versions on the card by
+``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.models import layers
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x).astype(jd), torch.from_numpy(x).to(td)
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+def _flat_heads(x, rep):
+    """(B, T, n, dh) -> (B*n*rep, T, dh) with each head repeated ``rep``
+    times: the reference oracle's heads-flattened layout."""
+    x = np.repeat(np.asarray(x, np.float32), rep, axis=2)
+    B, T, n, dh = x.shape
+    return x.transpose(0, 2, 1, 3).reshape(B * n, T, dh)
+
+
+# -- flash attention -----------------------------------------------------------
+
+@pytest.mark.parametrize("T,H,Kv,dh,causal,softcap", [
+    (64, 4, 4, 32, True, None),     # MHA, rep 1
+    (37, 4, 2, 32, True, 30.0),     # ragged T, rep 2, softcap
+    (48, 8, 2, 64, False, None),    # rep 4, full attention
+    (1, 4, 1, 32, True, None),      # T = 1, MQA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_reference_kernel(rng, T, H, Kv, dh, causal,
+                                              softcap, dtype):
+    B = 2
+    jq, tq = _pair(rng, (B, T, H, dh), dtype)
+    jk, tk = _pair(rng, (B, T, Kv, dh), dtype)
+    jv, tv = _pair(rng, (B, T, Kv, dh), dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, softcap=softcap)
+    assert got.dtype == tq.dtype and got.shape == (B, T, H, dh)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, softcap=softcap,
+                                interpret=True)
+    _close(got, want, TOL[dtype])
+    rep = H // Kv
+    oracle = jref.flash_attention_ref(
+        jnp.asarray(_flat_heads(jq, 1)), jnp.asarray(_flat_heads(jk, rep)),
+        jnp.asarray(_flat_heads(jv, rep)), causal=causal, softcap=softcap,
+    )
+    flat = _np(got).transpose(0, 2, 1, 3).reshape(B * H, T, dh)
+    _close(flat, oracle, TOL[dtype])
+
+
+def test_flash_window_matches_reference_twin(rng):
+    """A sliding window (the local layers), against the reference's XLA twin."""
+    from repro.models.layers import chunked_attention
+
+    jq, tq = _pair(rng, (1, 50, 4, 32), "float32")
+    jk, tk = _pair(rng, (1, 50, 2, 32), "float32")
+    jv, tv = _pair(rng, (1, 50, 2, 32), "float32")
+    got = ops.flash_attention(tq, tk, tv, window=7)
+    want = chunked_attention(jq, jk, jv, window=7, q_chunk=16, kv_chunk=16)
+    _close(got, want, 2e-5)
+
+
+def test_port_flash_oracle_matches_reference_oracle(rng):
+    jq, tq = _pair(rng, (6, 33, 32), "float32")
+    jk, tk = _pair(rng, (6, 33, 32), "float32")
+    jv, tv = _pair(rng, (6, 33, 32), "float32")
+    for causal, cap in ((True, None), (False, 20.0)):
+        _close(ref.flash_attention_ref(tq, tk, tv, causal=causal, softcap=cap),
+               jref.flash_attention_ref(jq, jk, jv, causal=causal, softcap=cap),
+               2e-5)
+
+
+# -- decode attention ------------------------------------------------------
+
+@pytest.mark.parametrize("S,H,Kv,dh,lengths,softcap", [
+    (64, 4, 4, 32, (1, 64), None),       # rep 1, a one-row cache
+    (100, 4, 2, 32, (37, 99), 30.0),     # rep 2, ragged, softcap
+    (80, 8, 2, 64, (80, 3), None),       # rep 4
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_reference_kernel(rng, S, H, Kv, dh, lengths,
+                                               softcap, dtype):
+    B = 2
+    jq, tq = _pair(rng, (B, H, dh), dtype)
+    jk, tk = _pair(rng, (B, S, Kv, dh), dtype)
+    jv, tv = _pair(rng, (B, S, Kv, dh), dtype)
+    lens = np.asarray(lengths, np.int32)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens),
+                               softcap=softcap)
+    assert got.dtype == tq.dtype and got.shape == (B, H, dh)
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(lens),
+                                 softcap=softcap, interpret=True)
+    tol = TOL[dtype]
+    _close(got, want, tol)
+    # the oracle's layout: one row per (b, kv head) holding rep query heads
+    rep = H // Kv
+    qg = np.asarray(jq, np.float32).reshape(B * Kv, rep, dh)
+    kf = np.asarray(jk, np.float32).transpose(0, 2, 1, 3).reshape(B * Kv, S, dh)
+    vf = np.asarray(jv, np.float32).transpose(0, 2, 1, 3).reshape(B * Kv, S, dh)
+    oracle = jref.decode_attention_ref(
+        jnp.asarray(qg), jnp.asarray(kf), jnp.asarray(vf),
+        jnp.asarray(np.repeat(lens, Kv)), softcap=softcap,
+    )
+    _close(_np(got).reshape(B * Kv, rep, dh), oracle, tol)
+
+
+def test_decode_zero_length_gives_zeros_as_the_tpu_kernel(rng):
+    jq, tq = _pair(rng, (2, 4, 32), "float32")
+    jk, tk = _pair(rng, (2, 16, 2, 32), "float32")
+    jv, tv = _pair(rng, (2, 16, 2, 32), "float32")
+    lens = np.asarray([0, 16], np.int32)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(lens), interpret=True)
+    assert not got[0].any()
+    _close(got, want, 2e-5)
+    # the oracle (both packages) defines it as the mean of V instead
+    mean = ref.decode_attention_ref(tq[:1, :2], tk[:1, :, 0], tv[:1, :, 0],
+                                    torch.zeros(1, dtype=torch.int32))
+    _close(mean[0, 0], tv[0, :, 0].mean(0), 2e-5)
+
+
+def test_port_decode_oracle_matches_reference_oracle(rng):
+    jq, tq = _pair(rng, (3, 4, 32), "float32")
+    jk, tk = _pair(rng, (3, 20, 32), "float32")
+    jv, tv = _pair(rng, (3, 20, 32), "float32")
+    lens = np.asarray([0, 7, 20], np.int32)
+    _close(ref.decode_attention_ref(tq, tk, tv, torch.from_numpy(lens),
+                                    softcap=10.0),
+           jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens),
+                                     softcap=10.0), 2e-5)
+
+
+# -- the wrappers ----------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_version_without_a_launch(rng):
+    _, q = _pair(rng, (1, 8, 4, 32), "float32")
+    _, k = _pair(rng, (1, 8, 2, 32), "float32")
+    before = (fa.launches, da.launches)
+    ops.flash_attention(q, k, k)
+    ops.decode_attention(q[:, 0], k, k, torch.tensor([8], dtype=torch.int32))
+    assert (fa.launches, da.launches) == before
+
+
+def _meta_like(x):
+    return torch.empty(x.shape, dtype=x.dtype, device="meta")
+
+
+@pytest.mark.parametrize("entry", ["chunked_attention", "decode_attention"])
+def test_entry_points_refuse_q_and_cache_on_different_devices(rng, entry):
+    """A meta tensor stands in for the card: q there, the cache on the CPU."""
+    _, q = _pair(rng, (1, 8, 4, 32), "float32")
+    _, k = _pair(rng, (1, 8, 2, 32), "float32")
+    lengths = torch.tensor([8], dtype=torch.int32)
+    with pytest.raises(ValueError, match="different devices"):
+        if entry == "chunked_attention":
+            layers.chunked_attention(_meta_like(q), k, k)
+        else:
+            layers.decode_attention(_meta_like(q[:, 0]), k, k, lengths)
+    with pytest.raises(ValueError, match="unsupported device"):  # all on meta
+        if entry == "chunked_attention":
+            layers.chunked_attention(_meta_like(q), _meta_like(k), _meta_like(k))
+        else:
+            layers.decode_attention(_meta_like(q[:, 0]), _meta_like(k),
+                                    _meta_like(k), _meta_like(lengths))
+
+
+@pytest.mark.parametrize("bad", ["dtype_mix", "heads", "lengths_dtype", "dh"])
+def test_wrappers_reject_what_the_kernels_do_not_take(rng, bad):
+    _, q = _pair(rng, (1, 8, 4, 32), "float32")
+    _, k = _pair(rng, (1, 8, 2, 32), "float32")
+    lengths = torch.tensor([8], dtype=torch.int32)
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "dtype_mix":
+            ops.flash_attention(q, k.bfloat16(), k)
+        elif bad == "heads":  # H not a multiple of Kv
+            ops.decode_attention(q[:, 0, :3], k, k, lengths)
+        elif bad == "lengths_dtype":
+            ops.decode_attention(q[:, 0], k, k, lengths.long())
+        else:
+            ops.flash_attention(q, k[..., :16], k[..., :16])
