@@ -47,11 +47,34 @@ another sm_90a card).  It builds the port's CUDA kernels from
    decode-step logits against a fresh prefill over the same tokens
    (relative L2 error <= 2e-2).  Both attention kernels must have
    launched after the resume and after the restart;
-8. prints a ``kernels`` JSON line: each kernel's launches on its path
+8. holds ``ssd_chunk`` (the Mamba-2 SSD within-chunk kernel) against its
+   plain version (tolerance 2e-3 abs and rel; every case run twice and
+   compared bit for bit): the prefill's shape (BC=4, Q=256, H=80, P=64,
+   N=128, B/C one group read with a head stride of 0, which must give
+   the bytes of a per-head copy), per-head B/C, Q in {1, 37}, H=6, P and
+   N over {16, 32, 64, 128}, and a strongly negative dA_cs whose
+   upper-triangle exp overflows in the exp-then-mask oracle;
+9. drives ``MarvelClient.serving`` over Mamba-2 at the full width of
+   mamba2-2.7b (64 SSD layers, d_model 2560, 80 heads of 64, d_state
+   128, chunk 256, vocab 50280; random bf16 weights drawn on the card
+   from ``--seed``, dt, A and the output projection as Mamba-2's
+   published init sets them), prompts of 1024 tokens, the same tier
+   stack and journal: 4 conversations interleaved over a warm pool of 2, so every step evicts a conversation's recurrent state
+   (64 x 80 x 64 x 128 f32, 168 MB, and a 2 MB conv window) to PMEM and
+   resumes another onto the card; lossless suspend/resume byte
+   identity; a restart that re-adopts every session; decode-step logits
+   (the recurrent form) against a fresh prefill over 1024 plus the new
+   tokens (the kernel, with the chunk padding), relative L2 <= 2e-2 with
+   the served weights computed in f32 (the bf16 error, which this random
+   64-layer model amplifies to a few percent, is printed beside it).
+   The SSD kernel must have launched after the resume and after the
+   restart;
+10. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
-   ``scaled_dot_product_attention``; a yardstick only) and the bound.
+   ``scaled_dot_product_attention``; a yardstick only; none computes the
+   SSD chunk) and the bound.
 
 Every check that fails raises, and the script exits non-zero.  The last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -62,6 +85,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -75,6 +100,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak, the f32 inputs' type
 REPS = 15
 # Sizes of the run (see the module docstring for why these).
 KERNEL_KEYS = 1 << 28  # 1 GiB of int32 keys
@@ -88,6 +114,12 @@ SERVE_MAX_TOKENS = 64
 SERVE_CONVS = 8  # twice the warm pool, so evictions demote to int8
 INT8_STEPS = 6  # decode steps per conversation in the int8 pool
 LOSSLESS_STEPS = 16  # decode steps of the lossless identity check
+SSM_MODEL = "mamba2-2.7b"  # full width: 64 layers, d_model 2560, 80 heads of 64
+SSM_PROMPT = 1024
+SSM_MAX_TOKENS = 32
+SSM_CONVS = 4  # twice the warm pool of 2, so every step evicts and resumes
+SSM_STEPS = 3  # interleaved decode steps per conversation
+SSM_LOSSLESS_STEPS = 8
 
 
 class SmokeError(AssertionError):
@@ -676,7 +708,6 @@ def phase_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
     from repro_torch.kernels import ops
     from repro_torch.models import attention, init_params, model_defs
     from repro_torch.models.quant_cache import QuantAttnCache
-    from repro_torch.serving import decode_runtime
 
     t0 = time.perf_counter()
     params = draw_params(cfg, seed, dev)
@@ -700,6 +731,10 @@ def phase_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
             serving=ServingConfig(block_tokens=16, lossless=lossless),
         )
 
+    def serve(client):
+        return client.serving(params, cfg, prompt_len=prompt_len,
+                              max_tokens=max_tokens, device=dev)
+
     flash_spy = _Spy(ops, "flash_attention")
     decode_spy = _Spy(ops, "decode_attention")
     quant_spy = _Spy(attention, "quant_decode_attention")
@@ -716,8 +751,7 @@ def phase_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
         # interleaved, so every eviction demotes to int8 and every resume
         # decodes through quant_decode_attention.
         with MarvelClient(cluster("int8", lossless=False, warm_pool=4)) as client:
-            pool = client.serving(params, cfg, prompt_len=prompt_len,
-                                  max_tokens=max_tokens, device=dev)
+            pool = serve(client)
             convs = [f"c{i}" for i in range(n_convs)]
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -752,76 +786,10 @@ def phase_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
              quantized_blocks=stats["quantized_blocks"],
              int8_decode_calls=counts["int8_done"]["quant_decode_attention"])
 
-        # (b) lossless pool: "b" is suspended to PMEM and resumed midway;
-        # "a" never is; "c" runs ahead for the restart check.
-        half = lossless_steps // 2
-        lossless = cluster("lossless", lossless=True, warm_pool=8)
-        with MarvelClient(lossless) as client:
-            pool = client.serving(params, cfg, prompt_len=prompt_len,
-                                  max_tokens=max_tokens, device=dev)
-            stream = {c: [_tok(pool.start(c, prompts[0]))] for c in ("a", "b")}
-            for c in ("a", "b"):
-                for _ in range(half):
-                    stream[c].append(_tok(pool.step(c)))
-            check(pool.suspend("b") and not pool.is_resident("b"),
-                  "suspend did not demote the conversation")
-            check(pool.resume("b"), "resume refused")
-            mark("resumed")
-            stream["c"] = [_tok(pool.start("c", prompts[0]))]
-            timers = [_Spy(decode_runtime, "decode_step", timed=True),
-                      _Spy(pool.pager, "load", timed=True),
-                      _Spy(pool.pager, "write", timed=True)]
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            try:
-                for c in ("a", "b"):
-                    for _ in range(lossless_steps - half):
-                        stream[c].append(_tok(pool.step(c)))
-                torch.cuda.synchronize()
-                hot_s = time.perf_counter() - t
-            finally:
-                for timer in timers:
-                    timer.restore()
-            hot_steps = 2 * (lossless_steps - half)
-            breakdown = {f"{timer.name}_ms_per_step":
-                         timer.seconds / hot_steps * 1e3 for timer in timers}
-            mark("after_resume")
-            layers, _ = pool.pager.load(pool._scoped("b"))
-            check(layers[0].k.device == dev,
-                  "a resumed session decodes on host tensors")
-            for _ in range(lossless_steps + 4):
-                stream["c"].append(_tok(pool.step("c")))
-            check(stream["a"] == stream["b"],
-                  f"lossless suspend/resume changed the tokens: "
-                  f"{stream['a']} vs {stream['b']}")
-            check(stream["c"][:len(stream["a"])] == stream["a"],
-                  "the same prompt decoded to different tokens")
-            blobs_a, blobs_b = _blobs(pool, "a"), _blobs(pool, "b")
-            check(blobs_a.keys() == blobs_b.keys() and blobs_a == blobs_b,
-                  "lossless paging is not byte-identical")
-            client.runtime.commit_all()
-            pool.pager.sync()
-        emit("serving_lossless", steps=lossless_steps, suspended_at=half,
-             identical_tokens=True, identical_blobs=True, blobs=len(blobs_a),
-             blob_bytes=sum(map(len, blobs_a.values())),
-             hot_decode_s=hot_s, hot_tokens_per_s=hot_steps / hot_s,
-             step_ms=hot_s / hot_steps * 1e3, **breakdown)
-
-        # (c) restart: a fresh client over the same durable config
-        with MarvelClient(lossless) as client:
-            pool = client.serving(params, cfg, prompt_len=prompt_len,
-                                  max_tokens=max_tokens, device=dev)
-            adopted = pool.pager.recover()
-            check(adopted == 3, f"restart re-adopted {adopted} of 3 sessions")
-            resumed = [_tok(pool.step("a")) for _ in range(4)]
-            want = stream["c"][len(stream["a"]):len(stream["a"]) + 4]
-            check(resumed == want, f"after the restart 'a' decoded {resumed}, "
-                  f"the uninterrupted run {want}")
-            fresh = _tok(pool.start("d", prompts[1]))
-            check(fresh == firsts[1], "a new conversation after the restart "
-                  "did not reproduce the first token of the same prompt")
-            mark("after_restart")
-        emit("serving_restart", adopted=adopted, continued=resumed, matches=True)
+        # (b) lossless suspend/resume and (c) a restart
+        stream_c = lossless_and_restart(
+            cluster("lossless", lossless=True, warm_pool=8), serve, prompts,
+            firsts, lossless_steps, mark, "serving", dev)
     finally:
         for spy in (flash_spy, decode_spy, quant_spy):
             spy.restore()
@@ -838,7 +806,7 @@ def phase_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
     # (d) consistency at full width: decode-step logits at position t
     # against a fresh prefill over the same tokens (holds the two kernels
     # against each other).
-    tokens = torch.tensor([prompts[0, 0].tolist() + stream["c"][:max_tokens]],
+    tokens = torch.tensor([prompts[0, 0].tolist() + stream_c[:max_tokens]],
                           dtype=torch.int32, device=dev)
     rel, agree, n_dec = decode_vs_prefill(params, cfg, tokens, prompt_len,
                                           max_tokens)
@@ -855,6 +823,88 @@ def phase_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
     emit("serving_profile", **profile_decode(params, cfg, tokens, prompt_len,
                                              max_tokens))
     return launches, flash_spy.last, decode_spy.last
+
+
+def lossless_and_restart(config, serve, prompts, firsts, lossless_steps: int,
+                         mark, label: str, dev):
+    """(b) and (c) of a serving phase.  In a lossless pool over
+    ``config``, "b" is suspended to PMEM and resumed midway and "a" never
+    is: both must decode the same tokens and leave byte-identical blobs;
+    "c" runs ahead on the same prompt, timed per step (``decode_step``,
+    ``KVPager.load``, ``KVPager.write``).  Then a fresh client over the
+    same durable ``config`` re-adopts the three sessions and decodes on
+    exactly.  ``serve(client)`` builds the pool; ``mark`` is called at
+    "resumed", "after_resume" and "after_restart".  Returns "c"'s
+    tokens."""
+    from repro_torch.api import MarvelClient
+    from repro_torch.serving import decode_runtime
+
+    half = lossless_steps // 2
+    with MarvelClient(config) as client:
+        pool = serve(client)
+        stream = {c: [_tok(pool.start(c, prompts[0]))] for c in ("a", "b")}
+        for c in ("a", "b"):
+            for _ in range(half):
+                stream[c].append(_tok(pool.step(c)))
+        check(pool.suspend("b") and not pool.is_resident("b"),
+              "suspend did not demote the conversation")
+        check(pool.resume("b"), "resume refused")
+        mark("resumed")
+        stream["c"] = [_tok(pool.start("c", prompts[0]))]
+        timers = [_Spy(decode_runtime, "decode_step", timed=True),
+                  _Spy(pool.pager, "load", timed=True),
+                  _Spy(pool.pager, "write", timed=True)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            for c in ("a", "b"):
+                for _ in range(lossless_steps - half):
+                    stream[c].append(_tok(pool.step(c)))
+            torch.cuda.synchronize()
+            hot_s = time.perf_counter() - t
+        finally:
+            for timer in timers:
+                timer.restore()
+        hot_steps = 2 * (lossless_steps - half)
+        breakdown = {f"{timer.name}_ms_per_step":
+                     timer.seconds / hot_steps * 1e3 for timer in timers}
+        mark("after_resume")
+        layers, _ = pool.pager.load(pool._scoped("b"))
+        check(all(x.device == dev for x in _leaves(layers)),
+              "a resumed session decodes on host tensors")
+        for _ in range(lossless_steps + 4):
+            stream["c"].append(_tok(pool.step("c")))
+        check(stream["a"] == stream["b"],
+              f"lossless suspend/resume changed the tokens: "
+              f"{stream['a']} vs {stream['b']}")
+        check(stream["c"][:len(stream["a"])] == stream["a"],
+              "the same prompt decoded to different tokens")
+        blobs_a, blobs_b = _blobs(pool, "a"), _blobs(pool, "b")
+        check(blobs_a.keys() == blobs_b.keys() and blobs_a == blobs_b,
+              "lossless paging is not byte-identical")
+        client.runtime.commit_all()
+        pool.pager.sync()
+    emit(f"{label}_lossless", steps=lossless_steps, suspended_at=half,
+         identical_tokens=True, identical_blobs=True, blobs=len(blobs_a),
+         blob_bytes=sum(map(len, blobs_a.values())),
+         hot_decode_s=hot_s, hot_tokens_per_s=hot_steps / hot_s,
+         step_ms=hot_s / hot_steps * 1e3, **breakdown)
+
+    # (c) restart: a fresh client over the same durable config
+    with MarvelClient(config) as client:
+        pool = serve(client)
+        adopted = pool.pager.recover()
+        check(adopted == 3, f"restart re-adopted {adopted} of 3 sessions")
+        resumed = [_tok(pool.step("a")) for _ in range(4)]
+        want = stream["c"][len(stream["a"]):len(stream["a"]) + 4]
+        check(resumed == want, f"after the restart 'a' decoded {resumed}, "
+              f"the uninterrupted run {want}")
+        fresh = _tok(pool.start("d", prompts[1]))
+        check(fresh == firsts[1], "a new conversation after the restart "
+              "did not reproduce the first token of the same prompt")
+        mark("after_restart")
+    emit(f"{label}_restart", adopted=adopted, continued=resumed, matches=True)
+    return stream["c"]
 
 
 @torch.no_grad()
@@ -930,6 +980,325 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
         "top_kernels_ms_per_step": {
             e.key[:60]: e.self_device_time_total / steps / 1e3 for e in top},
     }
+
+
+# -- phase 9: the SSD kernel against its plain version ----------------------
+
+#: tolerance of the SSD kernel against its plain version, abs and rel: the
+#: reference's own kernel test (tests/test_kernels.py:112-115).
+SSD_TOL = 2e-3
+
+
+class SSDRecord:
+    """Checks of the SSD kernel: its largest error against the plain
+    version, and the number of cases checked."""
+
+    def __init__(self) -> None:
+        self.max_abs_err = 0.0
+        self.checks = 0
+
+    def compare(self, case: str, args, oracle: bool = False) -> float:
+        """Kernel against the plain version on ``args`` (and against the
+        exp-then-mask oracle when ``oracle``), with two kernel runs
+        compared bit for bit."""
+        from repro_torch.kernels import ref, ssd_scan
+
+        got = ssd_scan.ssd_chunk_fwd(*args)
+        again = ssd_scan.ssd_chunk_fwd(*args)
+        wants = [ssd_scan.ssd_chunk_torch(*args)]
+        if oracle:
+            wants.append(ref.ssd_chunk_ref(*args))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"ssd_chunk {case}: two runs on the same inputs differ")
+        err = 0.0
+        for want in wants:
+            for name, g, w in zip(("y_diag", "states"), got, want):
+                check(g.shape == w.shape and g.dtype == torch.float32,
+                      f"ssd_chunk {case} {name}: {g.dtype} {tuple(g.shape)}, "
+                      f"want {tuple(w.shape)}")
+                check(bool(torch.isfinite(g).all()),
+                      f"ssd_chunk {case} {name}: non-finite output")
+                diff = (g - w).abs()
+                if diff.numel():
+                    worst = float((diff - SSD_TOL * w.abs()).max())
+                    check(worst <= SSD_TOL, f"ssd_chunk {case} {name}: "
+                          f"|err| - rtol*|want| = {worst} > {SSD_TOL}")
+                    err = max(err, float(diff.max()))
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.checks += 1
+        return err
+
+
+def ssd_inputs(g, dev, BC, Q, H, P, N, decay=0.1, shared=True):
+    """x, dt, dA_cs, B, C as the reference's kernel test draws them (dA_cs a
+    decreasing cumulative sum within the chunk); ``shared`` hands B and C
+    over as one group read by every head (an expand view, head stride 0),
+    as the model does."""
+    x = torch.randn(BC, Q, H, P, generator=g, device=dev)
+    dt = torch.rand(BC, Q, H, generator=g, device=dev)
+    dA = -torch.cumsum(torch.rand(BC, Q, H, generator=g, device=dev) * decay, 1)
+    heads = 1 if shared else H
+    Bm = torch.randn(BC, Q, heads, N, generator=g, device=dev)
+    Cm = torch.randn(BC, Q, heads, N, generator=g, device=dev)
+    return x, dt, dA, Bm.expand(-1, -1, H, -1), Cm.expand(-1, -1, H, -1)
+
+
+def phase_ssd_kernel(dev, seed: int, rec: SSDRecord) -> None:
+    """The SSD kernel against its plain version on the card: the prefill's
+    shape, then the edge cases of the contract."""
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    path = (4, 256, 80, 64, 128)  # a 1024-token mamba2-2.7b prefill
+    args = ssd_inputs(g, dev, *path)
+    err = rec.compare("path", args)
+    emit("ssd_edge", case="path", shape=list(path), max_abs_err=err, ok=True)
+    # the shared group read through a head stride of 0 gives the same bytes
+    # as the same values copied per head
+    from repro_torch.kernels import ssd_scan
+
+    view = ssd_scan.ssd_chunk_fwd(*args)
+    copied = ssd_scan.ssd_chunk_fwd(*args[:3], *(t.contiguous() for t in args[3:]))
+    check(all(torch.equal(a, b) for a, b in zip(view, copied)),
+          "ssd_chunk: a head-stride-0 B/C gives other bytes than its copy")
+    emit("ssd_edge", case="stride0_equals_copy", ok=True)
+    del args, view, copied
+    for case, shape, kw in (
+        ("per_head_BC", path, {"shared": False}),
+        ("Q=1", (2, 1, 80, 64, 128), {}),
+        ("Q=37", (3, 37, 80, 64, 128), {}),
+        ("H=6", (2, 100, 6, 16, 16), {}),
+        ("P16_N128", (2, 200, 5, 16, 128), {}),
+        ("P32_N32", (2, 200, 5, 32, 32), {}),
+        ("P128_N64", (2, 200, 5, 128, 64), {"shared": False}),
+        ("P128_N128", (2, 256, 5, 128, 128), {}),
+        ("P64_N16", (2, 130, 5, 64, 16), {}),
+    ):
+        err = rec.compare(case, ssd_inputs(g, dev, *shape, **kw))
+        emit("ssd_edge", case=case, shape=list(shape), max_abs_err=err, ok=True,
+             **kw)
+    # dA_cs falling by up to 100 a row: the oracle's exp above the diagonal
+    # overflows to inf before its mask, which the kernel never computes
+    args = ssd_inputs(g, dev, 2, 256, 8, 64, 128, decay=100.0)
+    da = args[2]
+    check(bool(torch.isinf(torch.exp(da[:, :, None] - da[:, None])).any()),
+          "the strongly negative case does not overflow exp")
+    err = rec.compare("strongly_negative", args, oracle=True)
+    emit("ssd_edge", case="strongly_negative", decay=100.0, max_abs_err=err,
+         ok=True)
+
+
+def measure_ssd(x, dt, dA_cs, Bm, Cm) -> dict:
+    """Kernel and plain-version times at the path's shape, and the bound:
+    the larger of the bytes (each input read once, a stride-0 B/C once per
+    chunk, the outputs written once) over the memory rate and the causal
+    products over the TF32 peak.  No single PyTorch call computes this
+    function, so there is no library time."""
+    from repro_torch.kernels import ssd_scan
+
+    BC, Q, H, P = x.shape
+    N = Bm.shape[-1]
+    kernel_ms = time_ms(lambda: ssd_scan.ssd_chunk_fwd(x, dt, dA_cs, Bm, Cm))
+    plain_ms = time_ms(lambda: ssd_scan.ssd_chunk_torch(x, dt, dA_cs, Bm, Cm),
+                       reps=5)
+    bc_heads = [1 if t.stride(2) == 0 else H for t in (Bm, Cm)]
+    nbytes = 4 * (2 * x.numel() + 2 * dt.numel()
+                  + sum(BC * Q * h * N for h in bc_heads) + BC * H * P * N)
+    pairs = Q * (Q + 1) // 2
+    flops = BC * H * (2 * pairs * (N + P) + 2 * Q * P * N)
+    ops_ms = flops / TF32_FLOPS * 1e3
+    bytes_ms = bytes_bound_ms(nbytes)
+    return {
+        "shape": {"BC": BC, "Q": Q, "H": H, "P": P, "N": N,
+                  "B_C_head_stride_0": bc_heads == [1, 1], "dtype": "float32"},
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+# -- phase 10: serving Mamba-2 at full mamba2-2.7b width ----------------------
+
+def draw_ssm_params(cfg, seed: int, dev):
+    """Random bf16 weights for a Mamba-2 ``cfg``, drawn on the card from
+    ``seed`` with the model's own init, then with the three leaves that
+    init simplifies set as Mamba-2's published init sets them: ``dt_bias``
+    so that softplus gives dt log-uniform in [0.001, 0.1], ``A_log`` as
+    log U[1, 16], and the output projection ``wo`` divided by
+    sqrt(n_layers) (the pre-norm residual rescaling).
+
+    The model's own init (``dt_bias`` 0, ``A_log`` 0) gives dt near 0.7
+    and one decay for every head, so the recurrent state forgets within
+    a token or two and a state restored wrongly after a resume would
+    barely change the tokens.  With the published dt and A most heads
+    carry the state over tens to thousands of tokens, so the paging
+    checks depend on it.
+    """
+    from repro_torch.models import init_params, model_defs
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(model_defs(cfg), g, dev)
+    for block in [*params["prelude"], *params["body"], *params["postlude"]]:
+        mixer = block["mixer"]
+        dt = torch.exp(torch.rand(mixer["dt_bias"].shape, generator=g, device=dev)
+                       * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+        dt = dt.clamp_min(1e-4)
+        mixer["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+        a = torch.rand(mixer["A_log"].shape, generator=g, device=dev) * 15 + 1
+        mixer["A_log"].copy_(torch.log(a))
+        mixer["wo"].mul_(1 / math.sqrt(cfg.n_layers))
+    return params
+
+
+def phase_ssm_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
+                      n_convs: int, steps: int, lossless_steps: int,
+                      workdir: Path):
+    """Marvel-Serve over Mamba-2 through ``MarvelClient.serving`` on the
+    card: conversations interleaved over a warm pool half their number
+    (each eviction pushes a recurrent state to PMEM, each next step resumes
+    one), lossless suspend/resume byte identity, a restart that re-adopts
+    the sessions, and decode-step logits against a fresh prefill.  Returns
+    the SSD kernel's launches on the path and the arguments of its last
+    call there."""
+    from repro_torch.api import ClusterConfig, MarvelClient, ServingConfig, TierSpec
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.models import init_params, model_defs
+
+    t0 = time.perf_counter()
+    params = draw_ssm_params(cfg, seed, dev)
+    s = cfg.ssm
+    H, P, N = s.n_heads(cfg.d_model), s.head_dim, s.d_state
+    convdim = s.d_inner(cfg.d_model) + 2 * s.n_groups * N
+    state_bytes = cfg.n_periods * H * P * N * 4
+    conv_bytes = cfg.n_periods * (s.d_conv - 1) * convdim * 2
+    rng = np.random.default_rng(seed + 3)
+    prompts = rng.integers(0, cfg.vocab, (n_convs, 1, prompt_len), dtype=np.int32)
+    torch.cuda.synchronize()
+    emit("ssm_setup", model=cfg.name, params=sum(p.numel() for p in _leaves(params)),
+         param_bytes=sum(p.numel() * p.element_size() for p in _leaves(params)),
+         layers=cfg.n_layers, d_model=cfg.d_model, heads=H, head_dim=P,
+         d_state=N, chunk=s.chunk, prompt_len=prompt_len,
+         conversations=n_convs, state_bytes=state_bytes, conv_bytes=conv_bytes,
+         setup_s=time.perf_counter() - t0)
+
+    def cluster(name: str, warm_pool: int) -> ClusterConfig:
+        # lossless: a recurrent state has nothing to quantize, and a lossy
+        # pager would only rewrite it whole before each demotion
+        root = workdir / name
+        return ClusterConfig(
+            name=name,
+            tiers=(TierSpec("dram"), TierSpec("pmem", path=str(root / "pmem"))),
+            invokers=1, warm_pool=warm_pool, commit_every=1,
+            journal="pmem", journal_path=str(root / "journal"),
+            serving=ServingConfig(block_tokens=16, lossless=True),
+        )
+
+    def serve(client):
+        return client.serving(params, cfg, prompt_len=prompt_len,
+                              max_tokens=max_tokens, device=dev)
+
+    ssd_spy = _Spy(ops, "ssd_chunk")
+    counts = {}
+
+    def mark(at: str) -> None:
+        counts[at] = ssd_scan.launches
+
+    ssd_scan.launches = 0  # the Mamba-2 serving path starts here
+    try:
+        # (a) more conversations than warm slots, steps interleaved: every
+        # eviction pushes a state to PMEM, every next step resumes one
+        with MarvelClient(cluster("ssm_pool", warm_pool=n_convs // 2)) as client:
+            pool = serve(client)
+            convs = [f"m{i}" for i in range(n_convs)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            firsts = [_tok(pool.start(c, prompts[i])) for i, c in enumerate(convs)]
+            prefill_s = time.perf_counter() - t
+            mark("pool_prefilled")
+            streams = {c: [] for c in convs}
+            t = time.perf_counter()
+            for _ in range(steps):
+                for c in convs:
+                    streams[c].append(_tok(pool.step(c)))
+            torch.cuda.synchronize()
+            pool_s = time.perf_counter() - t
+            stats = pool.stats()
+            layers, _ = pool.pager.load(pool._scoped(convs[0]))
+        check(stats["demotions"] >= n_convs * steps and stats["resumes"] > 0,
+              f"the pool did not evict and resume every step: {stats}")
+        check([tuple(l.shape) for l in layers]
+              == [(cfg.n_periods, 1, s.d_conv - 1, convdim),
+                  (cfg.n_periods, 1, H, P, N)]
+              and layers[1].dtype == torch.float32
+              and all(l.device == dev for l in layers),
+              "a resumed Mamba-2 session did not come back as its conv window "
+              "and f32 state on the card")
+        del layers
+        toks = [x for c in convs for x in streams[c]] + firsts
+        check(all(0 <= x < cfg.vocab for x in toks), "token out of vocabulary")
+        emit("ssm_pool", conversations=n_convs, warm_pool=n_convs // 2,
+             steps_each=steps, prefill_s=prefill_s,
+             prefill_tokens_per_s=n_convs * prompt_len / prefill_s,
+             decode_s=pool_s, tokens_per_s=n_convs * steps / pool_s,
+             demotions=stats["demotions"], resumes=stats["resumes"],
+             demand_faults=stats["demand_faults"],
+             blocks_written=stats["blocks_written"])
+        shutil.rmtree(workdir / "ssm_pool", ignore_errors=True)
+
+        # (b) lossless suspend/resume and (c) a restart
+        stream_c = lossless_and_restart(
+            cluster("ssm_lossless", warm_pool=8), serve, prompts, firsts,
+            lossless_steps, mark, "ssm", dev)
+    finally:
+        ssd_spy.restore()
+    launches = counts["after_restart"]  # ... and ends here
+    check(counts["pool_prefilled"] >= n_convs * cfg.n_layers,
+          f"ssd_chunk launched {counts['pool_prefilled']} times for "
+          f"{n_convs} prefills of {cfg.n_layers} layers")
+    check(counts["after_resume"] > counts["resumed"],
+          "ssd_chunk did not launch after the resume")
+    check(counts["after_restart"] > counts["after_resume"],
+          "ssd_chunk did not launch after the restart")
+    emit("ssm_launches", **counts)
+
+    # (d) decode-step logits (the recurrent form, no kernel) against a fresh
+    # prefill over the same tokens (the kernel; 1024 plus the new tokens is
+    # no multiple of the chunk, so the zero-dt padding runs), with the
+    # served weights computed in f32.  In bf16 this random 64-layer model
+    # amplifies the rounding differences of the two forms (their GEMMs
+    # see 1 row and 1036) to a few percent: that error is printed beside
+    # the checked one, not held.
+    tokens = torch.tensor([prompts[0, 0].tolist() + stream_c[:max_tokens]],
+                          dtype=torch.int32, device=dev)
+    f32 = _tree_map(lambda t: t.float(), params)
+    rel, agree, n_dec = decode_vs_prefill(f32, cfg, tokens, prompt_len,
+                                          max_tokens)
+    del f32
+    check(rel <= 2e-2, f"Mamba-2 decode vs prefill logits: relative L2 error "
+          f"{rel} > 2e-2")
+    bf16_rel, bf16_agree, _ = decode_vs_prefill(params, cfg, tokens,
+                                                prompt_len, max_tokens)
+    own = init_params(model_defs(cfg), torch.Generator(device=dev).manual_seed(seed), dev)
+    own_rel, own_agree, _ = decode_vs_prefill(own, cfg, tokens, prompt_len,
+                                              max_tokens)
+    del own
+    emit("ssm_consistency", positions=n_dec, weights="served, in f32",
+         max_rel_l2=rel, argmax_agreement=agree, tolerance=2e-2,
+         prefill_tokens=prompt_len + n_dec - 1, chunk=s.chunk,
+         bf16_max_rel_l2=bf16_rel, bf16_argmax_agreement=bf16_agree,
+         own_init_bf16_max_rel_l2=own_rel,
+         own_init_bf16_argmax_agreement=own_agree)
+    emit("ssm_profile", **profile_decode(params, cfg, tokens, prompt_len,
+                                         max_tokens))
+    return launches, ssd_spy.last
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return type(tree)(_tree_map(fn, v) for v in tree)
 
 
 def _leaves(tree):
@@ -1019,6 +1388,23 @@ def main(argv=None) -> int:
     (dq, dk, dv, dlen), _ = decode_last
     decode_shape = measure_decode(dq, dk, dv, dlen)
     emit("decode_path_shape", **decode_shape)
+    del flash_last, decode_last, fq, fk, fv, dq, dk, dv
+    torch.cuda.empty_cache()
+
+    ssd_rec = SSDRecord()
+    t0 = time.perf_counter()
+    phase_ssd_kernel(dev, args.seed, ssd_rec)
+    torch.cuda.empty_cache()
+    emit("phase_done", name="ssd_kernel", s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as workdir:
+        ssd_launches, ssd_last = phase_ssm_serving(
+            dev, args.seed, get_config(SSM_MODEL), SSM_PROMPT, SSM_MAX_TOKENS,
+            SSM_CONVS, SSM_STEPS, SSM_LOSSLESS_STEPS, Path(workdir),
+        )
+    emit("phase_done", name="ssm_serving", s=time.perf_counter() - t0)
+    ssd_shape = measure_ssd(*ssd_last[0])
+    emit("ssd_path_shape", **ssd_shape)
 
     def row(name, source, replaces, n, record_err, checks, m, extra):
         return {
@@ -1042,6 +1428,9 @@ def main(argv=None) -> int:
             "src/repro/kernels/decode_attention.py:127",
             serve_launches["decode_attention"], decode_rec.max_abs_err,
             decode_rec.checks, decode_shape, decode_shape["shape"]),
+        row("ssd_chunk", "src/repro_torch/csrc/ssd_scan.cu",
+            "src/repro/kernels/ssd_scan.py:80", ssd_launches,
+            ssd_rec.max_abs_err, ssd_rec.checks, ssd_shape, ssd_shape["shape"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

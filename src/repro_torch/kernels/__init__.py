@@ -6,10 +6,9 @@ Pallas TPU kernels, each with a plain PyTorch version beside it:
   * flash_attention: prefill attention forward
     (``csrc/flash_attention.cu``);
   * decode_attention: single-token attention over a KV cache, every
-    decode step (``csrc/decode_attention.cu``).
-
-The Mamba-2 SSD kernel of the reference package waits for a later slice
-(ROADMAP.md, queue B).
+    decode step (``csrc/decode_attention.cu``);
+  * ssd_scan: the Mamba-2 SSD within-chunk step, every Mamba-2 prefill
+    (``csrc/ssd_scan.cu``).
 
 Sources are compiled with ``nvcc`` at first use (``_build.py``).
 """

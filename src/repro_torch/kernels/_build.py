@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "build", "load"]
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parents[1] / "build" / "repro_torch"
-SOURCES = ("bucket_histogram", "flash_attention", "decode_attention")
+SOURCES = ("bucket_histogram", "flash_attention", "decode_attention", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

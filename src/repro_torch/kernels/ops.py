@@ -1,27 +1,31 @@
 """Public wrappers for the port's CUDA kernels.
 
 The wrappers run the kernel for tensors on the card and the plain
-version for tensors on the CPU (see each kernel's module).  The shuffle
-histogram and both attention kernels are ported; the SSD kernel of the
-reference package waits for a later slice (ROADMAP.md, queue B).  Unlike
-the reference's wrappers, the attention entry points take GQA as it comes
-(k/v with ``Kv`` heads) and read the caches in place: no repeated or
-transposed copy.
+version for tensors on the CPU (see each kernel's module).  Every
+Pallas kernel of the reference package has its counterpart here: the
+shuffle histogram, both attention kernels and the SSD chunk.  Unlike the
+reference's wrappers, the attention entry points take GQA as it comes
+(k/v with ``Kv`` heads) and read the caches in place, and the SSD entry
+point reads B/C through their strides (a head stride of 0 for a shared
+group): no repeated, transposed or broadcast copy.  It has no
+``head_block``: that is a TPU tiling choice.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.bucket_histogram import bucket_histogram
 from repro_torch.kernels.decode_attention import decode_attention as _decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.ssd_scan import ssd_chunk_fwd
 
 __all__ = [
     "flash_attention",
     "decode_attention",
+    "ssd_chunk",
     "shuffle_histogram",
     "partition_counts",
 ]
@@ -51,6 +55,18 @@ def decode_attention(
 ) -> torch.Tensor:
     """Single-token GQA attention over a KV cache -> (B, H, dh)."""
     return _decode(q, k_cache, v_cache, lengths, scale=scale, softcap=softcap)
+
+
+def ssd_chunk(
+    x: torch.Tensor,  # (BC, Q, H, P)
+    dt: torch.Tensor,  # (BC, Q, H)
+    dA_cs: torch.Tensor,  # (BC, Q, H)
+    Bm: torch.Tensor,  # (BC, Q, H, N)
+    Cm: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD within-chunk output and chunk states -> (y_diag (BC, Q, H, P),
+    states (BC, H, P, N)), f32."""
+    return ssd_chunk_fwd(x, dt, dA_cs, Bm, Cm)
 
 
 def shuffle_histogram(

@@ -2,9 +2,10 @@
 
 ``bucket_histogram_ref`` counts the way the TPU kernel does, as the column
 sums of a one-hot ``(N, n_buckets)`` panel, so it is for test sizes only.
-The attention oracles are the reference package's ``kernels/ref.py``
-contracts, in its heads-flattened layouts and in f32: the same math with
-no tiling (``decode_attention_ref`` gives the mean of V where
+The attention and SSD oracles are the reference package's
+``kernels/ref.py`` contracts, in its layouts (heads flattened for
+attention, ``(BC, Q, H, ·)`` for SSD) and in f32: the same math with no
+tiling (``decode_attention_ref`` gives the mean of V where
 ``lengths[b] == 0``, as the reference's oracle does).
 """
 
@@ -15,7 +16,12 @@ from typing import Optional
 
 import torch
 
-__all__ = ["bucket_histogram_ref", "flash_attention_ref", "decode_attention_ref"]
+__all__ = [
+    "bucket_histogram_ref",
+    "flash_attention_ref",
+    "decode_attention_ref",
+    "ssd_chunk_ref",
+]
 
 
 def bucket_histogram_ref(
@@ -67,3 +73,22 @@ def decode_attention_ref(
     s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bsd->bhd", p, v_cache.float()).to(q.dtype)
+
+
+def ssd_chunk_ref(x, dt, dA_cs, Bm, Cm):
+    """(BC,Q,H,P),(BC,Q,H),(BC,Q,H),(BC,Q,H,N)x2 -> (y_diag, states).
+
+    The decay is taken for every (q, j) and masked after ``exp``, as the
+    reference's oracle does: entries above the diagonal may overflow to
+    ``inf`` and are then replaced by 0."""
+    xf, dtf, da, Bf, Cf = (t.float() for t in (x, dt, dA_cs, Bm, Cm))
+    Q = x.shape[1]
+    decay = torch.exp(da[:, :, None, :] - da[:, None, :, :])  # (BC,Qi,Qj,H)
+    tril = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    decay = torch.where(tril[None, :, :, None], decay, torch.zeros_like(decay))
+    cb = torch.einsum("bqhn,bjhn->bqjh", Cf, Bf)
+    y = torch.einsum("bqjh,bjh,bjhp->bqhp", cb * decay, dtf, xf)
+    seg = da[:, -1]  # (BC, H)
+    sdecay = torch.exp(seg[:, None, :] - da) * dtf  # (BC, Q, H)
+    S = torch.einsum("bjh,bjhn,bjhp->bhpn", sdecay, Bf, xf)
+    return y, S

@@ -1,7 +1,8 @@
-"""Model zoo of the port: config schema, shared layers, and the dense
-attention transformer (GQA attention blocks with dense FFNs) assembled in
-``transformer.py``.  The other mixers of the reference package (MLA, MoE,
-Mamba-2 SSD, RG-LRU) wait for later slices (ROADMAP.md, queue A item 9).
+"""Model zoo of the port: config schema, shared layers, and the models
+assembled in ``transformer.py`` from GQA attention blocks with dense FFNs
+and from Mamba-2 SSD blocks (``ssm.py``).  The other mixers of the
+reference package (MLA, MoE, RG-LRU) wait for later slices (ROADMAP.md,
+queue A item 9).
 """
 
 from repro_torch.models.config import (
@@ -16,6 +17,7 @@ from repro_torch.models.config import (
 )
 from repro_torch.models.convert import from_jax_params
 from repro_torch.models.param import ParamDef, init_params, stack_defs
+from repro_torch.models.ssm import SSMCache
 from repro_torch.models.transformer import (
     decode_step,
     forward,
@@ -32,6 +34,7 @@ __all__ = [
     "RGLRUConfig",
     "SSMConfig",
     "ShapeConfig",
+    "SSMCache",
     "reduced_for_smoke",
     "from_jax_params",
     "ParamDef",

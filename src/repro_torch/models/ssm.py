@@ -1,0 +1,242 @@
+"""Mamba-2 SSD (state-space duality) block: chunked parallel form for
+prefill, O(1) recurrent form for decode.
+
+The port of ``repro/models/ssm.py``.  Within-chunk work (the quadratic,
+attention-like term and each chunk's state) runs on the SSD kernel through
+:func:`repro_torch.kernels.ops.ssd_chunk`; the inter-chunk recurrence is a
+Python loop over the chunks (the reference's ``lax.scan``) and the
+off-diagonal term a torch einsum, as the reference leaves both outside its
+Pallas kernel.  The single B/C group is handed to the kernel as an
+``expand`` view over the heads, not the reference's broadcast copy.
+
+Decode state is ``(B, H, P, N)`` f32, constant in sequence length.
+:func:`ssm_decode` writes the new conv window and state into the cache it
+is given (the period views of the stacked body cache), so a decode step
+updates the cache in place, as attention decode does.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.param import FSDP, TP, ParamDef
+
+__all__ = ["ssm_defs", "ssm_apply", "ssm_decode", "init_ssm_cache", "SSMCache"]
+
+
+def ssm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    s = cfg.ssm
+    D = cfg.d_model
+    di = s.d_inner(D)
+    H = s.n_heads(D)
+    G, N = s.n_groups, s.d_state
+    convdim = di + 2 * G * N
+    return {
+        "wz": ParamDef((D, di), (FSDP, TP)),
+        "wx": ParamDef((D, di), (FSDP, TP)),
+        "wB": ParamDef((D, G * N), (FSDP, None)),
+        "wC": ParamDef((D, G * N), (FSDP, None)),
+        "wdt": ParamDef((D, H), (FSDP, TP)),
+        "conv_w": ParamDef((s.d_conv, convdim), (None, None)),
+        "conv_b": ParamDef((convdim,), (None,), init_scale=0.0),
+        "A_log": ParamDef((H,), (TP,), dtype=torch.float32, init_value=0.0),
+        "Dskip": ParamDef((H,), (TP,), dtype=torch.float32, init_value=1.0),
+        "dt_bias": ParamDef((H,), (TP,), dtype=torch.float32, init_value=0.0),
+        "norm": ParamDef((di,), (TP,), init_value=1.0),
+        "wo": ParamDef((di, D), (TP, FSDP)),
+    }
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d in f32, cast back to u's type.
+    u: (B, T, C); w: (K, C)."""
+    K, T = w.shape[0], u.shape[1]
+    up = F.pad(u, (0, 0, K - 1, 0))
+    out = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+    for i in range(K):  # K is tiny (4); unrolled taps
+        out = out + up[:, i : i + T].float() * w[i].float()
+    return F.silu(out + b.float()).to(u.dtype)
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``pad`` zero rows after the sequence axis (1).  A ``(B, L, H, N)``
+    view whose head axis has stride 0 stays one: one row is padded and
+    expanded again, so no per-head copy is made."""
+    if t.dim() == 4 and t.stride(2) == 0:
+        row = F.pad(t[:, :, :1], (0, 0, 0, 0, 0, pad))
+        return row.expand(-1, -1, t.shape[2], -1)
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+
+def _ssd_chunked(
+    x: torch.Tensor,  # (B, L, H, P)
+    dt: torch.Tensor,  # (B, L, H) f32, post-softplus
+    A: torch.Tensor,  # (H,) f32, negative
+    Bm: torch.Tensor,  # (B, L, H, N), a head stride of 0 allowed
+    Cm: torch.Tensor,  # (B, L, H, N)
+    chunk: int,
+    h0: Optional[torch.Tensor] = None,  # (B, H, P, N) initial state
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan. Returns (y (B, L, H, P), final state (B, H, P, N))."""
+    B_, L, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, L)
+    L_orig = L
+    pad = (-L) % Q
+    if pad:
+        # Zero-dt padding is a no-op in the recurrence (decay exp(0) = 1,
+        # state contribution 0); padded outputs are sliced off below.
+        x, dt, Bm, Cm = (_pad_seq(t, pad) for t in (x, dt, Bm, Cm))
+        L = L + pad
+    nc = L // Q
+    xc = x.reshape(B_ * nc, Q, H, P)
+    dtc = dt.reshape(B_ * nc, Q, H)
+    Bc = Bm.reshape(B_ * nc, Q, H, N)
+    Cc = Cm.reshape(B_ * nc, Q, H, N)
+
+    dA_cs = torch.cumsum(dtc * A, dim=1)  # within-chunk cumulative, negative
+    y_diag, S = ops.ssd_chunk(xc, dtc, dA_cs, Bc, Cc)
+    y_diag = y_diag.reshape(B_, nc, Q, H, P)
+    S = S.reshape(B_, nc, H, P, N)
+    dA_cs = dA_cs.reshape(B_, nc, Q, H)
+    seg = dA_cs[:, :, -1]  # (B, nc, H) total decay per chunk
+
+    # Inter-chunk recurrence: h_c = exp(seg_c) h_{c-1} + S_c, keeping the
+    # state *entering* each chunk.
+    h = (h0.float() if h0 is not None
+         else torch.zeros(B_, H, P, N, dtype=torch.float32, device=x.device))
+    h_enter = []
+    for c in range(nc):
+        h_enter.append(h)
+        h = torch.exp(seg[:, c])[:, :, None, None] * h + S[:, c]
+    h_enter = torch.stack(h_enter, dim=1)  # (B, nc, H, P, N)
+
+    # Off-diagonal term: y_off[i] = C_i . (exp(dA_cs[i]) h_enter)
+    y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp",
+                         Cc.reshape(B_, nc, Q, H, N), h_enter, torch.exp(dA_cs))
+    y = (y_diag + y_off).reshape(B_, L, H, P)[:, :L_orig]
+    return y, h
+
+
+class SSMCache(NamedTuple):
+    conv: torch.Tensor  # (B, d_conv-1, convdim) last conv inputs
+    state: torch.Tensor  # (B, H, P, N) fp32 SSM state
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> SSMCache:
+    s = cfg.ssm
+    D = cfg.d_model
+    di = s.d_inner(D)
+    H = s.n_heads(D)
+    convdim = di + 2 * s.n_groups * s.d_state
+    return SSMCache(
+        conv=torch.zeros(batch, s.d_conv - 1, convdim, dtype=dtype,
+                         device=device),
+        state=torch.zeros(batch, H, s.head_dim, s.d_state,
+                          dtype=torch.float32, device=device),
+    )
+
+
+def _project(p, x, cfg):
+    z = x @ p["wz"]
+    xs = x @ p["wx"]
+    Bp = x @ p["wB"]
+    Cp = x @ p["wC"]
+    dt_raw = (x @ p["wdt"]).float()
+    u = torch.cat([xs, Bp, Cp], dim=-1)  # conv input channels
+    return z, u, dt_raw
+
+
+def _split_conv(u, cfg):
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    GN = s.n_groups * s.d_state
+    return u[..., :di], u[..., di : di + GN], u[..., di + GN :]
+
+
+def _group_heads(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(..., G*N) → (..., H, N) f32, each group read by its H/G heads
+    through a stride-0 view (a copy only when G > 1)."""
+    s = cfg.ssm
+    H = s.n_heads(cfg.d_model)
+    G, N = s.n_groups, s.d_state
+    lead = t.shape[:-1]
+    t = t.float().reshape(*lead, G, 1, N).expand(*lead, G, H // G, N)
+    return t.reshape(*lead, H, N)
+
+
+def ssm_apply(
+    p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+    collect_cache: bool = False,
+):
+    """Full-sequence SSD (prefill). x: (B, T, D)."""
+    s = cfg.ssm
+    B_, T, D = x.shape
+    H = s.n_heads(D)
+    P = s.head_dim
+    z, u_pre, dt_raw = _project(p, x, cfg)
+    u = _causal_conv(u_pre, p["conv_w"], p["conv_b"])
+    xs, Bp, Cp = _split_conv(u, cfg)
+    xh = xs.reshape(B_, T, H, P)
+    Bm = _group_heads(Bp, cfg)
+    Cm = _group_heads(Cp, cfg)
+    dt = F.softplus(dt_raw + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, h_final = _ssd_chunked(xh.float(), dt, A, Bm, Cm, s.chunk)
+    y = y + p["Dskip"][None, None, :, None] * xh.float()
+    y = y.reshape(B_, T, H * P).to(x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"])
+    out = y @ p["wo"]
+    if not collect_cache:
+        return out
+    # conv state = raw (pre-conv) inputs of the last K-1 positions
+    conv_tail = u_pre[:, T - (s.d_conv - 1):]
+    return out, SSMCache(conv=conv_tail, state=h_final)
+
+
+def ssm_decode(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # (B, 1, D)
+    cache: SSMCache,  # written in place
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, SSMCache]:
+    """One recurrent step: h' = exp(dt·A) h + dt·(B ⊗ x); y = C·h' + D·x.
+    Returns (out (B, 1, D), ``cache``), its conv window and state updated
+    in place.  Raises when the cache is not on x's device."""
+    if cache.state.device != x.device or cache.conv.device != x.device:
+        raise ValueError(
+            f"decode on {x.device} but the SSM cache is on {cache.state.device}"
+        )
+    s = cfg.ssm
+    B_, _, D = x.shape
+    H = s.n_heads(D)
+    P = s.head_dim
+    z, u, dt_raw = _project(p, x, cfg)  # u: (B, 1, convdim)
+    # conv over (cached last K-1 inputs, current); hist is a new tensor, so
+    # shifting it into the cache below reads nothing the copy overwrites
+    hist = torch.cat([cache.conv, u], dim=1)  # (B, K, convdim)
+    conv_out = torch.einsum("bkc,kc->bc", hist.float(), p["conv_w"].float()) \
+        + p["conv_b"].float()
+    uc = F.silu(conv_out)[:, None, :].to(x.dtype)
+    xs, Bp, Cp = _split_conv(uc, cfg)
+    xh = xs.reshape(B_, H, P).float()
+    Bm = _group_heads(Bp[:, 0], cfg)
+    Cm = _group_heads(Cp[:, 0], cfg)
+    dt = F.softplus(dt_raw[:, 0] + p["dt_bias"])  # (B, H)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt * A)  # (B, H)
+    h = dA[:, :, None, None] * cache.state + torch.einsum(
+        "bh,bhn,bhp->bhpn", dt, Bm, xh
+    )
+    y = torch.einsum("bhn,bhpn->bhp", Cm, h) + p["Dskip"][None, :, None] * xh
+    y = y.reshape(B_, 1, H * P).to(x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"])
+    cache.conv.copy_(hist[:, 1:])
+    cache.state.copy_(h)
+    return y @ p["wo"], cache

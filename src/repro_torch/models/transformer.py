@@ -1,6 +1,6 @@
 """Model assembly: frontend → prelude → period body → postlude → final
 norm → unembed, for blocks whose mixer is attention (``attn``/``local``)
-and whose FFN is dense.
+or Mamba-2 SSD (``ssm``) and whose FFN is dense or absent.
 
 The port of ``repro/models/transformer.py``.  The parameter tree and the
 cache tree keep the reference's layout and names: the repeating block
@@ -8,10 +8,11 @@ pattern is stacked along a leading ``n_periods`` axis (``params["body"]``
 and ``cache["body"]``), so a reference tree converts leaf by leaf and the
 KV pager pages the stacked body cache as one leaf.  The reference scans
 over that axis with ``lax.scan``; here a Python loop indexes it.  Decode
-writes each layer's new K/V row into the stacked cache in place.
+writes each layer's new K/V row, or its new SSM conv window and state,
+into the stacked cache in place.
 
-The other mixers (``mla``, ``ssm``, ``rglru``) and the MoE FFN are not
-ported yet and raise ``NotImplementedError`` (ROADMAP.md, queue A item 9).
+The other mixers (``mla``, ``rglru``) and the MoE FFN are not ported yet
+and raise ``NotImplementedError`` (ROADMAP.md, queue A item 9).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import attention
+from repro_torch.models import attention, ssm
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import layer_norm, mlp_apply, mlp_defs, rms_norm, softcap
 from repro_torch.models.param import FSDP, TP, ParamDef, stack_defs
@@ -59,6 +60,8 @@ def _norm_apply(p, x, cfg: ModelConfig):
 def _mixer_defs(blk: BlockSpec, cfg: ModelConfig) -> Dict[str, ParamDef]:
     if blk.mixer in ("attn", "local"):
         return attention.attn_defs(cfg)
+    if blk.mixer == "ssm":
+        return ssm.ssm_defs(cfg)
     raise _unported(f"mixer {blk.mixer!r}")
 
 
@@ -154,13 +157,16 @@ def _frontend(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor]):
 
 def _mixer_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
                  collect_cache: bool = False, cache_len=None):
-    if blk.mixer not in ("attn", "local"):
+    if blk.mixer in ("attn", "local"):
+        out = attention.attn_apply(
+            p, x, cfg,
+            window=blk.window if blk.mixer == "local" else None,
+            collect_cache=collect_cache, cache_len=cache_len,
+        )
+    elif blk.mixer == "ssm":
+        out = ssm.ssm_apply(p, x, cfg, collect_cache=collect_cache)
+    else:
         raise _unported(f"mixer {blk.mixer!r}")
-    out = attention.attn_apply(
-        p, x, cfg,
-        window=blk.window if blk.mixer == "local" else None,
-        collect_cache=collect_cache, cache_len=cache_len,
-    )
     return out if collect_cache else (out, None)
 
 
@@ -241,6 +247,8 @@ def logits_fn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _mixer_cache(blk: BlockSpec, cfg: ModelConfig, batch: int, seq_len: int,
                  dtype, quant_attn: bool, device):
+    if blk.mixer == "ssm":
+        return ssm.init_ssm_cache(cfg, batch, dtype, device=device)
     if blk.mixer not in ("attn", "local"):
         raise _unported(f"mixer {blk.mixer!r}")
     window = blk.window if blk.mixer == "local" else None
@@ -264,11 +272,13 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def _block_decode(p, x, cache, t: int, blk: BlockSpec, cfg: ModelConfig):
-    if blk.mixer not in ("attn", "local"):
+    xn = _norm_apply(p["norm1"], x, cfg)
+    if blk.mixer in ("attn", "local"):
+        h, new_cache = attention.attn_decode(p["mixer"], xn, cache, t, cfg)
+    elif blk.mixer == "ssm":
+        h, new_cache = ssm.ssm_decode(p["mixer"], xn, cache, cfg)
+    else:
         raise _unported(f"mixer {blk.mixer!r}")
-    h, new_cache = attention.attn_decode(
-        p["mixer"], _norm_apply(p["norm1"], x, cfg), cache, t, cfg
-    )
     return _finish_block(p, x, h, blk, cfg), new_cache
 
 

@@ -10,7 +10,9 @@ writes back only the dirty blocks.  Dispatch to the int8 path is
 structural: a session that was demoted quantized comes back as
 :class:`QuantAttnCache` leaves, which ``attn_decode`` routes to
 ``quant_decode_attention``; raw sessions take the decode kernel.  The
-prefill runs the flash kernel.  Both run on the pager's device: prompts
+prefill runs the flash kernel (the SSD kernel for Mamba-2 blocks, whose
+decode step is the recurrent form and whose conv window and state the
+pager stores whole every step).  Both run on the pager's device: prompts
 and journaled tokens are moved there, and resumed layers are placed there
 by the pager.
 """
@@ -39,10 +41,13 @@ def _is_layer(x: Any) -> bool:
 
 def flatten_cache(cache: Any) -> Tuple[List[Any], Any]:
     """Cache tree → flat list of per-layer caches + its structure, in the
-    reference's pytree order (dict keys sorted).  Attention caches stay
-    whole (one pager layer each — the stacked body caches ride as single
-    leaves with a leading period axis); bare tensors (recurrent state) are
-    opaque leaves the pager stores whole."""
+    reference's pytree order (dict keys sorted, NamedTuple fields in
+    order).  Attention caches stay whole (one pager layer each — the
+    stacked body caches ride as single leaves with a leading period axis);
+    other NamedTuples (``SSMCache``) are nodes whose bare tensors
+    (recurrent state, conv window) are opaque leaves the pager stores
+    whole.  The structure records each node's type, so
+    :func:`unflatten_cache` rebuilds a NamedTuple as its own class."""
     layers: List[Any] = []
 
     def walk(x: Any) -> Any:
@@ -53,7 +58,7 @@ def flatten_cache(cache: Any) -> Tuple[List[Any], Any]:
             keys = sorted(x)
             return ("d", tuple(keys), tuple(walk(x[k]) for k in keys))
         if isinstance(x, (list, tuple)):
-            return (type(x).__name__, tuple(walk(v) for v in x))
+            return (type(x), tuple(walk(v) for v in x))
         raise TypeError(f"not a cache tree node: {type(x).__name__}")
 
     return layers, walk(cache)
@@ -67,8 +72,10 @@ def unflatten_cache(treedef: Any, layers: List[Any]) -> Any:
             return next(it)
         if spec[0] == "d":
             return {k: build(c) for k, c in zip(spec[1], spec[2])}
-        children = [build(c) for c in spec[1]]
-        return children if spec[0] == "list" else tuple(children)
+        kind, children = spec[0], [build(c) for c in spec[1]]
+        if kind is list:
+            return children
+        return kind(*children) if hasattr(kind, "_fields") else kind(children)
 
     return build(treedef)
 

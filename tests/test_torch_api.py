@@ -49,8 +49,8 @@ def test_interpret_runs_on_the_cpu():
 def test_not_ported_yet(method):
     with MarvelClient(ClusterConfig()) as c:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            if method == "serving":  # dense attention is ported, Mamba-2 not
-                cfg = reduced_for_smoke(get_config("mamba2-2.7b"))
+            if method == "serving":  # attention and Mamba-2 are ported, MLA not
+                cfg = reduced_for_smoke(get_config("deepseek-v2-lite-16b"))
                 c.serving({}, cfg, prompt_len=4, max_tokens=2, device="cpu")
             else:
                 c.autoscaler()
