@@ -29,10 +29,14 @@ another sm_90a card).  It builds the port's CUDA kernels from
 6. holds ``flash_attention`` and ``decode_attention`` against their plain
    versions (run in f32; tolerance 2e-2 for bf16, 2e-5 for f32) on the
    card: flash prefill at B=1, T=1024, H=16, Kv=2, dh=128, causal, then
-   ragged T, T=1, softcap, dh 64 and 256, MHA, non-causal, a window, f32
-   and f16; decode over S=1088 at every length from 1 to S, rep 8 and 1,
-   dh 64, 128 and 256, softcap, a batch of 8 with mixed lengths, f32, and
-   a zero length (zeros out);
+   ragged T, T=1, softcap, dh 64 and 256 (and 256 with a window), MHA,
+   non-causal, a window, f32 and f16, T in {63, 64, 65, 127, 129} causal
+   and with a window (the edges of the 64-row tiles), Tq < Tk and Tq > Tk;
+   every flash case on the route its type must take (tensor cores for
+   bf16/f16) and run twice for the same bytes; a view whose strides TMA
+   cannot take must raise ``ValueError``; decode over S=1088 at every
+   length from 1 to S, rep 8 and 1, dh 64, 128 and 256, softcap, a batch
+   of 8 with mixed lengths, f32, and a zero length (zeros out);
 7. drives the serving path, ``MarvelClient.serving`` over a DRAM + PMEM
    tier stack with a PMEM journal, at the full width of qwen2.5-3b (36
    layers, d_model 2048, 16 heads over 2 kv heads, vocab 151936; random
@@ -74,7 +78,13 @@ another sm_90a card).  It builds the port's CUDA kernels from
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
    ``scaled_dot_product_attention``; a yardstick only; none computes the
-   SSD chunk) and the bound.
+   SSD chunk) and the bound; the flash row also carries its kernel route
+   and its device-only time from the profiler (and SDPA's), since its
+   event-timed ``ms`` includes the wrapper's host time.
+
+The build prints ptxas's registers, shared memory and spills for every
+kernel, and fails if a flash kernel spills.  The serving phases' profiles
+also read one prefill's device time and the flash kernel's share of it.
 
 Every check that fails raises, and the script exits non-zero.  The last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -475,20 +485,35 @@ def _randn(g, shape, dtype, dev):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
-def flash_inputs(g, dev, B, T, H, Kv, dh, dtype):
+def flash_inputs(g, dev, B, T, H, Kv, dh, dtype, Tk=None):
+    Tk = T if Tk is None else Tk
     return (_randn(g, (B, T, H, dh), dtype, dev),
-            _randn(g, (B, T, Kv, dh), dtype, dev),
-            _randn(g, (B, T, Kv, dh), dtype, dev))
+            _randn(g, (B, Tk, Kv, dh), dtype, dev),
+            _randn(g, (B, Tk, Kv, dh), dtype, dev))
+
+
+#: the flash kernel's route by input type: tensor cores for bf16/f16
+FLASH_ROUTE = {torch.bfloat16: "wgmma", torch.float16: "wgmma",
+               torch.float32: "f32"}
 
 
 def flash_case(rec: AttnRecord, case: str, q, k, v, **kw) -> None:
+    """The kernel against its plain version run in f32, on the route its
+    input type must take, and twice: the same bytes both times."""
     from repro_torch.kernels import flash_attention as fa
 
+    route = fa._plan(q, k, v).route
+    check(route == FLASH_ROUTE[q.dtype],
+          f"flash_attention {case}: {q.dtype} took route {route}")
     got = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
     want = fa.flash_attention_torch(q.float(), k.float(), v.float(), **kw)
     err = rec.compare(case, got, want, q.dtype)
-    emit("flash_edge", case=case, shape=list(q.shape), kv_heads=k.shape[2],
-         dtype=str(q.dtype), max_abs_err=err, ok=True,
+    check(torch.equal(got, again),
+          f"flash_attention {case}: two calls on the same inputs differ")
+    emit("flash_edge", case=case, route=route, shape=list(q.shape),
+         kv_len=k.shape[1], kv_heads=k.shape[2], dtype=str(q.dtype),
+         max_abs_err=err, repeatable=True, ok=True,
          **{k_: v_ for k_, v_ in kw.items() if v_ is not None})
 
 
@@ -517,6 +542,7 @@ def phase_attention_kernels(dev, seed: int, flash: AttnRecord,
         ("softcap", (1, short, H, Kv, dh, bf), {"softcap": 50.0}),
         ("dh64", (2, short - 5, 8, 2, 64, bf), {}),
         ("dh256_mqa", (1, short + 3, 8, 1, 256, bf), {}),
+        ("dh256_window", (1, short - 9, 8, 2, 256, bf), {"window": 70}),
         ("mha", (1, short, H, H, dh, bf), {}),
         ("non_causal", (2, short - 11, H, Kv, dh, bf), {"causal": False}),
         ("window", (1, short + 50, H, Kv, dh, bf), {"window": 96}),
@@ -525,6 +551,31 @@ def phase_attention_kernels(dev, seed: int, flash: AttnRecord,
          {"softcap": 30.0, "scale": 0.1}),
     ):
         flash_case(flash, case, *flash_inputs(g, dev, B, t, h, kv, d, dt), **kw)
+    # the edges of the 64-row q and 64-key kv tiles
+    for t in (63, 64, 65, 127, 129):
+        for kw in ({}, {"window": 50}):
+            name = f"T={t}" + ("_window" if kw else "_causal")
+            flash_case(flash, name, *flash_inputs(g, dev, 2, t, H, Kv, dh, bf),
+                       **kw)
+    # fewer and more queries than keys (rows aligned at the start, as the
+    # reference's kernel does)
+    for case, (t, tk), kw in (("Tq<Tk", (200, 333), {}),
+                              ("Tq>Tk", (333, 200), {}),
+                              ("Tq<Tk_non_causal", (77, 300), {"causal": False})):
+        flash_case(flash, case,
+                   *flash_inputs(g, dev, 1, t, H, Kv, dh, bf, Tk=tk), **kw)
+    # TMA's rules: a head stride of 68 elements (136 bytes) must raise
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = flash_inputs(g, dev, 1, 64, H, Kv, dh, bf)
+    wide = torch.empty(1, 64, H, dh + 4, dtype=bf, device=dev)[..., :dh]
+    try:
+        fa.flash_attention(wide, k, v)
+    except ValueError as exc:
+        emit("flash_edge", case="misaligned_view", raised="ValueError",
+             message=str(exc)[:120], ok=True)
+    else:
+        raise SmokeError("flash_attention took a view TMA cannot load")
 
     # decode: every length from 1 to S at the serving path's shape
     q = _randn(g, (1, H, dh), bf, dev)
@@ -567,20 +618,41 @@ def phase_attention_kernels(dev, seed: int, flash: AttnRecord,
     emit("decode_edge", case="zero_length", ok=True)
 
 
+def device_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call of ``fn`` in ms: the CUDA kernels' own time
+    in one profiler window over ``reps`` calls (after a warm-up), without
+    the host time that an event pair around each call also holds."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels)
+    check(total > 0, "the profiler saw no device time")
+    return total / reps / 1e3
+
+
 def measure_flash(q, k, v, kw) -> dict:
-    """Kernel, plain-version and SDPA times at the path's shape, and the
-    bound: the larger of the causal operations over the bf16 peak and the
-    bytes over the memory rate."""
+    """Kernel, plain-version and SDPA times at the path's shape (event-timed
+    around each call, so with the wrapper's host time; and the device time
+    alone from the profiler), and the bound: the larger of the causal
+    operations over the bf16 peak and the bytes over the memory rate."""
     from repro_torch.kernels import flash_attention as fa
 
     B, T, H, dh = q.shape
     Tk = k.shape[1]
     causal = kw.get("causal", True)
-    kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
-    plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v, **kw), reps=5)
+    flash = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    kernel_ms = time_ms(flash)
+    library_ms = time_ms(sdpa)
+    plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v, **kw), reps=5)
     pairs = sum(min(i + 1, Tk) for i in range(T)) if causal else T * Tk
     flops = 4 * B * H * dh * pairs
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
@@ -589,7 +661,9 @@ def measure_flash(q, k, v, kw) -> dict:
     return {
         "shape": {"B": B, "T": T, "H": H, "Kv": k.shape[2], "dh": dh,
                   "causal": causal, "dtype": str(q.dtype)},
+        "kernel_route": fa._plan(q, k, v).route,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "device_ms": device_ms(flash), "library_device_ms": device_ms(sdpa),
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "flops": flops, "bytes": nbytes,
@@ -951,6 +1025,17 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
         _, _, cache = prefill()
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t) * 1e3)
+    # one profiler window over a prefill: its device time, and the flash
+    # kernel's share of it
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prefill()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    prefill_device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    flash = [e for e in kernels if "flash_wgmma_kernel" in e.key
+             or "flash_f32_kernel" in e.key]
     step_ms = []
     for t in range(prompt_len, prompt_len + steps):
         torch.cuda.synchronize()
@@ -958,7 +1043,6 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
         decode_step(params, cfg, tokens[:, t:t + 1], cache, t)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for t in range(prompt_len, prompt_len + steps):
             decode_step(params, cfg, tokens[:, t:t + 1], cache, t)
@@ -973,6 +1057,9 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {
         "prefill_forward_ms": statistics.median(prefill_ms),
+        "prefill_device_ms": prefill_device_ms,
+        "flash_ms_per_prefill": sum(e.self_device_time_total for e in flash) / 1e3,
+        "flash_launches_per_prefill": sum(e.count for e in flash),
         "decode_step_ms": statistics.median(step_ms),
         "device_ms_per_step":
             sum(e.self_device_time_total for e in kernels) / steps / 1e3,
@@ -1312,8 +1399,8 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
-def _card() -> torch.device:
-    """Select card 0 and print its name and power limit."""
+def _card() -> str:
+    """Select card 0, print its name and power limit and return them."""
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = subprocess.run(
@@ -1322,7 +1409,29 @@ def _card() -> torch.device:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(card, flush=True)
-    return dev
+    return card
+
+
+def ptxas_report(logs: dict) -> dict:
+    """Print one line per compiled kernel from ``nvcc -Xptxas -v``: its
+    registers and spilled bytes (stores + loads); return the spilled bytes
+    by (source, kernel)."""
+    spills = {}
+    for name, log in logs.items():
+        kernel = spilled = None
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                kernel = line.split("Function properties for")[-1].strip()
+            elif "spill stores" in line and kernel is not None:
+                nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+                spilled = nums[1] + nums[2]  # stack frame, stores, loads
+                spills[(name, kernel)] = spilled
+            elif "Used" in line and "registers" in line and spilled is not None:
+                regs = line.split("Used")[1].split("registers")[0].strip()
+                print(f"ptxas {name}: {kernel[-70:]}: {regs} registers, "
+                      f"{spilled} spill bytes")
+                kernel = spilled = None
+    return spills
 
 
 def main(argv=None) -> int:
@@ -1336,17 +1445,18 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
-    dev = _card()
+    card = _card()
+    dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
     emit("build", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
          build_s=build_s, sources=list(_build.SOURCES))
-    for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "smem" in line:
-                print(f"ptxas {name}: {line.strip()}")
+    spills = ptxas_report(_build.build_logs)
+    flash_spills = {fn: n for (src, fn), n in spills.items()
+                    if src == "flash_attention" and n}
+    check(not flash_spills, f"ptxas spills in the flash kernels: {flash_spills}")
 
     rec = KernelRecord()
     t0 = time.perf_counter()
@@ -1415,15 +1525,19 @@ def main(argv=None) -> int:
             "library_ms": m["library_ms"], "shape": extra,
         }
 
+    print(card, flush=True)  # again, beside the numbers below
     print(json.dumps({"kernels": [
         row("bucket_histogram", "src/repro_torch/csrc/bucket_histogram.cu",
             "src/repro/kernels/bucket_histogram.py:79", launches,
             rec.max_abs_err, rec.checks, shape,
             {"n": shape["n"], "n_buckets": shape["n_buckets"]}),
-        row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:138",
-            serve_launches["flash_attention"], flash_rec.max_abs_err,
-            flash_rec.checks, flash_shape, flash_shape["shape"]),
+        {**row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:138",
+               serve_launches["flash_attention"], flash_rec.max_abs_err,
+               flash_rec.checks, flash_shape, flash_shape["shape"]),
+         "kernel_route": flash_shape["kernel_route"],
+         "device_ms": flash_shape["device_ms"],
+         "library_device_ms": flash_shape["library_device_ms"]},
         row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:127",
             serve_launches["decode_attention"], decode_rec.max_abs_err,

@@ -12,10 +12,27 @@ copy is made.  One block owns one (batch, head, q tile) and loops over
 the kv tiles with an f32 online softmax; causal blocks skip the tiles
 above the diagonal.
 
-What bounds it: ``4·Tq·Tk·dh·H`` operations (half when causal) against
-one read of q, k, v and one write of o, so at prefill shapes the
-operations are the bound.  This first version runs them on CUDA cores,
-not on the tensor cores (PERF.md has its time beside the bound).
+:func:`_plan` routes by dtype alone:
+
+* ``"wgmma"`` for bf16 and f16: a tensor-core kernel.  Consumer
+  warpgroups of 64 query rows each (two a block for dh 64 and 128, one
+  for dh 256) run ``wgmma`` for ``Q·Kᵀ`` and, with P rounded to the input
+  type and kept in registers, for ``P·V``; a producer warpgroup streams
+  64-key K/V tiles into a two-stage shared-memory ring with TMA.  TMA
+  binds the layout: each base 16-byte aligned, the batch, token and head
+  strides multiples of 16 bytes, the head dim contiguous; anything else
+  raises ``ValueError`` (the path's q, k and v are contiguous projections
+  and always qualify).
+* ``"f32"`` for float32: the same algorithm on CUDA cores (``wgmma`` has
+  no f32 inputs; TF32 would not hold the f32 tolerance).
+
+What bounds it: ``4·Tq·Tk·dh·H`` operations (about half when causal)
+against one read of q, k, v and one write of o, so at prefill shapes the
+tensor cores' rate is the bound; the kernel sits above it by the latency
+of one warpgroup's chain of key tiles (PERF.md has its time beside the
+bound).  The wrapper's host time counts in every call, so its checks,
+plan and argument list are prepared once per signature (shapes, strides,
+types, devices, options) and reused.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and takes the
 plain version, :func:`flash_attention_torch`, only for CPU tensors.
@@ -27,7 +44,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,8 +58,41 @@ launches = 0
 HEAD_DIMS = (64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MASK_VALUE = -1e30
+#: query rows per block of the tensor-core route (64 per consumer
+#: warpgroup), by head dim: dh 256 holds 128 f32 output accumulators a
+#: thread and takes one warpgroup.
+BLOCK_Q = {64: 128, 128: 128, 256: 64}
+BLOCK_K = 64  #: keys per kv tile of the tensor-core route
+TMA_ALIGN = 16  # bytes: TMA's rule for base addresses and strides
 _count_lock = threading.Lock()
 _entry = None
+
+
+#: PyTorch's raw lookup of the current stream's handle, which builds no
+#: ``Stream`` object (a few microseconds less per call than
+#: ``torch.cuda.current_stream().cuda_stream``, the fallback).
+_current_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _raw_stream(index: int) -> int:
+    if _current_raw_stream is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return _current_raw_stream(index)
+
+
+class _Params(ctypes.Structure):
+    """One call's sizes, strides and options: ``Params`` in
+    ``csrc/flash_attention.cu``, field for field."""
+
+    _fields_ = (
+        [(n, ctypes.c_int64) for n in (
+            "q_sb", "q_st", "q_sh", "k_sb", "k_st", "k_sh",
+            "v_sb", "v_st", "v_sh", "o_sb", "o_st", "o_sh")]
+        + [(n, ctypes.c_int32) for n in (
+            "dtype", "B", "Tq", "Tk", "H", "Kv", "dh", "causal", "window",
+            "block_q", "block_k")]
+        + [("scale", ctypes.c_float), ("softcap", ctypes.c_float)]
+    )
 
 
 def _launcher():
@@ -50,11 +100,7 @@ def _launcher():
     if _entry is None:
         lib = _build.load("flash_attention")
         fn = lib.flash_attention_launch
-        fn.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 12
-            + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-            + [ctypes.c_void_p]
-        )
+        fn.argtypes = [ctypes.c_void_p] * 6
         fn.restype = ctypes.c_int
         err = lib.flash_attention_error
         err.argtypes = [ctypes.c_int]
@@ -118,6 +164,60 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
 
 
+class Plan(NamedTuple):
+    """How one call runs: the route, its tiles and its grid."""
+
+    route: str  # "wgmma" (bf16/f16, tensor cores) or "f32" (CUDA cores)
+    block_q: int  # query rows per block
+    block_k: int  # keys per kv tile
+    grid: Tuple[int, ...]  # blocks (the kernel derives the same from Tq)
+
+
+def _plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
+    """The route, tiles and grid for q ``(B, Tq, H, dh)``, k/v ``(B, Tk,
+    Kv, dh)``, by dtype alone; raises ``ValueError`` on a layout the
+    route's kernel does not take.  Reads only shapes, strides, the dtype
+    and the base addresses."""
+    B, Tq, H, dh = q.shape
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in the kernel's {HEAD_DIMS}")
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    if qs[3] != 1 or ks[3] != 1 or vs[3] != 1:
+        raise ValueError("the head dim of q, k and v must be contiguous")
+    if q.dtype == torch.float32:
+        bq = 32 if dh == 256 else 64
+        return Plan("f32", bq, 32, (-(-Tq // bq), B * H))
+    # TMA: 16-byte aligned bases and strides (8 elements of 2 bytes; one
+    # OR tests them all, since 8 is a power of two)
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % TMA_ALIGN:
+        raise ValueError(
+            f"q, k and v need {TMA_ALIGN}-byte aligned base addresses (TMA)")
+    if (qs[0] | qs[1] | qs[2] | ks[0] | ks[1] | ks[2] | vs[0] | vs[1]
+            | vs[2]) * q.element_size() % TMA_ALIGN:
+        raise ValueError(
+            f"the strides of q {qs}, k {ks} and v {vs} must be multiples of "
+            f"{TMA_ALIGN} bytes (TMA)")
+    bq = BLOCK_Q[dh]
+    return Plan("wgmma", bq, BLOCK_K, (-(-Tq // bq) * B * H,))
+
+
+class _Call(NamedTuple):
+    """What a CUDA call of one signature (shapes, strides, types, devices,
+    options) needs besides the four data pointers and the stream."""
+
+    plan: Plan
+    out_shape: Tuple[int, ...]
+    params: _Params  # kept alive: the kernel reads it through `address`
+    address: int
+
+
+#: prepared calls by signature: the checks, the plan and the argument
+#: list run once per signature, not once per call (the wrapper's host
+#: time is part of every prefill layer's).  Cleared when it fills.
+_calls: Dict[tuple, _Call] = {}
+_CALLS_MAX = 256
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Tq, H, dh)
     k: torch.Tensor,  # (B, Tk, Kv, dh)
@@ -132,35 +232,63 @@ def flash_attention(
     ``i`` sees key ``j`` when ``j <= i`` (causal) and ``i - j < window``
     (when a window is given); scores are ``softcap·tanh(q·k·scale /
     softcap)`` with ``scale`` defaulting to ``1/sqrt(dh)``."""
-    global launches
+    if q.is_cuda:
+        # everything before the launch counts in the call's latency: one
+        # dict lookup on the signature, then the pointers
+        key = (q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
+               q.dtype, k.dtype, v.dtype, q.get_device(), k.get_device(),
+               v.get_device(), causal, scale, softcap, window)
+        call = _calls.get(key)
+        if call is None:
+            call = _prepare(q, k, v, causal, scale, softcap, window)
+            if len(_calls) >= _CALLS_MAX:
+                _calls.clear()
+            _calls[key] = call
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        if call.plan.route == "wgmma" and (ptrs[0] | ptrs[1] | ptrs[2]) % TMA_ALIGN:
+            _plan(q, k, v)  # raises on the misaligned base
+        return _launch(q, ptrs, call)
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    kwargs = dict(causal=causal, scale=scale, softcap=softcap, window=window)
-    if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, **kwargs)
-    if q.device.type != "cuda":
+    if q.device.type != "cpu":
         raise ValueError(f"attention on unsupported device {q.device}")
+    return flash_attention_torch(q, k, v, causal=causal, scale=scale,
+                                 softcap=softcap, window=window)
+
+
+def _prepare(q, k, v, causal: bool, scale: Optional[float],
+             softcap: Optional[float], window: Optional[int]) -> _Call:
+    """Check CUDA tensors, plan the call and build its argument list."""
+    _check(q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    plan = _plan(q, k, v)
     B, Tq, H, dh = q.shape
-    Tk, Kv = k.shape[1], k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in the kernel's {HEAD_DIMS}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("the head dim of q, k and v must be contiguous")
-    out = torch.empty(B, Tq, H, dh, dtype=q.dtype, device=q.device)
-    if B == 0 or Tq == 0:
+    params = _Params(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        Tq * H * dh, H * dh, dh,  # a fresh contiguous output
+        DTYPE_CODES[q.dtype], B, Tq, k.shape[1], H, k.shape[2], dh,
+        int(causal), window if window is not None else 0, plan.block_q,
+        plan.block_k, scale if scale is not None else 1.0 / math.sqrt(dh),
+        softcap if softcap is not None else 0.0,
+    )
+    return _Call(plan, (B, Tq, H, dh), params, ctypes.addressof(params))
+
+
+def _launch(q, ptrs, call: _Call) -> torch.Tensor:
+    """Launch the kernel of a prepared call on q, k, v at ``ptrs``."""
+    global launches
+    out = q.new_empty(call.out_shape)
+    if out.numel() == 0:
         return out
-    fn, err_str = _launcher()
-    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *out.stride()[:3], B, Tq, Tk, H, Kv, dh,
-            scale, softcap if softcap is not None else 0.0, int(causal),
-            window if window is not None else 0, stream,
-        )
+    fn, err_str = _entry or _launcher()
+    index = q.get_device()
+    if index == torch.cuda.current_device():
+        err = fn(call.address, *ptrs, out.data_ptr(), _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(call.address, *ptrs, out.data_ptr(), _raw_stream(index))
     if err:
         raise RuntimeError(
             f"flash_attention launch failed: {err_str(err).decode()}"

@@ -10,6 +10,9 @@ themselves are held against the same plain versions on the card by
 ``chip_smoke.py``.
 """
 
+import ctypes
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -210,3 +213,113 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rng, bad):
             ops.decode_attention(q[:, 0], k, k, lengths.long())
         else:
             ops.flash_attention(q, k[..., :16], k[..., :16])
+
+
+# -- the flash kernel's plan (route, tiles, grid) and P's rounding ------------
+
+def _qkv(B, T, H, Kv, dh, dtype, Tk=None):
+    Tk = T if Tk is None else Tk
+    return (torch.zeros(B, T, H, dh, dtype=dtype),
+            torch.zeros(B, Tk, Kv, dh, dtype=dtype),
+            torch.zeros(B, Tk, Kv, dh, dtype=dtype))
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float16, "wgmma"),
+                                         (torch.float32, "f32")])
+def test_flash_plan_routes_by_dtype(dtype, route, dh):
+    plan = fa._plan(*_qkv(1, 100, 8, 2, dh, dtype))
+    assert plan.route == route
+    if route == "wgmma":  # 64 query rows per consumer warpgroup
+        assert plan.block_q == (64 if dh == 256 else 128) and plan.block_k == 64
+    else:
+        assert plan.block_k == 32
+
+
+@pytest.mark.parametrize("B,T,H,Kv,dh,grid", [
+    (1, 1, 16, 2, 128, (16,)),           # T = 1: one block per head
+    (2, 475, 16, 2, 128, (4 * 32,)),     # ragged T: ceil(475 / 128)
+    (1, 1024, 16, 2, 128, (8 * 16,)),    # the qwen2.5-3b prefill
+    (2, 200, 8, 2, 64, (2 * 16,)),       # dh 64: 128-row blocks too
+    (1, 515, 8, 1, 256, (9 * 8,)),       # dh 256: 64-row blocks
+])
+def test_flash_plan_grid(B, T, H, Kv, dh, grid):
+    plan = fa._plan(*_qkv(B, T, H, Kv, dh, torch.bfloat16))
+    assert plan.grid == grid
+
+
+def test_flash_plan_f32_grid_is_the_cuda_core_kernels():
+    plan = fa._plan(*_qkv(2, 475, 16, 2, 256, torch.float32))
+    assert plan == fa.Plan("f32", 32, 32, (15, 32))
+
+
+@pytest.mark.parametrize("bad", ["stride", "base", "head_dim", "batch_stride"])
+def test_flash_plan_raises_on_what_tma_does_not_take(bad):
+    q, k, v = _qkv(1, 64, 4, 2, 64, torch.bfloat16)
+    with pytest.raises(ValueError):
+        if bad == "stride":  # heads 68 elements (136 bytes) apart
+            wide = torch.zeros(1, 64, 4, 68, dtype=torch.bfloat16)
+            fa._plan(wide[..., :64], k, v)
+        elif bad == "base":  # one element (2 bytes) past an aligned base
+            flat = torch.zeros(k.numel() + 1, dtype=torch.bfloat16)
+            fa._plan(q, flat[1:].view(k.shape), v)
+        elif bad == "head_dim":
+            fa._plan(q, k, v.transpose(1, 3).contiguous().transpose(1, 3))
+        else:  # a batch stride of 4 elements (8 bytes)
+            fa._plan(q, k.as_strided(k.shape, (4, *k.stride()[1:])), v)
+
+
+def _flash_p_rounded(q, k, v, *, causal, softcap, dtype):
+    """The plain version with P rounded to ``dtype`` before P·V and the row
+    sum taken over the rounded P, as the tensor-core kernel does (there
+    per kv tile, against the running max)."""
+    B, Tq, H, dh = q.shape
+    Tk, Kv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Tq, Kv, H // Kv, dh)
+    s = torch.einsum("bqkrd,bckd->bkrqc", qf, k.float()) / math.sqrt(dh)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    if causal:
+        live = torch.arange(Tq)[:, None] >= torch.arange(Tk)[None, :]
+        s = s.masked_fill(~live, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True)).to(dtype).float()
+    o = torch.einsum("bkrqc,bckd->bqkrd", p, v.float())
+    o = o / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(B, Tq, H, dh)
+
+
+@pytest.mark.parametrize("T,H,Kv,dh,causal,softcap", [
+    (96, 4, 2, 64, True, None),
+    (50, 4, 1, 64, True, 30.0),
+    (40, 2, 2, 128, False, None),
+])
+def test_flash_with_p_in_bf16_stays_within_tolerance_of_reference(
+        rng, T, H, Kv, dh, causal, softcap):
+    """Rounding P to bf16 before P·V (the tensor-core kernel's choice; the
+    reference keeps P in f32) stays within the bf16 tolerance of the
+    reference's Pallas kernel."""
+    jq, tq = _pair(rng, (2, T, H, dh), "bfloat16")
+    jk, tk = _pair(rng, (2, T, Kv, dh), "bfloat16")
+    jv, tv = _pair(rng, (2, T, Kv, dh), "bfloat16")
+    got = _flash_p_rounded(tq, tk, tv, causal=causal, softcap=softcap,
+                           dtype=torch.bfloat16)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, softcap=softcap,
+                                interpret=True)
+    _close(got, want, TOL["bfloat16"])
+
+
+def test_flash_prepared_call_fills_the_kernels_parameter_struct():
+    """A CUDA call's sizes, strides and options go to the kernel as one
+    struct built once per signature; its fields follow the tensors."""
+    q, k, v = _qkv(2, 100, 8, 2, 128, torch.bfloat16, Tk=120)
+    call = fa._prepare(q, k, v, False, 0.25, 30.0, 7)
+    p = call.params
+    assert call.out_shape == (2, 100, 8, 128)
+    assert (p.q_sb, p.q_st, p.q_sh) == q.stride()[:3]
+    assert (p.k_sb, p.k_st, p.k_sh) == k.stride()[:3]
+    assert (p.o_sb, p.o_st, p.o_sh) == (100 * 8 * 128, 8 * 128, 128)
+    assert (p.dtype, p.B, p.Tq, p.Tk, p.H, p.Kv, p.dh) == (1, 2, 100, 120, 8, 2, 128)
+    assert (p.causal, p.window, p.block_q, p.block_k) == (0, 7, 128, 64)
+    assert (p.scale, p.softcap) == (0.25, 30.0)
+    assert call.address == ctypes.addressof(p) and ctypes.sizeof(p) == 152
