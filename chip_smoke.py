@@ -36,7 +36,9 @@ another sm_90a card).  It builds the port's CUDA kernels from
    bf16/f16) and run twice for the same bytes; a view whose strides TMA
    cannot take must raise ``ValueError``; decode over S=1088 at every
    length from 1 to S, rep 8 and 1, dh 64, 128 and 256, softcap, a batch
-   of 8 with mixed lengths, f32, and a zero length (zeros out);
+   of 8 with mixed lengths, f32, a zero length (zeros out), and decode
+   captured alone in a CUDA graph and replayed with new lengths (the
+   bytes of the eager call);
 7. drives the serving path, ``MarvelClient.serving`` over a DRAM + PMEM
    tier stack with a PMEM journal, at the full width of qwen2.5-3b (36
    layers, d_model 2048, 16 heads over 2 kv heads, vocab 151936; random
@@ -55,9 +57,10 @@ another sm_90a card).  It builds the port's CUDA kernels from
    plain version (tolerance 2e-3 abs and rel; every case run twice and
    compared bit for bit): the prefill's shape (BC=4, Q=256, H=80, P=64,
    N=128, B/C one group read with a head stride of 0, which must give
-   the bytes of a per-head copy), per-head B/C, Q in {1, 37}, H=6, P and
-   N over {16, 32, 64, 128}, and a strongly negative dA_cs whose
-   upper-triangle exp overflows in the exp-then-mask oracle;
+   the bytes of a per-head copy), per-head B/C, Q in {1, 37}, H=6 and
+   H=13 (no multiple of a block's heads), P and N over {16, 32, 64, 128},
+   and a strongly negative dA_cs whose upper-triangle exp overflows in
+   the exp-then-mask oracle;
 9. drives ``MarvelClient.serving`` over Mamba-2 at the full width of
    mamba2-2.7b (64 SSD layers, d_model 2560, 80 heads of 64, d_state
    128, chunk 256, vocab 50280; random bf16 weights drawn on the card
@@ -78,13 +81,17 @@ another sm_90a card).  It builds the port's CUDA kernels from
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
    ``scaled_dot_product_attention``; a yardstick only; none computes the
-   SSD chunk) and the bound; the flash row also carries its kernel route
-   and its device-only time from the profiler (and SDPA's), since its
-   event-timed ``ms`` includes the wrapper's host time.
+   SSD chunk) and the bound; the flash, decode and SSD rows also carry
+   their kernel route and their device-only time from the profiler (and
+   SDPA's for flash and decode), since an event-timed ``ms`` includes the
+   wrapper's host time.  Decode and SSD must make one launch a call, of
+   their own kernel.
 
 The build prints ptxas's registers, shared memory and spills for every
-kernel, and fails if a flash kernel spills.  The serving phases' profiles
-also read one prefill's device time and the flash kernel's share of it.
+kernel, and fails if a flash, decode or SSD kernel spills.  The serving
+phases' profiles also read one prefill's device time and the flash and
+SSD kernels' shares of it, and a decode step's launches and decode
+kernels.
 
 Every check that fails raises, and the script exits non-zero.  The last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -616,24 +623,85 @@ def phase_attention_kernels(dev, seed: int, flash: AttnRecord,
     check(bool((out[0] == 0).all()), "decode: lengths == 0 must give zeros")
     decode_case(decode, "zero_length", q, kc, vc, zero)
     emit("decode_edge", case="zero_length", ok=True)
+    decode_graph_case(dev, g, S)
 
 
-def device_ms(fn, reps: int = REPS) -> float:
-    """Device time of one call of ``fn`` in ms: the CUDA kernels' own time
-    in one profiler window over ``reps`` calls (after a warm-up), without
-    the host time that an event pair around each call also holds."""
+def decode_graph_case(dev, g, S: int) -> None:
+    """Decode captured alone in a CUDA graph and replayed with new lengths
+    (written into the captured tensor) gives the bytes of the eager call:
+    a call queries, allocates and synchronises nothing that capture would
+    freeze or refuse, and reads lengths on the device."""
+    from repro_torch.kernels import decode_attention as da
+
+    bf = torch.bfloat16
+    q = _randn(g, (1, 16, 128), bf, dev)
+    kc = _randn(g, (1, S, 2, 128), bf, dev)
+    vc = _randn(g, (1, S, 2, 128), bf, dev)
+    lengths = torch.full((1,), S // 2, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # warm up off the capture
+        da.decode_attention(q, kc, vc, lengths)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, kc, vc, lengths)
+    replayed = []
+    for n in (1, 17, S // 3, S - 1, S):
+        lengths.fill_(n)
+        graph.replay()
+        eager = da.decode_attention(
+            q, kc, vc, torch.full((1,), n, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        check(torch.equal(out, eager),
+              f"decode_attention: the graph replayed at length {n} gives "
+              "other bytes than the eager call")
+        replayed.append(n)
+    emit("decode_edge", case="cuda_graph_replay", lengths=replayed,
+         matches_eager=True, ok=True)
+
+
+#: the profiler's names of a kernel launch on the host (a cluster launch
+#: through cudaLaunchKernelEx shows as cudaLaunchKernelExC)
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernelEx", "cuLaunchKernel",
+               "cudaLaunchKernelExC")
+
+
+def device_profile(fn, reps: int = REPS):
+    """Device time of one call of ``fn`` in ms, the kernel launches one
+    call makes, and the names of the device kernels it ran: one profiler
+    window over ``reps`` calls (after a warm-up), without the host time
+    that an event pair around each call also holds.  The trace can miss
+    some kernel records of a window (seen for the SSD kernel: 7 of 15),
+    so where it holds fewer kernel records than host launches the time is
+    scaled up by their ratio."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in kernels)
+    # the device trace of a window now and then comes back empty: take the
+    # first of three windows that has one
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in kernels)
+        if total > 0:
+            break
     check(total > 0, "the profiler saw no device time")
-    return total / reps / 1e3
+    launches = sum(e.count for e in events if e.key in LAUNCH_KEYS)
+    records = sum(e.count for e in kernels)
+    missed = max(1.0, launches / records)  # launches per kernel record
+    return (total * missed / reps / 1e3, launches / reps,
+            {e.key for e in kernels})
+
+
+def device_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call of ``fn`` in ms (see device_profile)."""
+    return device_profile(fn, reps)[0]
 
 
 def measure_flash(q, k, v, kw) -> dict:
@@ -671,27 +739,41 @@ def measure_flash(q, k, v, kw) -> dict:
 
 
 def measure_decode(q, kc, vc, lengths) -> dict:
-    """Kernel, plain-version and masked-SDPA times at the path's shape, and
-    the bound: q, the cache rows up to ``lengths`` and the output, over the
-    memory rate."""
+    """Kernel, plain-version and masked-SDPA times at the path's shape
+    (event-timed around each call, so with the wrapper's host time; and
+    the device time alone from the profiler, with the device kernels one
+    call runs, which must be one), and the bound: q, the cache rows up to
+    ``lengths`` and the output, over the memory rate."""
     from repro_torch.kernels import decode_attention as da
 
     B, H, dh = q.shape
     S, Kv = kc.shape[1], kc.shape[2]
-    kernel_ms = time_ms(lambda: da.decode_attention(q, kc, vc, lengths))
+    decode = lambda: da.decode_attention(q, kc, vc, lengths)  # noqa: E731
+    kernel_ms = time_ms(decode)
     plain_ms = time_ms(lambda: da.decode_attention_torch(q, kc, vc, lengths))
     qt = q[:, :, None, :]
     kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
     mask = (torch.arange(S, device=q.device)[None, :]
             < lengths[:, None])[:, None, None, :]
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    library_ms = time_ms(sdpa)
+    plan = da._plan(B, S, H, Kv, q.dtype, da._sm_count(q.get_device()))
+    dev_ms, per_call, names = device_profile(decode)
+    check(per_call == 1 and all("decode_mma_kernel" in n for n in names),
+          f"decode_attention made {per_call} launches a call, of {names}: "
+          "want one of its own kernel")
     rows = int(lengths.clamp(0, S).sum())
     nbytes = q.element_size() * (2 * q.numel() + 2 * rows * Kv * dh) + 4 * B
     return {
         "shape": {"B": B, "H": H, "Kv": Kv, "dh": dh, "S": S,
                   "lengths": lengths.tolist(), "dtype": str(q.dtype)},
+        "kernel_route": plan.route,
+        "plan": {"n_splits": plan.n_splits, "split_len": plan.split_len,
+                 "heads": plan.heads, "groups": plan.groups},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "device_ms": dev_ms, "library_device_ms": device_ms(sdpa),
+        "launches_per_call": per_call,
         "bound_ms": bytes_bound_ms(nbytes), "bound_by": "bytes",
         "bytes": nbytes,
     }
@@ -1036,6 +1118,7 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
     prefill_device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     flash = [e for e in kernels if "flash_wgmma_kernel" in e.key
              or "flash_f32_kernel" in e.key]
+    ssd = [e for e in kernels if "ssd_chunk_kernel" in e.key]
     step_ms = []
     for t in range(prompt_len, prompt_len + steps):
         torch.cuda.synchronize()
@@ -1051,19 +1134,24 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
     # the kernels themselves (an operator's own entry repeats their time)
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
-                                "cuLaunchKernel"))
+    decode = [e for e in kernels if "decode_mma_kernel" in e.key
+              or "decode_f32_kernel" in e.key]
+    launches = sum(e.count for e in events if e.key in LAUNCH_KEYS)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {
         "prefill_forward_ms": statistics.median(prefill_ms),
         "prefill_device_ms": prefill_device_ms,
         "flash_ms_per_prefill": sum(e.self_device_time_total for e in flash) / 1e3,
         "flash_launches_per_prefill": sum(e.count for e in flash),
+        "ssd_chunk_ms_per_prefill": sum(e.self_device_time_total for e in ssd) / 1e3,
+        "ssd_chunk_launches_per_prefill": sum(e.count for e in ssd),
         "decode_step_ms": statistics.median(step_ms),
         "device_ms_per_step":
             sum(e.self_device_time_total for e in kernels) / steps / 1e3,
         "launches_per_step": launches / steps,
+        "decode_attention_kernels_per_step": sum(e.count for e in decode) / steps,
+        "decode_attention_ms_per_step":
+            sum(e.self_device_time_total for e in decode) / steps / 1e3,
         "top_kernels_ms_per_step": {
             e.key[:60]: e.self_device_time_total / steps / 1e3 for e in top},
     }
@@ -1159,6 +1247,8 @@ def phase_ssd_kernel(dev, seed: int, rec: SSDRecord) -> None:
         ("P128_N64", (2, 200, 5, 128, 64), {"shared": False}),
         ("P128_N128", (2, 256, 5, 128, 128), {}),
         ("P64_N16", (2, 130, 5, 64, 16), {}),
+        # 13 heads: the last set of a y block (8) and a state block (4) is short
+        ("H=13", (2, 256, 13, 64, 128), {}),
     ):
         err = rec.compare(case, ssd_inputs(g, dev, *shape, **kw))
         emit("ssd_edge", case=case, shape=list(shape), max_abs_err=err, ok=True,
@@ -1175,29 +1265,41 @@ def phase_ssd_kernel(dev, seed: int, rec: SSDRecord) -> None:
 
 
 def measure_ssd(x, dt, dA_cs, Bm, Cm) -> dict:
-    """Kernel and plain-version times at the path's shape, and the bound:
-    the larger of the bytes (each input read once, a stride-0 B/C once per
-    chunk, the outputs written once) over the memory rate and the causal
-    products over the TF32 peak.  No single PyTorch call computes this
-    function, so there is no library time."""
+    """Kernel and plain-version times at the path's shape (event-timed, and
+    the device time alone from the profiler), and the bound: the larger of
+    the bytes (each input read once, a stride-0 B/C once per chunk, the
+    outputs written once) over the memory rate and the least operations
+    (C.B^T once per chunk when every head reads one B/C group, the causal
+    products of each head) over the TF32 peak.  No single PyTorch call
+    computes this function, so there is no library time."""
     from repro_torch.kernels import ssd_scan
 
     BC, Q, H, P = x.shape
     N = Bm.shape[-1]
-    kernel_ms = time_ms(lambda: ssd_scan.ssd_chunk_fwd(x, dt, dA_cs, Bm, Cm))
+    ssd = lambda: ssd_scan.ssd_chunk_fwd(x, dt, dA_cs, Bm, Cm)  # noqa: E731
+    kernel_ms = time_ms(ssd)
     plain_ms = time_ms(lambda: ssd_scan.ssd_chunk_torch(x, dt, dA_cs, Bm, Cm),
                        reps=5)
+    dev_ms, per_call, names = device_profile(ssd)
+    check(per_call == 1 and all("ssd_chunk_kernel" in n for n in names),
+          f"ssd_chunk made {per_call} launches a call, of {names}")
     bc_heads = [1 if t.stride(2) == 0 else H for t in (Bm, Cm)]
     nbytes = 4 * (2 * x.numel() + 2 * dt.numel()
                   + sum(BC * Q * h * N for h in bc_heads) + BC * H * P * N)
     pairs = Q * (Q + 1) // 2
-    flops = BC * H * (2 * pairs * (N + P) + 2 * Q * P * N)
+    cb_sets = 1 if bc_heads == [1, 1] else H  # C.B^T computed per set
+    flops = BC * (cb_sets * 2 * pairs * N + H * (2 * pairs * P + 2 * Q * P * N))
     ops_ms = flops / TF32_FLOPS * 1e3
     bytes_ms = bytes_bound_ms(nbytes)
+    plan = ssd_scan._plan(BC, Q, H, P, bc_heads == [1, 1])
     return {
         "shape": {"BC": BC, "Q": Q, "H": H, "P": P, "N": N,
                   "B_C_head_stride_0": bc_heads == [1, 1], "dtype": "float32"},
+        "kernel_route": "3xTF32: C.B^T on mma.sync, y and states on wgmma",
+        "plan": {"y_heads": plan.y_heads, "s_heads": plan.s_heads,
+                 "blocks": plan.blocks},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+        "device_ms": dev_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "flops": flops, "bytes": nbytes,
@@ -1454,9 +1556,10 @@ def main(argv=None) -> int:
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
          build_s=build_s, sources=list(_build.SOURCES))
     spills = ptxas_report(_build.build_logs)
-    flash_spills = {fn: n for (src, fn), n in spills.items()
-                    if src == "flash_attention" and n}
-    check(not flash_spills, f"ptxas spills in the flash kernels: {flash_spills}")
+    tc_spills = {fn: n for (src, fn), n in spills.items()
+                 if src in ("flash_attention", "decode_attention", "ssd_scan")
+                 and n}
+    check(not tc_spills, f"ptxas spills in the tensor-core kernels: {tc_spills}")
 
     rec = KernelRecord()
     t0 = time.perf_counter()
@@ -1538,13 +1641,19 @@ def main(argv=None) -> int:
          "kernel_route": flash_shape["kernel_route"],
          "device_ms": flash_shape["device_ms"],
          "library_device_ms": flash_shape["library_device_ms"]},
-        row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-            "src/repro/kernels/decode_attention.py:127",
-            serve_launches["decode_attention"], decode_rec.max_abs_err,
-            decode_rec.checks, decode_shape, decode_shape["shape"]),
-        row("ssd_chunk", "src/repro_torch/csrc/ssd_scan.cu",
-            "src/repro/kernels/ssd_scan.py:80", ssd_launches,
-            ssd_rec.max_abs_err, ssd_rec.checks, ssd_shape, ssd_shape["shape"]),
+        {**row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention.py:127",
+               serve_launches["decode_attention"], decode_rec.max_abs_err,
+               decode_rec.checks, decode_shape, decode_shape["shape"]),
+         "kernel_route": decode_shape["kernel_route"],
+         "device_ms": decode_shape["device_ms"],
+         "library_device_ms": decode_shape["library_device_ms"]},
+        {**row("ssd_chunk", "src/repro_torch/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan.py:80", ssd_launches,
+               ssd_rec.max_abs_err, ssd_rec.checks, ssd_shape,
+               ssd_shape["shape"]),
+         "kernel_route": ssd_shape["kernel_route"],
+         "device_ms": ssd_shape["device_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

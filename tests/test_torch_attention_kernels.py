@@ -323,3 +323,97 @@ def test_flash_prepared_call_fills_the_kernels_parameter_struct():
     assert (p.causal, p.window, p.block_q, p.block_k) == (0, 7, 128, 64)
     assert (p.scale, p.softcap) == (0.25, 30.0)
     assert call.address == ctypes.addressof(p) and ctypes.sizeof(p) == 152
+
+
+# -- the decode kernel's plan, its prepared call and P's rounding -------------
+
+@pytest.mark.parametrize("B,S,H,Kv,plan", [
+    (1, 1088, 16, 2, (14, 80, 8, 1, (14, 2))),   # the qwen2.5-3b decode path
+    (8, 1088, 16, 2, (9, 128, 8, 1, (9, 16))),   # a batch of 8: one wave
+    (1, 1, 16, 2, (1, 16, 8, 1, (1, 2))),        # S = 1: one split
+    (1, 1088, 40, 40, (4, 272, 8, 1, (4, 40))),  # rep 1 (qwen1.5-32b, MHA)
+    (1, 1088, 16, 8, (14, 80, 8, 1, (14, 8))),   # rep 2 (gemma2-9b)
+    (1, 1088, 10, 2, (14, 80, 8, 1, (14, 2))),   # rep 5: padded to 8
+    (1, 1088, 32, 2, (14, 80, 16, 1, (14, 2))),  # rep 16: two n tiles
+    (1, 1088, 80, 2, (14, 80, 16, 3, (14, 6))),  # rep 40: three groups
+])
+def test_decode_plan_splits_the_cache_into_one_cluster_per_row(B, S, H, Kv,
+                                                               plan):
+    got = da._plan(B, S, H, Kv, torch.bfloat16, 132)
+    assert got.route == "mma" and tuple(got)[1:] == plan
+    n, length, heads, groups = plan[:4]
+    assert 1 <= n <= da.MAX_SPLITS and length % 16 == 0
+    assert (n - 1) * length < S <= n * length  # no split past the cache
+    assert heads * groups >= H // Kv > heads * (groups - 1)
+
+
+def test_decode_plan_f32_takes_every_head_on_cuda_cores():
+    assert da._plan(2, 1088, 16, 2, torch.float32, 132) == da.Plan(
+        "f32", 12, 96, 8, 1, (12, 4))
+
+
+def test_decode_prepared_call_fills_the_kernels_parameter_struct():
+    """A CUDA call's sizes, strides, plan and options go to the kernel as
+    one struct built once per signature; its fields follow the tensors (a
+    strided cache view included)."""
+    q = torch.zeros(2, 16, 128, dtype=torch.bfloat16)
+    kc = torch.zeros(2, 300, 4, 128, dtype=torch.bfloat16)[:, :, 1:3]
+    vc = torch.zeros(2, 300, 2, 128, dtype=torch.bfloat16)
+    lengths = torch.ones(2, dtype=torch.int32)
+    call = da._prepare(q, kc, vc, lengths, 0.25, 30.0, 132)
+    p = call.params
+    assert call.out_shape == (2, 16, 128)
+    assert (p.q_sb, p.q_sh) == q.stride()[:2]
+    assert (p.k_sb, p.k_ss, p.k_sh) == kc.stride()[:3] == (300 * 512, 512, 128)
+    assert (p.v_sb, p.v_ss, p.v_sh) == vc.stride()[:3]
+    assert (p.o_sb, p.o_sh) == (16 * 128, 128)
+    assert (p.dtype, p.device, p.B, p.S, p.H, p.Kv, p.dh) == (1, 0, 2, 300, 16, 2, 128)
+    assert (p.n_splits, p.split_len, p.heads, p.groups) == tuple(call.plan)[1:5]
+    assert (p.scale, p.softcap) == (0.25, 30.0)
+    assert call.address == ctypes.addressof(p) and ctypes.sizeof(p) == 136
+
+
+def test_decode_prepared_call_refuses_strides_the_loads_cannot_take():
+    q = torch.zeros(1, 8, 64, dtype=torch.bfloat16)
+    wide = torch.zeros(1, 40, 2, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        da._prepare(q, wide, wide, torch.ones(1, dtype=torch.int32), None,
+                    None, 132)
+
+
+def _decode_p_rounded(q, k, v, lengths, *, softcap, dtype):
+    """The plain version with P rounded to ``dtype`` before P·V and the row
+    sum taken over the rounded P, as the tensor-core kernel does (there
+    per 16-row chunk, against each warp's running max)."""
+    B, H, dh = q.shape
+    S, Kv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Kv, H // Kv, dh)
+    s = torch.einsum("bkrd,bskd->bkrs", qg, k.float()) / math.sqrt(dh)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    live = (torch.arange(S)[None, :] < lengths[:, None])[:, None, None, :]
+    s = s.masked_fill(~live, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True)).to(dtype).float()
+    o = torch.einsum("bkrs,bskd->bkrd", p, v.float()) / p.sum(-1, keepdim=True)
+    return o.reshape(B, H, dh)
+
+
+@pytest.mark.parametrize("S,H,Kv,dh,lengths,softcap", [
+    (160, 16, 2, 64, (37, 160), None),    # rep 8, the path's grouping
+    (96, 4, 4, 64, (1, 96), None),        # rep 1, a one-row cache
+    (130, 10, 2, 128, (129, 64), 30.0),   # rep 5, softcap
+])
+def test_decode_with_p_in_bf16_stays_within_tolerance_of_reference(
+        rng, S, H, Kv, dh, lengths, softcap):
+    """Rounding P to bf16 before P·V (the tensor-core kernel's choice; the
+    reference keeps P in f32) stays within the bf16 tolerance of the
+    reference's Pallas decode kernel."""
+    jq, tq = _pair(rng, (2, H, dh), "bfloat16")
+    jk, tk = _pair(rng, (2, S, Kv, dh), "bfloat16")
+    jv, tv = _pair(rng, (2, S, Kv, dh), "bfloat16")
+    lens = np.asarray(lengths, np.int32)
+    got = _decode_p_rounded(tq, tk, tv, torch.from_numpy(lens),
+                            softcap=softcap, dtype=torch.bfloat16)
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(lens),
+                                 softcap=softcap, interpret=True)
+    _close(got, want, TOL["bfloat16"])

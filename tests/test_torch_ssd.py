@@ -143,3 +143,95 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng, bad):
     if bad == "meta_device":
         assert "unsupported device" in str(err.value)
     assert ssd_scan.launches == before
+
+
+# -- the kernel's plan, its prepared call and its 3xTF32 arithmetic ------------
+
+@pytest.mark.parametrize("BC,Q,H,P,shared,plan", [
+    (4, 256, 80, 64, True, (8, 4, 240)),    # the mamba2-2.7b prefill: 4 x (4 x 10 + 20)
+    (4, 256, 80, 64, False, (1, 1, 1600)),  # per-head B/C: one head a block
+    (2, 37, 6, 16, True, (8, 4, 6)),        # H below a block's heads
+    (2, 1, 20, 64, True, (8, 4, 2 * (3 + 5))),    # H no multiple of 8 or 4
+    (2, 200, 5, 128, True, (8, 4, 2 * 2 * (4 + 2))),  # P 128: two column blocks
+])
+def test_plan_shares_C_B_across_the_heads_of_one_group(BC, Q, H, P, shared,
+                                                       plan):
+    got = ssd_scan._plan(BC, Q, H, P, shared)
+    assert (got.y_heads, got.s_heads, got.blocks) == plan
+
+
+def test_prepared_call_fills_the_kernels_parameter_struct(rng):
+    import ctypes
+
+    x, dt, dA, Bm, Cm = (torch.from_numpy(a) for a in _inputs(rng, 2, 40, 6, 16, 32))
+    Bv, Cv = (t[:, :, :1].expand(-1, -1, 6, -1) for t in (Bm, Cm))
+    call = ssd_scan._prepare(x, dt, dA, Bv, Cv)
+    p = call.params
+    assert (p.x_sb, p.x_sq, p.x_sh) == x.stride()[:3]
+    assert (p.dt_sb, p.dt_sq, p.dt_sh) == dt.stride()
+    assert (p.da_sb, p.da_sq, p.da_sh) == dA.stride()
+    assert (p.b_sb, p.b_sq, p.b_sh) == (40 * 6 * 32, 6 * 32, 0)
+    assert (p.c_sb, p.c_sq, p.c_sh) == Cv.stride()[:3]
+    assert (p.device, p.BC, p.Q, p.H, p.P, p.N) == (0, 2, 40, 6, 16, 32)
+    assert (p.y_heads, p.s_heads, p.blocks) == (8, 4, 2 * (1 + 2))
+    assert call.y_shape == (2, 40, 6, 16) and call.s_shape == (2, 6, 16, 32)
+    assert call.address == ctypes.addressof(p) and ctypes.sizeof(p) == 160
+    per_head = ssd_scan._prepare(x, dt, dA, Bm, Cm)
+    assert (per_head.params.y_heads, per_head.params.s_heads) == (1, 1)
+
+
+def _tf32(x):
+    """Cut f32 to TF32's 10 mantissa bits (the low 13 bits cleared), as the
+    kernel splits its operands."""
+    bits = x.contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b in 3xTF32: each operand split into a TF32 high part and the
+    rest cut to TF32; hi·hi and lo·hi + hi·lo summed in f32 apart, then
+    added (as the kernel's two accumulators)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bh + (al @ bh + ah @ bl)
+
+
+def _ssd_shared_cb_3xtf32(x, dt, dA, Bg, Cg):
+    """The kernel's arithmetic for one B/C group (``Bg``, ``Cg`` (BC, Q,
+    N)): C·Bᵀ once per chunk, then per head the decay and dt on and below
+    the diagonal and the products with x, every product in 3xTF32."""
+    BC, Q, H, P = x.shape
+    cb = _mm3(Cg, Bg.transpose(1, 2))  # (BC, Q, Q), shared by every head
+    below = torch.ones(Q, Q, dtype=torch.bool).tril()
+    y = torch.empty(BC, Q, H, P)
+    S = torch.empty(BC, H, P, Bg.shape[-1])
+    for h in range(H):
+        diff = dA[:, :, None, h] - dA[:, None, :, h]
+        w = cb * torch.exp(diff.masked_fill(~below, -np.inf)) * dt[:, None, :, h]
+        y[:, :, h] = _mm3(w, x[:, :, h])
+        wj = torch.exp(dA[:, -1:, h] - dA[:, :, h]) * dt[:, :, h]
+        S[:, h] = _mm3((x[:, :, h] * wj[..., None]).transpose(1, 2), Bg)
+    return y, S
+
+
+def test_shared_cb_in_3xtf32_stays_within_tolerance_of_reference_kernel(rng):
+    """The tensor-core design (C·Bᵀ shared by the heads of the single
+    B/C group, products in 3xTF32), emulated in torch at the prefill's
+    widths (P 64, N 128, Q 256) with a few heads, against the reference's
+    Pallas kernel in interpret mode and the plain version."""
+    x, dt, dA, Bm, Cm = _inputs(rng, 2, 256, 3, 64, 128)
+    Bg, Cg = Bm[:, :, 0], Cm[:, :, 0]
+    y, S = _ssd_shared_cb_3xtf32(*(torch.from_numpy(a) for a in (x, dt, dA, Bg, Cg)))
+    Bb, Cb = (np.ascontiguousarray(np.broadcast_to(a[:, :, None], Bm.shape))
+              for a in (Bg, Cg))
+    jy, jS = jops.ssd_chunk(*(jnp.asarray(a) for a in (x, dt, dA, Bb, Cb)),
+                            head_block=3, interpret=True)
+    _close(y, jy)
+    _close(S, jS)
+    view = [torch.from_numpy(a[:, :, None]).expand(-1, -1, 3, -1) for a in (Bg, Cg)]
+    py, pS = ssd_scan.ssd_chunk_torch(*(torch.from_numpy(a) for a in (x, dt, dA)),
+                                      *view)
+    _close(y, py)
+    _close(S, pS)
+    # the split loses little: 3xTF32 is far inside the tolerance
+    assert float((y - py).abs().max()) < 1e-3

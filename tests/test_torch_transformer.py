@@ -8,6 +8,8 @@ in both packages, 5e-2 with bf16 weights (the two frameworks round bf16
 at different places).  The int8 cache encoding must match byte for byte.
 """
 
+from dataclasses import replace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -78,18 +80,39 @@ def _run_both(jcfg, cfg, jp, tp, tokens, quant=False):
     return jl, tl, jc, tc
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
-def test_prefill_and_decode_logits_match_reference(dtype, tol):
-    jcfg, cfg = _cfgs()
+def _windowed(cfg, window):
+    """``cfg`` with every local layer's window cut to ``window``, so that
+    a short decode wraps the ring cache."""
+    return replace(cfg, pattern=tuple(
+        replace(b, window=window) if b.window else b for b in cfg.pattern))
+
+
+@pytest.mark.parametrize("arch,window,dtype,tol", [
+    pytest.param(ARCH, None, "float32", 1e-4, id="float32-0.0001"),
+    pytest.param(ARCH, None, "bfloat16", 5e-2, id="bfloat16-0.05"),
+    # the other dense decode paths: (1 + scale) norms, embedding scale,
+    # MQA (gemma-2b), MHA with QKV bias (qwen1.5-32b), softcaps and a
+    # local window cut so that the ring cache wraps (gemma2-9b)
+    pytest.param("gemma-2b", None, "float32", 1e-4, id="gemma-2b"),
+    pytest.param("qwen1.5-32b", None, "float32", 1e-4, id="qwen1.5-32b"),
+    pytest.param("gemma2-9b", 3, "float32", 1e-4, id="gemma2-9b-window3"),
+    pytest.param("gemma2-9b", 5, "float32", 1e-4, id="gemma2-9b-window5"),
+])
+def test_prefill_and_decode_logits_match_reference(arch, window, dtype, tol):
+    jcfg, cfg = _cfgs(arch)
+    if window is not None:
+        jcfg, cfg = _windowed(jcfg, window), _windowed(cfg, window)
     jp, tp = _params(jcfg, cfg, dtype)
     tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, TOTAL)).astype(np.int32)
     jl, tl, jc, tc = _run_both(jcfg, cfg, jp, tp, tokens)
     assert tl[0].dtype == torch.float32
     for j, t in zip(jl, tl):
         np.testing.assert_allclose(t.numpy(), j, atol=tol, rtol=tol)
-    # the caches keep the reference's layout: (n_periods, B, S, Kv, dh)
+    # the caches keep the reference's layout: (n_periods, B, S, Kv, dh),
+    # S the window for a local layer
     jk, tk = jc["body"][0].k, tc["body"][0].k
-    assert tuple(tk.shape) == jk.shape == (cfg.n_periods, 2, TOTAL, cfg.n_kv_heads,
+    S = min(TOTAL, window) if window is not None else TOTAL
+    assert tuple(tk.shape) == jk.shape == (cfg.n_periods, 2, S, cfg.n_kv_heads,
                                            cfg.head_dim)
     np.testing.assert_allclose(tk.float().numpy(), np.asarray(jk, np.float32),
                                atol=tol, rtol=tol)
@@ -207,10 +230,12 @@ def test_mixers_of_later_slices_raise(arch):
         model_defs(cfg)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "gemma2-9b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "gemma2-9b", "hubert-xlarge",
+                                  "internvl2-26b"])
 def test_other_dense_configs_match_reference(arch):
     """Softcaps, (1 + scale) norms, embedding scale, local windows, layer
-    norm and the encoder's full attention, through the same kernels."""
+    norm, the encoder's full attention and the vision-language model's
+    patch embeddings ahead of the tokens, through the same kernels."""
     jcfg, cfg = _cfgs(arch)
     jp, tp = _params(jcfg, cfg, "float32")
     rng = np.random.default_rng(2)
@@ -222,6 +247,10 @@ def test_other_dense_configs_match_reference(arch):
     else:
         x = rng.integers(0, cfg.vocab, (1, PROMPT)).astype(np.int32)
         jin, tin = {"tokens": jnp.asarray(x)}, {"tokens": torch.from_numpy(x)}
+    if cfg.frontend == "tokens+patches":
+        patches = rng.standard_normal((1, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        jin["patches"] = jnp.asarray(patches)
+        tin["patches"] = torch.from_numpy(patches)
     jh, _ = jforward(jp, jcfg, jin, shape)
     th, _ = forward(tp, cfg, tin)
     np.testing.assert_allclose(logits_fn(tp, cfg, th).numpy(),
