@@ -9,11 +9,18 @@ another sm_90a card).  It builds the port's CUDA kernels from
 
 1. prints the card's name and power limit, the torch and CUDA versions
    and the kernel build time;
-2. holds ``bucket_histogram`` against its plain PyTorch version on the
-   card: the contract's edge cases, then 2^28 int32 keys (1 GiB, 10 %
-   padding, 1 % >= n_buckets) for n_buckets in {4, 128, 32000}, with
-   kernel, plain-version and ``torch.bincount`` times (CUDA events, median
-   of 15 after warm-up) beside the memory bound;
+2. holds ``bucket_histogram`` against its plain PyTorch version and
+   ``torch.bincount`` on the card, exactly: the contract's edge cases;
+   every route edge (n_buckets in {1, 4, 16, 17, 58112, 58113, 131072,
+   929792, 929793}, each below and above the one-cluster crossover); N in
+   {1, 3, an unaligned view of 4099, 131032, the crossover - 1, itself and
+   + 1}; all keys in one bucket; then 2^28 int32 keys (1 GiB, 10 %
+   padding, 1 % >= n_buckets) for n_buckets in {4, 128, 32000, 131072}
+   and 2^28 Zipf(1.1) keys over 32000, each with the kernel's route,
+   event-timed and profiler device time, device operations a call, the
+   plain version's and ``torch.bincount``'s times (CUDA events, median of
+   15 after warm-up) beside the memory bound.  Every route (``regs``,
+   ``smem``, ``global``) must have run;
 3. runs ``device_histogram`` over 2^28 Zipf tokens (vocab 32000) against
    ``host_histogram``, and ``storage_histogram`` (8 shards through a DRAM
    tier) over 2^24 of them against the device result;
@@ -25,7 +32,11 @@ another sm_90a card).  It builds the port's CUDA kernels from
    Each output must be byte-identical to the same job in host mode, the
    first WordCount must reduce wholly on the device, and every kernel
    must have launched during this phase;
-5. times ``bucket_histogram`` at the main path's largest shape;
+5. times ``bucket_histogram`` at the main path's largest shape, beside
+   a launch floor (a one-element ``add_``): there a call must be one
+   device operation, and a profiled window of 15 calls must show no
+   device-attribute, function-attribute or occupancy query (a first call,
+   profiled with the caches cleared, shows the profiler records them);
 6. holds ``flash_attention`` and ``decode_attention`` against their plain
    versions (run in f32; tolerance 2e-2 for bf16, 2e-5 for f32) on the
    card: flash prefill at B=1, T=1024, H=16, Kv=2, dh=128, causal, then
@@ -81,10 +92,10 @@ another sm_90a card).  It builds the port's CUDA kernels from
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
    ``scaled_dot_product_attention``; a yardstick only; none computes the
-   SSD chunk) and the bound; the flash, decode and SSD rows also carry
-   their kernel route and their device-only time from the profiler (and
-   SDPA's for flash and decode), since an event-timed ``ms`` includes the
-   wrapper's host time.  Decode and SSD must make one launch a call, of
+   SSD chunk) and the bound; every row also carries its kernel route and
+   its device-only time from the profiler (and the library call's for
+   the histogram, flash and decode), since an event-timed ``ms`` includes
+   the wrapper's host time.  Decode and SSD must make one launch a call, of
    their own kernel.
 
 The build prints ptxas's registers, shared memory and spills for every
@@ -176,11 +187,13 @@ def bytes_bound_ms(nbytes: int) -> float:
 # -- phase 2: the kernel against its plain version ----------------------------
 
 class KernelRecord:
-    """What the ``kernels`` line reports for ``bucket_histogram``."""
+    """What the ``kernels`` line reports for ``bucket_histogram``, and the
+    routes its checks ran."""
 
     def __init__(self) -> None:
         self.max_abs_err = 0
         self.checks = 0
+        self.routes: set = set()
 
     def compare(self, keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
         from repro_torch.kernels import bucket_histogram as bh
@@ -193,32 +206,56 @@ class KernelRecord:
         err = int((got.long() - plain.long()).abs().max())
         self.max_abs_err = max(self.max_abs_err, err)
         self.checks += 1
+        self.routes.add(hist_plan(keys, n_buckets).route)
         check(got.dtype == torch.int32 and got.shape == (n_buckets,),
               f"kernel output {got.dtype} {tuple(got.shape)}")
         check(torch.equal(got, plain), f"kernel != plain (n={keys.numel()}, "
               f"n_buckets={n_buckets}, max abs err {err})")
-        check(torch.equal(got.long(), library), "kernel != torch.bincount")
+        check(torch.equal(got.long(), library),
+              f"kernel != torch.bincount (n={keys.numel()}, n_buckets={n_buckets})")
         return got
 
     def measure(self, keys: torch.Tensor, n_buckets: int) -> dict:
+        """The kernel's route, event-timed and device time and device
+        operations a call, the plain version's and ``torch.bincount``'s
+        times, and the bound (the keys read and the counts written once)."""
         from repro_torch.kernels import bucket_histogram as bh
 
         self.compare(keys, n_buckets)
         valid = keys[(keys >= 0) & (keys < n_buckets)]
+        kernel = lambda: bh.bucket_histogram(keys, n_buckets)  # noqa: E731
+        library = lambda: torch.bincount(valid, minlength=n_buckets)  # noqa: E731
         before = bh.launches
-        kernel_ms = time_ms(lambda: bh.bucket_histogram(keys, n_buckets))
+        kernel_ms = time_ms(kernel)
         launches = bh.launches - before
+        dev_ms, ops, _ = device_profile(kernel, op_keys=OP_KEYS)
         plain_ms = time_ms(lambda: bh.bucket_histogram_torch(keys, n_buckets))
-        library_ms = time_ms(
-            lambda: torch.bincount(valid, minlength=n_buckets)
-        )
+        library_ms = time_ms(library)
         n = keys.numel()
+        plan = hist_plan(keys, n_buckets)
         return {
-            "n": n, "n_buckets": n_buckets, "kernel_ms": kernel_ms,
+            "n": n, "n_buckets": n_buckets, "kernel_route": plan.route,
+            "one_cluster": plan.single, "kernel_ms": kernel_ms,
+            "device_ms": dev_ms, "device_ops_per_call": ops,
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": device_ms(library),
             "bound_ms": bytes_bound_ms(4 * n + 4 * n_buckets),
             "bound_by": "bytes", "launches": launches,
         }
+
+
+def hist_plan(keys: torch.Tensor, n_buckets: int):
+    """The plan ``bucket_histogram`` runs for these keys (prepared by the
+    call before it)."""
+    from repro_torch.kernels import bucket_histogram as bh
+
+    return bh._call_for(keys.get_device(), keys.numel(), n_buckets).plan
+
+
+#: n_buckets at the edges of the histogram's routes: regs up to 16, smem
+#: up to what one block's shared memory holds (58112 on the H100), global
+#: above it (and past 16 blocks of it)
+HIST_ROUTE_EDGES = (1, 4, 16, 17, 58112, 58113, 131072, 929792, 929793)
 
 
 def phase_kernel(dev, seed: int, rec: KernelRecord, n: int) -> None:
@@ -238,7 +275,7 @@ def phase_kernel(dev, seed: int, rec: KernelRecord, n: int) -> None:
         "all_padding": (torch.full((64,), -1, dtype=torch.int32, device=dev), 8),
         "over_range": (randint(-3, 20, 777), 8),
         "unaligned_view": (randint(-1, 9, 4099)[3:], 8),
-        "global_atomics": (randint(-1, 70000, 100003), 70000),
+        "global_70000": (randint(-1, 70000, 100003), 70000),
     }
     for name, (keys, nb) in edges.items():
         got = rec.compare(keys.contiguous(), nb)
@@ -252,15 +289,104 @@ def phase_kernel(dev, seed: int, rec: KernelRecord, n: int) -> None:
     check(f32.dtype == torch.float32, "out_dtype float32 ignored")
     del exact
 
-    for nb in (4, 128, 32000):
-        keys = randint(0, nb, n)
-        u = torch.rand(n, generator=g, device=dev)
-        keys[u < 0.10] = -1  # padding
-        keys[(u >= 0.10) & (u < 0.11)] = nb + 7  # dropped: >= n_buckets
-        del u
-        emit("kernel", **rec.measure(keys, nb))
+    # every route edge, as one cluster and as a grid of clusters
+    over = 4 * bh.CROSSOVER + 5
+    for nb in HIST_ROUTE_EDGES:
+        for m in (100003, over):
+            keys = randint(-1, nb + nb // 50 + 2, m)
+            rec.compare(keys, nb)
+            plan = hist_plan(keys, nb)
+            emit("kernel_edge", case="route_edge", n=m, n_buckets=nb,
+                 route=plan.route, one_cluster=plan.single, ok=True)
+    # N at its edges: tiny, unaligned, the main path's, the crossover
+    sizes = {"1": (1, 0), "3": (3, 0), "unaligned_4099": (4099, 3),
+             "131032": (131032, 0)}
+    for d in (-1, 0, 1):
+        sizes[f"crossover{d:+d}"] = (bh.CROSSOVER + d, 0)
+    for name, (m, offset) in sizes.items():
+        for nb in (4, 17, 131072, 929793):
+            keys = randint(-1, nb + 2, m + offset)[offset:]
+            rec.compare(keys, nb)
+        emit("kernel_edge", case=f"n_{name}", n=m, ok=True,
+             one_cluster=hist_plan(keys, 4).single)
+    card = bh._devices[dev.index]
+    check(bh._plan(bh.CROSSOVER, 4, *card).single
+          and not bh._plan(bh.CROSSOVER + 1, 4, *card).single,
+          "the one-cluster crossover is not where the plan says")
+    # worst contention: every key in one bucket
+    for nb in (4, 128, 131072, 929793):
+        keys = torch.full((1 << 22,), min(nb - 1, 5), dtype=torch.int32,
+                          device=dev)
+        rec.compare(keys, nb)
+        emit("kernel_edge", case="one_bucket", n=keys.numel(), n_buckets=nb,
+             route=hist_plan(keys, nb).route, ok=True)
+    del keys
+    torch.cuda.empty_cache()
+
+    for nb in (4, 128, 32000, 131072, "zipf"):
+        if nb == "zipf":  # Zipf(1.1): about 14 % of the keys hit bucket 0
+            nb, keys = 32000, zipf_tokens(n, 32000, g, dev)
+            label = "zipf1.1"
+        else:
+            keys = randint(0, nb, n)
+            u = torch.rand(n, generator=g, device=dev)
+            keys[u < 0.10] = -1  # padding
+            keys[(u >= 0.10) & (u < 0.11)] = nb + 7  # dropped: >= n_buckets
+            del u
+            label = "uniform"
+        emit("kernel", keys=label, **rec.measure(keys, nb))
         del keys
         torch.cuda.empty_cache()
+    check(rec.routes == {"regs", "smem", "global"},
+          f"bucket_histogram routes checked: {sorted(rec.routes)}")
+
+
+def hist_at_main_shape(rec: KernelRecord, largest: dict) -> dict:
+    """``bucket_histogram`` at the main path's largest shape, beside a
+    launch floor: one call must be one device operation, and a window of
+    15 calls must make no device-attribute, function-attribute or
+    occupancy query (and no call of the wrapper's own per-device set-up),
+    where a first call with the caches cleared shows that the profiler
+    records such queries."""
+    from repro_torch.kernels import bucket_histogram as bh
+
+    keys, nb = largest["dest"], largest["n_parts"]
+    shape = rec.measure(keys, nb)
+    floor = torch.zeros(1, device=keys.device)
+    add = lambda: floor.add_(1)  # noqa: E731
+    shape["launch_floor_ms"] = time_ms(add)
+    shape["launch_floor_device_ms"] = device_ms(add)
+
+    def queries(events) -> list:
+        return sorted({e.key for e in events if e.key.startswith(QUERY_KEYS)})
+
+    bh._devices.clear()
+    bh._calls.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        bh.bucket_histogram(keys, nb)
+        torch.cuda.synchronize()
+    first = queries(prof.key_averages())
+    setups = []
+    real = bh._configure
+    bh._configure = lambda *a: setups.append(a) or real(*a)
+    try:
+        events, _, _ = profile_window(lambda: bh.bucket_histogram(keys, nb))
+    finally:
+        bh._configure = real
+    window = queries(events)
+    check(bool(first), "the profiler recorded no query of a first call: "
+          "the window's check would see nothing")
+    shape.update(queries_first_call=first, queries_in_window=window,
+                 setups_in_window=len(setups))
+    check(shape["device_ops_per_call"] == 1,
+          f"bucket_histogram made {shape['device_ops_per_call']} device "
+          "operations a call at the main path's shape: want 1")
+    check(not window and not setups,
+          f"bucket_histogram queried the device per call: {window}, "
+          f"{len(setups)} set-ups")
+    return shape
 
 
 # -- phase 3: the device shuffle -----------------------------------------------
@@ -667,19 +793,21 @@ LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernelEx", "cuLaunchKernel",
                "cudaLaunchKernelExC")
 
 
-def device_profile(fn, reps: int = REPS):
-    """Device time of one call of ``fn`` in ms, the kernel launches one
-    call makes, and the names of the device kernels it ran: one profiler
-    window over ``reps`` calls (after a warm-up), without the host time
-    that an event pair around each call also holds.  The trace can miss
-    some kernel records of a window (seen for the SSD kernel: 7 of 15),
-    so where it holds fewer kernel records than host launches the time is
-    scaled up by their ratio."""
+#: the profiler's names of the host calls that start a device operation
+OP_KEYS = LAUNCH_KEYS + ("cudaMemsetAsync", "cudaMemcpyAsync")
+#: runtime queries and settings that a prepared call must not repeat
+QUERY_KEYS = ("cudaDeviceGetAttribute", "cudaFuncSetAttribute",
+              "cudaOccupancy", "cudaGetDeviceProperties")
+
+
+def profile_window(fn, reps: int = REPS):
+    """One profiler window over ``reps`` calls of ``fn`` after a warm-up:
+    its events, its device records and their device time in us.  The
+    device trace of a window now and then comes back empty: take the first
+    of three windows that has one."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
-    # the device trace of a window now and then comes back empty: take the
-    # first of three windows that has one
     for _ in range(3):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
@@ -692,10 +820,23 @@ def device_profile(fn, reps: int = REPS):
         if total > 0:
             break
     check(total > 0, "the profiler saw no device time")
+    return events, kernels, total
+
+
+def device_profile(fn, reps: int = REPS, op_keys=LAUNCH_KEYS):
+    """Device time of one call of ``fn`` in ms, the device operations one
+    call starts (kernel launches, or the host calls in ``op_keys``), and
+    the names of the device records it ran: one profiler window over
+    ``reps`` calls, without the host time that an event pair around each
+    call also holds.  The trace can miss some kernel records of a window
+    (seen for the SSD kernel: 7 of 15), so where it holds fewer kernel
+    records than host launches the time is scaled up by their ratio."""
+    events, kernels, total = profile_window(fn, reps)
     launches = sum(e.count for e in events if e.key in LAUNCH_KEYS)
-    records = sum(e.count for e in kernels)
-    missed = max(1.0, launches / records)  # launches per kernel record
-    return (total * missed / reps / 1e3, launches / reps,
+    records = sum(e.count for e in kernels if "memset" not in e.key.lower())
+    missed = max(1.0, launches / records) if records else 1.0
+    ops = sum(e.count for e in events if e.key in op_keys)
+    return (total * missed / reps / 1e3, ops / reps,
             {e.key for e in kernels})
 
 
@@ -1576,7 +1717,7 @@ def main(argv=None) -> int:
     emit("phase_done", name="main_path", s=time.perf_counter() - t0)
 
     check(launches > 0, "bucket_histogram never launched on the main path")
-    shape = rec.measure(largest["dest"], largest["n_parts"])
+    shape = hist_at_main_shape(rec, largest)
     emit("kernel_main_path_shape", **shape)
 
     flash_rec = AttnRecord("flash_attention")
@@ -1630,10 +1771,16 @@ def main(argv=None) -> int:
 
     print(card, flush=True)  # again, beside the numbers below
     print(json.dumps({"kernels": [
-        row("bucket_histogram", "src/repro_torch/csrc/bucket_histogram.cu",
-            "src/repro/kernels/bucket_histogram.py:79", launches,
-            rec.max_abs_err, rec.checks, shape,
-            {"n": shape["n"], "n_buckets": shape["n_buckets"]}),
+        {**row("bucket_histogram", "src/repro_torch/csrc/bucket_histogram.cu",
+               "src/repro/kernels/bucket_histogram.py:79", launches,
+               rec.max_abs_err, rec.checks, shape,
+               {"n": shape["n"], "n_buckets": shape["n_buckets"]}),
+         "kernel_route": shape["kernel_route"],
+         "device_ms": shape["device_ms"],
+         "library_device_ms": shape["library_device_ms"],
+         "device_ops_per_call": shape["device_ops_per_call"],
+         "launch_floor_ms": shape["launch_floor_ms"],
+         "launch_floor_device_ms": shape["launch_floor_device_ms"]},
         {**row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention.py:138",
                serve_launches["flash_attention"], flash_rec.max_abs_err,

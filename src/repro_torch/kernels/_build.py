@@ -6,6 +6,7 @@ the repository root, named by a hash of the source and the flags, so an
 edited source is rebuilt and an unchanged one is not.  :func:`build` starts
 one ``nvcc`` per source, all at once.  Nothing here runs at import time:
 machines without ``nvcc`` (the CPU test runs) never reach it.
+:func:`_raw_stream` gives every wrapper the stream handle its launch takes.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
+import torch
+
 __all__ = ["SOURCES", "build", "load"]
 
 _PACKAGE = Path(__file__).resolve().parents[1]
@@ -29,6 +32,19 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: PyTorch's raw lookup of the current stream's handle, which builds no
+#: ``Stream`` object (a few microseconds less per call than
+#: ``torch.cuda.current_stream().cuda_stream``, the fallback).
+_current_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _raw_stream(index: int) -> int:
+    """The handle of device ``index``'s current stream, for a launch."""
+    if _current_raw_stream is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return _current_raw_stream(index)
+
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -46,12 +46,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import (
-    DTYPE_CODES,
-    HEAD_DIMS,
-    MASK_VALUE,
-    _raw_stream,
-)
+from repro_torch.kernels._build import _raw_stream
+from repro_torch.kernels.flash_attention import DTYPE_CODES, HEAD_DIMS, MASK_VALUE
 
 __all__ = ["decode_attention", "decode_attention_torch", "launches"]
 

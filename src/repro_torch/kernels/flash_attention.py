@@ -49,6 +49,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import _raw_stream
 
 __all__ = ["flash_attention", "flash_attention_torch", "launches", "HEAD_DIMS"]
 
@@ -66,18 +67,6 @@ BLOCK_K = 64  #: keys per kv tile of the tensor-core route
 TMA_ALIGN = 16  # bytes: TMA's rule for base addresses and strides
 _count_lock = threading.Lock()
 _entry = None
-
-
-#: PyTorch's raw lookup of the current stream's handle, which builds no
-#: ``Stream`` object (a few microseconds less per call than
-#: ``torch.cuda.current_stream().cuda_stream``, the fallback).
-_current_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _raw_stream(index: int) -> int:
-    if _current_raw_stream is None:
-        return torch.cuda.current_stream(index).cuda_stream
-    return _current_raw_stream(index)
 
 
 class _Params(ctypes.Structure):

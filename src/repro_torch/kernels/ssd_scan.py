@@ -46,7 +46,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import _raw_stream
+from repro_torch.kernels._build import _raw_stream
 
 __all__ = ["ssd_chunk_fwd", "ssd_chunk_torch", "launches"]
 

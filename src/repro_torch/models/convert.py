@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param import ParamDef
+from repro_torch.models.param import ParamDef, default_device
 
 __all__ = ["from_jax_params", "to_tensor"]
 
@@ -39,8 +39,11 @@ def from_jax_params(tree: Any, cfg: ModelConfig, device=None,
                     dtype: Optional[torch.dtype] = None) -> Any:
     """The reference's parameter tree (``np.asarray`` leaves, e.g. from
     ``jax.tree_util.tree_map(np.asarray, params)``) as the port's, on
-    ``device``; ``dtype`` casts every leaf (default: keep each leaf's)."""
+    ``device`` (default: the card); ``dtype`` casts every leaf (default:
+    keep each leaf's)."""
     from repro_torch.models.transformer import model_defs
+
+    device = default_device(device)
 
     def walk(defs: Any, node: Any, path: str) -> Any:
         if isinstance(defs, ParamDef):

@@ -15,11 +15,18 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-__all__ = ["ParamDef", "init_params", "stack_defs", "tree_map_defs"]
+__all__ = ["ParamDef", "default_device", "init_params", "stack_defs",
+           "tree_map_defs"]
 
 #: logical axis names used in ParamDef specs (kept for parity, unused)
 TP = "tp"
 FSDP = "fsdp"
+
+
+def default_device(device: Any = None) -> torch.device:
+    """``device``, or the card when it is None: the port's entry points
+    put their tensors on the GPU unless the caller asks otherwise."""
+    return torch.device("cuda" if device is None else device)
 
 
 @dataclass(frozen=True)

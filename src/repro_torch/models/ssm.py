@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.param import FSDP, TP, ParamDef
+from repro_torch.models.param import FSDP, TP, ParamDef, default_device
 
 __all__ = ["ssm_defs", "ssm_apply", "ssm_decode", "init_ssm_cache", "SSMCache"]
 
@@ -130,6 +130,8 @@ class SSMCache(NamedTuple):
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> SSMCache:
+    """A zero conv window and f32 state on ``device`` (default: the card)."""
+    device = default_device(device)
     s = cfg.ssm
     D = cfg.d_model
     di = s.d_inner(D)

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.models import attention, ssm
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import layer_norm, mlp_apply, mlp_defs, rms_norm, softcap
-from repro_torch.models.param import FSDP, TP, ParamDef, stack_defs
+from repro_torch.models.param import FSDP, TP, ParamDef, default_device, stack_defs
 from repro_torch.models.quant_cache import init_quant_cache
 
 __all__ = ["model_defs", "forward", "logits_fn", "decode_step", "init_cache"]
@@ -260,8 +260,10 @@ def _mixer_cache(blk: BlockSpec, cfg: ModelConfig, batch: int, seq_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, quant_attn: bool = False, device=None):
-    """Decode cache tree; ``quant_attn`` uses int8 attention caches.  Body
-    caches carry the leading ``n_periods`` axis."""
+    """Decode cache tree on ``device`` (default: the card); ``quant_attn``
+    uses int8 attention caches.  Body caches carry the leading
+    ``n_periods`` axis."""
+    device = default_device(device)
     mk = lambda b: _mixer_cache(b, cfg, batch, seq_len, dtype, quant_attn, device)
     return {
         "prelude": [mk(b) for b in cfg.prelude],

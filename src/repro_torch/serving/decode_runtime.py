@@ -105,9 +105,10 @@ class PagedDecoder:
         self.prompt_len = prompt_len
         self.total_len = prompt_len + max_tokens
         # Structure constant: the cache tree does not depend on batch size
-        # or values, so a throwaway template recovers it even when this
-        # process never ran the prefill (post-restart resume).
-        _, self._treedef = flatten_cache(init_cache(cfg, 1, 2))
+        # or values, so a throwaway template (meta tensors: no memory)
+        # recovers it even when this process never ran the prefill
+        # (post-restart resume).
+        _, self._treedef = flatten_cache(init_cache(cfg, 1, 2, device="meta"))
         self.fn = StatefulFunction(name, self._step, init=self._init,
                                    jit=False)
 

@@ -142,7 +142,7 @@ def test_prefill_and_decode_logits_and_caches_match_reference(model):
 
 def test_flatten_cache_keeps_ssm_cache_and_its_field_order(model):
     _, cfg, _, _ = model
-    cache = init_cache(cfg, 1, 4, dtype=torch.float32)
+    cache = init_cache(cfg, 1, 4, dtype=torch.float32, device="cpu")
     cache["body"][0].state.normal_()
     layers, treedef = flatten_cache(cache)
     body = cache["body"][0]

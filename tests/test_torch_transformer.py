@@ -70,7 +70,7 @@ def _run_both(jcfg, cfg, jp, tp, tokens, quant=False):
     jl, tl = [np.asarray(jlogits_fn(jp, jcfg, jh))], [logits_fn(tp, cfg, th)]
     if quant:  # decode from int8 caches, as a demoted session does
         jc = jinit_cache(jcfg, tokens.shape[0], TOTAL, quant_attn=True)
-        tc = init_cache(cfg, tokens.shape[0], TOTAL, quant_attn=True)
+        tc = init_cache(cfg, tokens.shape[0], TOTAL, quant_attn=True, device="cpu")
     jstep = jax.jit(lambda p, tok, c, t: jdecode_step(p, jcfg, tok, c, t))
     for t in range(PROMPT if not quant else 0, TOTAL):
         jlo, jc = jstep(jp, jnp.asarray(tokens[:, t:t + 1]), jc, jnp.int32(t))
@@ -175,7 +175,7 @@ def test_decode_refuses_a_cache_on_another_device():
     p = {k: v[0] for k, v in tp["body"][0]["mixer"].items()}
     x = torch.empty((1, 1, cfg.d_model), dtype=torch.bfloat16, device="meta")
     for quant in (False, True):
-        cache = init_cache(cfg, 1, 4, quant_attn=quant)["body"][0]
+        cache = init_cache(cfg, 1, 4, quant_attn=quant, device="cpu")["body"][0]
         cache = type(cache)(*(f[0] for f in cache))
         with pytest.raises(ValueError, match="KV cache is on cpu"):
             attention.attn_decode(p, x, cache, 0, cfg)
