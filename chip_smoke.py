@@ -8,7 +8,10 @@ another sm_90a card).  It builds the port's CUDA kernels from
 ``src/repro_torch/csrc`` with ``nvcc`` into ``build/repro_torch/``, then:
 
 1. prints the card's name and power limit, the torch and CUDA versions
-   and the kernel build time;
+   and the kernel build time; then makes the first launches of the flash,
+   decode and SSD kernels (bf16 and f32) from 4 threads released at once,
+   which races each kernel's per-device setup: every thread's output must
+   be the bytes of a later call, which must match the plain version;
 2. holds ``bucket_histogram`` against its plain PyTorch version and
    ``torch.bincount`` on the card, exactly: the contract's edge cases;
    every route edge (n_buckets in {1, 4, 16, 17, 58112, 58113, 131072,
@@ -64,7 +67,24 @@ another sm_90a card).  It builds the port's CUDA kernels from
    decode-step logits against a fresh prefill over the same tokens
    (relative L2 error <= 2e-2).  Both attention kernels must have
    launched after the resume and after the restart;
-8. holds ``ssd_chunk`` (the Mamba-2 SSD within-chunk kernel) against its
+8. replays a seeded multi-tenant trace (``core/loadgen.py``) at
+   ``MarvelClient.serving`` over phase 7's weights: 3 tenants (Zipf 0.8)
+   of 4 conversations, 12 s, a 4x burst on t0 from 4 s for 3 s, the base
+   rate half the hot steps per second one invoker sustained in phase 7's
+   lossless pool; a lossless pool over a warm pool of 4, so evictions
+   demote while other conversations decode.  Cell ``fixed`` has one
+   invoker; cell ``auto`` runs under ``MarvelClient.autoscaler`` (1 to 4
+   invokers, pumped from the replay), so decode steps and demotions run on
+   several invoker threads at once.  Each cell prints its p99 latency per
+   tenant and overall, windowed p99-under-SLO share (1000 ms, 1 s
+   windows), goodput, sheds, decode tokens per second, scale actions,
+   peak invokers, t0's isolation ratio and the KV pressure; it must have
+   no error, conserve every tenant's counts, and launch flash 36 times a
+   conversation started and decode 36 times a step; ``auto`` must scale
+   up, reach 2 invokers or more and come back to 1 after the drain.
+   Every conversation's tokens must equal the same conversation's served
+   alone in a fresh pool;
+9. holds ``ssd_chunk`` (the Mamba-2 SSD within-chunk kernel) against its
    plain version (tolerance 2e-3 abs and rel; every case run twice and
    compared bit for bit): the prefill's shape (BC=4, Q=256, H=80, P=64,
    N=128, B/C one group read with a head stride of 0, which must give
@@ -72,7 +92,7 @@ another sm_90a card).  It builds the port's CUDA kernels from
    H=13 (no multiple of a block's heads), P and N over {16, 32, 64, 128},
    and a strongly negative dA_cs whose upper-triangle exp overflows in
    the exp-then-mask oracle;
-9. drives ``MarvelClient.serving`` over Mamba-2 at the full width of
+10. drives ``MarvelClient.serving`` over Mamba-2 at the full width of
    mamba2-2.7b (64 SSD layers, d_model 2560, 80 heads of 64, d_state
    128, chunk 256, vocab 50280; random bf16 weights drawn on the card
    from ``--seed``, dt, A and the output projection as Mamba-2's
@@ -87,14 +107,15 @@ another sm_90a card).  It builds the port's CUDA kernels from
    64-layer model amplifies to a few percent, is printed beside it).
    The SSD kernel must have launched after the resume and after the
    restart;
-10. prints a ``kernels`` JSON line: each kernel's launches on its path
+11. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
    ``scaled_dot_product_attention``; a yardstick only; none computes the
    SSD chunk) and the bound; every row also carries its kernel route and
    its device-only time from the profiler (and the library call's for
-   the histogram, flash and decode), since an event-timed ``ms`` includes
+   the histogram, flash and decode; flash and decode also carry their
+   launches on phase 8's path), since an event-timed ``ms`` includes
    the wrapper's host time.  Decode and SSD must make one launch a call, of
    their own kernel.
 
@@ -120,6 +141,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -182,6 +204,81 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
 
 def bytes_bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+# -- phase 1b: first launches from several threads at once -------------------
+
+FIRST_LAUNCH_THREADS = 4
+
+
+def phase_first_launch_threads(dev, seed: int) -> None:
+    """The first launches in this process of the flash, decode and SSD
+    kernels (bf16 and f32 routes), made by several threads released at
+    once: each kernel sets its attributes on its first launch on a device,
+    so this races that setup.  Every thread's output must be the bytes of
+    a later call on the main thread, which must match the plain version."""
+    import threading
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = flash_inputs(g, dev, 1, 128, 16, 2, 128, dtype)
+        cases.append((f"flash_{str(dtype)[6:]}", fa.flash_attention, (q, k, v)))
+        lengths = torch.tensor([100, 256], dtype=torch.int32, device=dev)
+        dargs = (_randn(g, (2, 16, 128), dtype, dev),
+                 _randn(g, (2, 256, 2, 128), dtype, dev),
+                 _randn(g, (2, 256, 2, 128), dtype, dev), lengths)
+        cases.append((f"decode_{str(dtype)[6:]}", da.decode_attention, dargs))
+    cases.append(("ssd_chunk", ssd_scan.ssd_chunk_fwd,
+                  ssd_inputs(g, dev, 2, 64, 8, 64, 128)))
+    torch.cuda.synchronize()
+    barrier = threading.Barrier(FIRST_LAUNCH_THREADS)
+    outs = [None] * FIRST_LAUNCH_THREADS
+    failures = []
+
+    def run(i: int) -> None:
+        try:
+            barrier.wait()
+            outs[i] = [fn(*args) for _, fn, args in cases]
+            torch.cuda.synchronize()
+        except BaseException as exc:  # reported below, on the main thread
+            failures.append(f"thread {i}: {exc!r}")
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(FIRST_LAUNCH_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not failures, f"first launches from {FIRST_LAUNCH_THREADS} "
+          f"threads failed: {failures}")
+    flash_rec, decode_rec, ssd_rec = (AttnRecord("flash_attention"),
+                                      AttnRecord("decode_attention"), SSDRecord())
+    errs = {}
+    for c, (case, fn, args) in enumerate(cases):
+        again = fn(*args)
+        for i in range(FIRST_LAUNCH_THREADS):
+            got = outs[i][c]
+            same = (all(torch.equal(a, b) for a, b in zip(got, again))
+                    if isinstance(got, tuple) else torch.equal(got, again))
+            check(same, f"{case}: thread {i}'s first launch gave other bytes "
+                  "than a later call")
+        if case.startswith("flash"):
+            q, k, v = args
+            errs[case] = flash_rec.compare(case, again, fa.flash_attention_torch(
+                q.float(), k.float(), v.float()), q.dtype)
+        elif case.startswith("decode"):
+            q, kc, vc, lengths = args
+            errs[case] = decode_rec.compare(case, again, da.decode_attention_torch(
+                q.float(), kc.float(), vc.float(), lengths), q.dtype)
+        else:
+            errs[case] = ssd_rec.compare(case, args)
+    emit("first_launch_threads", threads=FIRST_LAUNCH_THREADS,
+         max_abs_err=errs, identical_across_threads=True, ok=True)
 
 
 # -- phase 2: the kernel against its plain version ----------------------------
@@ -997,8 +1094,9 @@ def phase_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
     demotion under warm-pool pressure, lossless suspend/resume byte
     identity, a restart that re-adopts sessions from PMEM, and the
     prefill/decode consistency check, then a profile of the bare model
-    step.  Returns the kernels' launch counts on the path and the
-    arguments of the last flash and decode calls on it."""
+    step.  Returns the kernels' launch counts on the path, the arguments
+    of the last flash and decode calls on it, the weights, and the hot
+    steps per second one invoker sustained in the lossless pool."""
     from repro_torch.api import ClusterConfig, MarvelClient, ServingConfig, TierSpec
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -1084,7 +1182,7 @@ def phase_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
              int8_decode_calls=counts["int8_done"]["quant_decode_attention"])
 
         # (b) lossless suspend/resume and (c) a restart
-        stream_c = lossless_and_restart(
+        stream_c, hot_rate = lossless_and_restart(
             cluster("lossless", lossless=True, warm_pool=8), serve, prompts,
             firsts, lossless_steps, mark, "serving", dev)
     finally:
@@ -1119,7 +1217,7 @@ def phase_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
          own_init_max_rel_l2=own_rel, own_init_argmax_agreement=own_agree)
     emit("serving_profile", **profile_decode(params, cfg, tokens, prompt_len,
                                              max_tokens))
-    return launches, flash_spy.last, decode_spy.last
+    return launches, flash_spy.last, decode_spy.last, params, hot_rate
 
 
 def lossless_and_restart(config, serve, prompts, firsts, lossless_steps: int,
@@ -1132,7 +1230,7 @@ def lossless_and_restart(config, serve, prompts, firsts, lossless_steps: int,
     same durable ``config`` re-adopts the three sessions and decodes on
     exactly.  ``serve(client)`` builds the pool; ``mark`` is called at
     "resumed", "after_resume" and "after_restart".  Returns "c"'s
-    tokens."""
+    tokens and the hot steps per second of "a" and "b"."""
     from repro_torch.api import MarvelClient
     from repro_torch.serving import decode_runtime
 
@@ -1201,7 +1299,7 @@ def lossless_and_restart(config, serve, prompts, firsts, lossless_steps: int,
               "did not reproduce the first token of the same prompt")
         mark("after_restart")
     emit(f"{label}_restart", adopted=adopted, continued=resumed, matches=True)
-    return stream["c"]
+    return stream["c"], hot_steps / hot_s
 
 
 @torch.no_grad()
@@ -1296,6 +1394,225 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
         "top_kernels_ms_per_step": {
             e.key[:60]: e.self_device_time_total / steps / 1e3 for e in top},
     }
+
+
+# -- phase 8: traced multi-tenant serving under the autoscaler --------------
+
+TRACE_TENANTS = 3
+TRACE_SESSIONS = 4  # conversations a tenant: 12 in all
+TRACE_WARM_POOL = 4  # fewer warm slots than conversations: evictions demote
+TRACE_SECONDS = 12.0
+TRACE_SLO_MS = 1000.0
+TRACE_WINDOW_S = 1.0
+
+
+class Conversations:
+    """The replay's ``submit`` over a serving pool: an arrival of ``(app,
+    session)`` starts conversation ``app/session`` (its prompt drawn from
+    the seed) on its first admitted arrival and steps it after that.
+    Returns the pool's future and keeps each conversation's futures in
+    order."""
+
+    def __init__(self, pool, prompts: dict) -> None:
+        self.pool, self.prompts = pool, prompts
+        self.futures: dict = {}
+
+    def submit(self, fn, app, session, block=True, timeout=None, **inputs):
+        check(fn == self.pool.decoder.fn.name and not inputs,
+              f"the trace asked for {fn}({inputs})")
+        conv = f"{app}/{session}"
+        if conv not in self.futures:
+            fut = self.pool.start(conv, self.prompts[conv], block=block,
+                                  timeout=timeout)
+            self.futures[conv] = [fut]
+        else:
+            fut = self.pool.step(conv, block=block, timeout=timeout)
+            self.futures[conv].append(fut)
+        return fut
+
+
+def _finite(x: float):
+    return x if math.isfinite(x) else None
+
+
+def phase_traced_serving(dev, seed: int, cfg, params, hot_tokens_per_s: float,
+                         prompt_len: int, max_tokens: int, workdir: Path):
+    """A seeded multi-tenant trace replayed at ``MarvelClient.serving``
+    over phase 7's weights: 3 tenants of 4 conversations, a 4x burst on
+    t0, the base rate half what one invoker sustained hot in phase 7.
+    Cell ``fixed`` serves it with one invoker, cell ``auto`` under
+    ``MarvelClient.autoscaler`` (1 to 4 invokers), both lossless over a
+    warm pool smaller than the conversations, so decode steps run on
+    several invoker threads at once beside evictions' demotions.  Every
+    conversation must decode the tokens of a sequential pass.  Returns the
+    flash and decode launches on the path."""
+    from repro_torch.api import ClusterConfig, MarvelClient, ServingConfig, TierSpec
+    from repro_torch.core.autoscale import PolicySpec
+    from repro_torch.core.loadgen import (
+        BurstSpec, OpSpec, TraceSpec, generate_trace, rate_at, replay,
+    )
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    spec = TraceSpec(
+        seed=seed, duration=TRACE_SECONDS, base_rate=hot_tokens_per_s / 2,
+        tenants=TRACE_TENANTS, sessions_per_tenant=TRACE_SESSIONS,
+        zipf_skew=0.8, amplitude=0.0,
+        bursts=(BurstSpec(start=4.0, duration=3.0, factor=4.0, tenant="t0"),),
+        ops=(OpSpec("decode"),),
+    )
+    trace = generate_trace(spec)
+    arrivals = Counter(f"{a.tenant}/{a.session}" for a in trace)
+    check(max(arrivals.values()) <= max_tokens,
+          f"a conversation of the trace has more arrivals than its "
+          f"{max_tokens}-token headroom: {arrivals}")
+    rng = np.random.default_rng(seed + 1)
+    prompts = {f"t{i}/s{j}": rng.integers(0, cfg.vocab, (1, prompt_len), dtype=np.int32)
+               for i in range(TRACE_TENANTS) for j in range(TRACE_SESSIONS)}
+    emit("traced_setup", one_invoker_hot_tokens_per_s=hot_tokens_per_s,
+         base_rate=spec.base_rate, burst_rate=rate_at(spec, 5.0),
+         arrivals=len(trace), conversations=len(arrivals),
+         max_arrivals_per_conversation=max(arrivals.values()),
+         arrivals_per_tenant=Counter(a.tenant for a in trace),
+         warm_pool=TRACE_WARM_POOL, slo_ms=TRACE_SLO_MS, window_s=TRACE_WINDOW_S)
+
+    def cluster(name: str) -> ClusterConfig:
+        root = workdir / name
+        return ClusterConfig(
+            name=name,
+            tiers=(TierSpec("dram"), TierSpec("pmem", path=str(root / "pmem"))),
+            invokers=1, warm_pool=TRACE_WARM_POOL, commit_every=1,
+            journal="pmem", journal_path=str(root / "journal"),
+            serving=ServingConfig(block_tokens=16, lossless=True),
+        )
+
+    def serve(client):
+        return client.serving(params, cfg, prompt_len=prompt_len,
+                              max_tokens=max_tokens, device=dev)
+
+    def cell(name: str, policy) -> dict:
+        """Replay the trace at a fresh pool; returns each conversation's
+        tokens."""
+        with MarvelClient(cluster(name)) as client:
+            pool = serve(client)
+            auto = client.autoscaler(policy) if policy is not None else None
+            adapter = Conversations(pool, prompts)
+            torch.cuda.synchronize()
+            before = (fa.launches, da.launches)
+            cpu0 = time.process_time()
+            res = replay(adapter.submit, trace, spec=spec, slo_ms=TRACE_SLO_MS,
+                         window_s=TRACE_WINDOW_S, admission="shed",
+                         tick=auto.maybe_tick if auto is not None else None,
+                         drain_timeout=600.0)
+            torch.cuda.synchronize()
+            cpu_s = time.process_time() - cpu0  # every thread's host time
+            flash_n, decode_n = fa.launches - before[0], da.launches - before[1]
+            snap = client.gateway.load_snapshot()
+            gstats = client.gateway.stats()
+            busy_s = sum(inv.busy_seconds for inv in gstats.invokers)
+            streams = {c: [_tok(f) for f in futs]
+                       for c, futs in adapter.futures.items()}
+            invokers_after = None
+            if auto is not None:
+                check(client.gateway.quiesce(timeout=60.0),
+                      f"{name}: the gateway did not quiesce after the drain")
+                for k in range(1, 9):  # idle control ticks, a second apart
+                    auto.maybe_tick(res.wall_s + k)
+                invokers_after = client.gateway.load_snapshot().invokers
+            stats = pool.stats()
+        check(res.offered == len(trace) and res.errors == 0,
+              f"{name}: {res.errors} errors over {res.offered} of "
+              f"{len(trace)} arrivals")
+        for tenant, ts in sorted(res.tenants.items()):
+            check(ts.offered == ts.completed + ts.shed + ts.errors,
+                  f"{name}: tenant {tenant} offered {ts.offered}, completed "
+                  f"{ts.completed}, shed {ts.shed}, errors {ts.errors}")
+        check(flash_n == cfg.n_layers * len(streams),
+              f"{name}: {flash_n} flash launches for {len(streams)} prefills "
+              f"of {cfg.n_layers} layers")
+        check(decode_n == cfg.n_layers * res.completed > 0,
+              f"{name}: {decode_n} decode launches for {res.completed} "
+              f"decode steps of {cfg.n_layers} layers")
+        iso = res.isolation("t0")
+        out = {
+            "cell": name, "wall_s": res.wall_s, "offered": res.offered,
+            "completed": res.completed, "shed": res.shed,
+            "decode_tokens_per_s": res.completed / res.wall_s,
+            "p99_ms": res.p99_ms(),
+            "p99_ms_per_tenant": {t: res.p99_ms(t) for t in sorted(res.tenants)},
+            "p99_under_slo_frac": res.p99_under_slo_frac(),
+            "goodput_frac": res.goodput_frac(),
+            "goodput_frac_per_tenant": {t: res.goodput_frac(t)
+                                        for t in sorted(res.tenants)},
+            "isolation_t0_ratio": _finite(iso.ratio),
+            "isolation_t0_burst_p99_ms": iso.burst_p99_ms,
+            "isolation_t0_calm_p99_ms": iso.calm_p99_ms,
+            "scale_actions": auto.scale_actions if auto is not None else 0,
+            "peak_invokers": auto.peak_invokers if auto is not None else 1,
+            "invokers_after_idle": invokers_after,
+            "kv_resident_sessions": snap.resident_sessions,
+            "kv_paged_sessions": snap.paged_sessions,
+            "demotions": stats["demotions"], "resumes": stats["resumes"],
+            "demand_faults": stats["demand_faults"],
+            "flash_launches": flash_n, "decode_launches": decode_n,
+            # where the time went: invocations' summed service time (each
+            # from dispatch to done, on its invoker), the lane wait before
+            # dispatch, and the process's host CPU time (all threads)
+            "invoker_busy_s": busy_s,
+            "service_ms_per_invocation": busy_s / res.completed * 1e3,
+            "lane_wait_p99_ms": gstats.lane_wait_p99_ms,
+            "host_cpu_s": cpu_s, "host_cores_busy": cpu_s / res.wall_s,
+        }
+        if auto is not None:
+            out["actions"] = [(a["t"], a["kind"], *a["invokers"])
+                              for a in auto.actions]
+        emit("traced_cell", **out)
+        if auto is not None:
+            kinds = [a["kind"] for a in auto.actions]
+            check("scale_up" in kinds, f"{name}: no scale_up in {kinds}")
+            check(auto.peak_invokers >= 2,
+                  f"{name}: a peak of {auto.peak_invokers} invokers")
+            check(invokers_after == policy.min_invokers,
+                  f"{name}: {invokers_after} invokers after the drain and "
+                  f"idle ticks, not min_invokers={policy.min_invokers}")
+        return streams
+
+    fa.launches = da.launches = 0  # the traced path starts here
+    t0 = time.perf_counter()
+    cells = {
+        "fixed": cell("fixed", None),
+        "auto": cell("auto", PolicySpec(
+            min_invokers=1, max_invokers=4, target_per_invoker=2,
+            down_cooldown_s=0.5, warm_pool_per_invoker=2)),
+    }
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches}  # ... and ends here
+    replay_s = time.perf_counter() - t0
+
+    # the sequential pass: each conversation alone in a fresh pool, to the
+    # most steps either cell completed for it
+    need = {c: max(len(streams.get(c, ())) for streams in cells.values())
+            for c in prompts}
+    t0 = time.perf_counter()
+    with MarvelClient(cluster("sequential")) as client:
+        pool = serve(client)
+        alone = {}
+        for c, n in need.items():
+            if n:
+                alone[c] = [_tok(pool.start(c, prompts[c]))]
+                alone[c] += [_tok(pool.step(c)) for _ in range(n - 1)]
+    sequential_s = time.perf_counter() - t0
+    for name, streams in cells.items():
+        for c, stream in streams.items():
+            check(stream == alone[c][:len(stream)],
+                  f"{name}: conversation {c} decoded {stream}, alone "
+                  f"{alone[c][:len(stream)]}")
+    emit("traced_identity", conversations=len(alone),
+         tokens_checked={k: sum(map(len, streams.values()))
+                         for k, streams in cells.items()},
+         sequential_tokens=sum(map(len, alone.values())),
+         identical=True, replay_s=replay_s, sequential_s=sequential_s)
+    return launches
 
 
 # -- phase 9: the SSD kernel against its plain version ----------------------
@@ -1576,7 +1893,7 @@ def phase_ssm_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
         shutil.rmtree(workdir / "ssm_pool", ignore_errors=True)
 
         # (b) lossless suspend/resume and (c) a restart
-        stream_c = lossless_and_restart(
+        stream_c, _ = lossless_and_restart(
             cluster("ssm_lossless", warm_pool=8), serve, prompts, firsts,
             lossless_steps, mark, "ssm", dev)
     finally:
@@ -1701,6 +2018,7 @@ def main(argv=None) -> int:
                  if src in ("flash_attention", "decode_attention", "ssd_scan")
                  and n}
     check(not tc_spills, f"ptxas spills in the tensor-core kernels: {tc_spills}")
+    phase_first_launch_threads(dev, args.seed)
 
     rec = KernelRecord()
     t0 = time.perf_counter()
@@ -1729,9 +2047,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     from repro_torch.configs import get_config
 
+    serve_cfg = get_config(SERVE_MODEL)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as workdir:
-        serve_launches, flash_last, decode_last = phase_serving(
-            dev, args.seed, get_config(SERVE_MODEL), SERVE_PROMPT,
+        serve_launches, flash_last, decode_last, params, hot_rate = phase_serving(
+            dev, args.seed, serve_cfg, SERVE_PROMPT,
             SERVE_MAX_TOKENS, SERVE_CONVS, INT8_STEPS, LOSSLESS_STEPS,
             Path(workdir),
         )
@@ -1744,6 +2063,15 @@ def main(argv=None) -> int:
     emit("decode_path_shape", **decode_shape)
     del flash_last, decode_last, fq, fk, fv, dq, dk, dv
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_traced_") as workdir:
+        traced_launches = phase_traced_serving(
+            dev, args.seed, serve_cfg, params, hot_rate, SERVE_PROMPT,
+            SERVE_MAX_TOKENS, Path(workdir),
+        )
+    del params
+    torch.cuda.empty_cache()
+    emit("phase_done", name="traced_serving", s=time.perf_counter() - t0)
 
     ssd_rec = SSDRecord()
     t0 = time.perf_counter()
@@ -1787,14 +2115,16 @@ def main(argv=None) -> int:
                flash_rec.checks, flash_shape, flash_shape["shape"]),
          "kernel_route": flash_shape["kernel_route"],
          "device_ms": flash_shape["device_ms"],
-         "library_device_ms": flash_shape["library_device_ms"]},
+         "library_device_ms": flash_shape["library_device_ms"],
+         "traced_launches": traced_launches["flash_attention"]},
         {**row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                "src/repro/kernels/decode_attention.py:127",
                serve_launches["decode_attention"], decode_rec.max_abs_err,
                decode_rec.checks, decode_shape, decode_shape["shape"]),
          "kernel_route": decode_shape["kernel_route"],
          "device_ms": decode_shape["device_ms"],
-         "library_device_ms": decode_shape["library_device_ms"]},
+         "library_device_ms": decode_shape["library_device_ms"],
+         "traced_launches": traced_launches["decode_attention"]},
         {**row("ssd_chunk", "src/repro_torch/csrc/ssd_scan.cu",
                "src/repro/kernels/ssd_scan.py:80", ssd_launches,
                ssd_rec.max_abs_err, ssd_rec.checks, ssd_shape,

@@ -904,8 +904,8 @@ class MarvelClient:
         """Async invoke: returns the gateway Future.  ``block=False``
         turns admission backpressure into an immediate
         :class:`~repro_torch.core.gateway.AdmissionError` (load shedding) —
-        the reference's open-loop trace replay (``core/loadgen.py``, not
-        ported yet) submits through this.  Sharded clients resolve the ring owner per call."""
+        the open-loop trace replay (:func:`repro_torch.core.loadgen.replay`)
+        submits through this.  Sharded clients resolve the ring owner per call."""
         self._check_open()
         if self.cluster is not None:
             return self.cluster.submit(
@@ -1028,13 +1028,35 @@ class MarvelClient:
             admission=scfg.admission,
         )
 
-    def autoscaler(self, *args: Any, **kwargs: Any):
-        """Not ported yet: the autoscaler and the load generator come
-        with the cluster slice (ROADMAP.md, queue A item 7)."""
-        raise NotImplementedError(
-            "MarvelClient.autoscaler() is not ported yet: see ROADMAP.md, "
-            "queue A item 7 (loadgen/autoscale)"
-        )
+    def autoscaler(self, spec: Any = None, interval_s: float = 0.1,
+                   **spec_overrides: Any):
+        """An :class:`~repro_torch.core.autoscale.Autoscaler` wired to this
+        client's actuators: every (per-node) gateway's ``scale_to`` and
+        warm pool, plus — for sharded clients when the spec enables a
+        node band — :meth:`add_node` / :meth:`remove_node`.  The loop is
+        tick-driven (``maybe_tick()``), not a thread: callers pump it
+        from their replay/driver loop, which keeps runs deterministic."""
+        self._check_open()
+        from repro_torch.core.autoscale import Autoscaler, PolicySpec
+
+        if spec is None:
+            spec = PolicySpec(**spec_overrides)
+        elif spec_overrides:
+            spec = replace(spec, **spec_overrides)
+        if self.cluster is not None:
+            cluster = self.cluster
+
+            def gateways() -> Dict[str, Gateway]:
+                return {n.node_id: n.gateway for n in cluster.live_nodes()}
+
+            add = remove = None
+            if spec.max_nodes is not None:
+                add, remove = self.add_node, self.remove_node
+            return Autoscaler(
+                gateways, spec, interval_s=interval_s,
+                add_node=add, remove_node=remove,
+            )
+        return Autoscaler({"n0": self.gateway}, spec, interval_s=interval_s)
 
     # -- dataset / dataflow surface ----------------------------------------
     def dataset(self, parts: Sequence[bytes],

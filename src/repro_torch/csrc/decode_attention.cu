@@ -57,6 +57,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "per_device.h"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -66,7 +68,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 16;     // cache rows per warp step (mma's m side)
 constexpr int kF32BlockS = 32;  // cache rows per tile of the f32 kernel
 constexpr int kMaxSplits = 16;  // the largest (non-portable) cluster
-constexpr int kMaxDevices = 64;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
 constexpr float kMask = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -595,20 +596,19 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(const Args a) {
 // shared memory and to clusters of up to 16 blocks; then launch the grid
 // (n_splits, rows) as clusters of n_splits blocks.
 template <typename Kernel>
-cudaError_t launch_clusters(Kernel kernel, bool (&configured)[kMaxDevices],
-                            int device, int smem_optin, int smem,
-                            const Args& a, int n_splits, int rows,
-                            cudaStream_t stream) {
-  if (!configured[device]) {
-    cudaError_t err = cudaFuncSetAttribute(
+cudaError_t launch_clusters(Kernel kernel, PerDevice& configured, int device,
+                            int smem_optin, int smem, const Args& a,
+                            int n_splits, int rows, cudaStream_t stream) {
+  const cudaError_t err = configured.once(device, [&] {
+    cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     }
-    if (err != cudaSuccess) return err;
-    configured[device] = true;
-  }
+    return e;
+  });
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(n_splits, rows, 1);
   config.blockDim = dim3(kThreads, 1, 1);
@@ -627,7 +627,7 @@ cudaError_t launch_clusters(Kernel kernel, bool (&configured)[kMaxDevices],
 template <typename T, int DH, int NT>
 cudaError_t mma_launch(const Args& a, int device, int n_splits, int rows,
                        cudaStream_t stream) {
-  static bool configured[kMaxDevices] = {};  // per device: the attributes
+  static PerDevice configured;  // the attributes, per device
   constexpr int smem = MmaLayout<DH, NT>::SMEM;
   return launch_clusters(decode_mma_kernel<T, DH, NT>, configured, device,
                          smem, smem, a, n_splits, rows, stream);
@@ -664,7 +664,7 @@ cudaError_t mma_dispatch(int dh, int heads, const Args& a, int device,
 template <int DH>
 cudaError_t f32_launch(const Args& a, int device, int n_splits, int rows,
                        cudaStream_t stream) {
-  static bool configured[kMaxDevices] = {};
+  static PerDevice configured;
   return launch_clusters(decode_f32_kernel<DH>, configured, device, kMaxSmem,
                          f32_smem_bytes<DH>(a.heads), a, n_splits, rows,
                          stream);

@@ -77,6 +77,8 @@
 #include <cstring>
 #include <mutex>
 
+#include "per_device.h"
+
 namespace {
 
 constexpr float kMask = -1e30f;
@@ -794,29 +796,29 @@ __global__ void __launch_bounds__(TcLayout<DH, NC>::THREADS, 1)
 // -- host side -------------------------------------------------------------------
 
 template <int DH, int BQ>
-cudaError_t f32_launch(const Args& a, cudaStream_t stream) {
+cudaError_t f32_launch(const Args& a, int device, cudaStream_t stream) {
   constexpr int smem = f32_smem_floats<DH, BQ>() * static_cast<int>(sizeof(float));
   auto kernel = flash_f32_kernel<DH, BQ>;
-  static bool configured = false;  // the attribute is per kernel, set once
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
+  static PerDevice configured;  // the attribute, per kernel and device
+  const cudaError_t err = configured.once(device, [&] {
+    return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  });
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.Tq + BQ - 1) / BQ, a.B * a.H);
   kernel<<<grid, kF32Threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t f32_dispatch(int dh, const Args& a, cudaStream_t stream) {
+cudaError_t f32_dispatch(int dh, const Args& a, int device,
+                         cudaStream_t stream) {
   switch (dh) {
     case 64:
-      return f32_launch<64, 64>(a, stream);
+      return f32_launch<64, 64>(a, device, stream);
     case 128:
-      return f32_launch<128, 64>(a, stream);
+      return f32_launch<128, 64>(a, device, stream);
     case 256:
-      return f32_launch<256, 32>(a, stream);
+      return f32_launch<256, 32>(a, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -828,10 +830,11 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, looked up once (no -lcuda).
+// cuTensorMapEncodeTiled from the driver, looked up once (no -lcuda); the
+// static's initialisation is thread-safe, so concurrent first callers wait
+// for one lookup.
 EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
+  static const EncodeTiled fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
@@ -841,10 +844,24 @@ EncodeTiled encoder() {
     cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
                                               cudaEnableDefault, &found);
 #endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
   return fn;
+}
+
+// The encoder is a driver call and needs a context current on the calling
+// thread.  The runtime binds one to a host thread only at the thread's first
+// runtime call that needs it, so a fresh thread whose first CUDA work is this
+// launch has none yet (the encoder then fails).  cudaSetDevice binds the
+// device's primary context (CUDA 12); it runs once per thread and device.
+cudaError_t bind_context(int device) {
+  thread_local int bound = -1;
+  if (bound == device) return cudaSuccess;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) bound = device;
+  return err;
 }
 
 // What a tensor map is a function of: type, address, sizes and strides.
@@ -909,17 +926,16 @@ bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
 }
 
 template <typename T, int DH, int NC>
-cudaError_t tc_launch(const Args& a, const CUtensorMap (&maps)[3],
+cudaError_t tc_launch(const Args& a, const CUtensorMap (&maps)[3], int device,
                       cudaStream_t stream) {
   using L = TcLayout<DH, NC>;
   auto kernel = flash_wgmma_kernel<T, DH, NC>;
-  static bool configured = false;  // the attribute is per kernel, set once
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
+  static PerDevice configured;  // the attribute, per kernel and device
+  const cudaError_t err = configured.once(device, [&] {
+    return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  });
+  if (err != cudaSuccess) return err;
   const int n_qt = (a.Tq + L::BQ - 1) / L::BQ;  // = ceil(ceil(Tq / 64) / NC)
   kernel<<<n_qt * a.B * a.H, L::THREADS, L::SMEM, stream>>>(maps[0], maps[1],
                                                            maps[2], a);
@@ -930,9 +946,12 @@ cudaError_t tc_launch(const Args& a, const CUtensorMap (&maps)[3],
 // 128, 64 rows (one) for dh 256; 64 keys.
 template <typename T>
 cudaError_t tc_dispatch(int dh, int block_q, int block_k, const Args& a,
-                        CUtensorMapDataType type, cudaStream_t stream) {
+                        CUtensorMapDataType type, int device,
+                        cudaStream_t stream) {
   if (block_q != (dh == 256 ? 64 : 128) || block_k != kBlockK)
     return cudaErrorInvalidValue;
+  const cudaError_t bound = bind_context(device);
+  if (bound != cudaSuccess) return bound;
   CUtensorMap maps[3];
   if (!encode(&maps[0], type, a.q, dh, a.H, a.Tq, a.B, a.q_sh, a.q_st, a.q_sb) ||
       !encode(&maps[1], type, a.k, dh, a.Kv, a.Tk, a.B, a.k_sh, a.k_st, a.k_sb) ||
@@ -940,11 +959,11 @@ cudaError_t tc_dispatch(int dh, int block_q, int block_k, const Args& a,
     return cudaErrorInvalidValue;
   switch (dh) {
     case 64:
-      return tc_launch<T, 64, 2>(a, maps, stream);
+      return tc_launch<T, 64, 2>(a, maps, device, stream);
     case 128:
-      return tc_launch<T, 128, 2>(a, maps, stream);
+      return tc_launch<T, 128, 2>(a, maps, device, stream);
     case 256:
-      return tc_launch<T, 256, 1>(a, maps, stream);
+      return tc_launch<T, 256, 1>(a, maps, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -967,7 +986,8 @@ struct Params {
   int32_t block_q;  // tensor-core route: 128 (dh 64, 128) or 64 (dh 256)
   int32_t block_k;  // tensor-core route: 64
   float scale;
-  float softcap;  // <= 0: off
+  float softcap;   // <= 0: off
+  int32_t device;  // the CUDA device of q, k, v and o
 };
 
 // o[b, t, h, :] = attention of q[b, t, h, :] over k/v[b, :, h / (H/Kv), :]
@@ -975,14 +995,17 @@ struct Params {
 // dim contiguous.  Returns a cudaError_t (cudaErrorInvalidValue for an
 // unsupported dtype, dh or tile, or a layout TMA refuses).
 static_assert(sizeof(Params) == 152 && offsetof(Params, dtype) == 96 &&
-                  offsetof(Params, scale) == 140,
+                  offsetof(Params, scale) == 140 &&
+                  offsetof(Params, device) == 148,
               "Params must match the wrapper's ctypes structure");
 
 extern "C" int flash_attention_launch(const Params* p, const void* q,
                                       const void* k, const void* v, void* o,
                                       cudaStream_t stream) {
   if (p->B <= 0 || p->Tq <= 0) return cudaSuccess;
-  if (p->Tk <= 0 || p->Kv <= 0 || p->H % p->Kv != 0) return cudaErrorInvalidValue;
+  if (p->Tk <= 0 || p->Kv <= 0 || p->H % p->Kv != 0 || p->device < 0 ||
+      p->device >= kMaxDevices)
+    return cudaErrorInvalidValue;
   const Args a{q,        k,        v,        o,        p->q_sb,   p->q_st,
                p->q_sh,  p->k_sb,  p->k_st,  p->k_sh,  p->v_sb,   p->v_st,
                p->v_sh,  p->o_sb,  p->o_st,  p->o_sh,  p->B,      p->Tq,
@@ -990,13 +1013,15 @@ extern "C" int flash_attention_launch(const Params* p, const void* q,
                p->window};
   switch (p->dtype) {
     case 0:
-      return f32_dispatch(p->dh, a, stream);
+      return f32_dispatch(p->dh, a, p->device, stream);
     case 1:
       return tc_dispatch<__nv_bfloat16>(p->dh, p->block_q, p->block_k, a,
-                                        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, stream);
+                                        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                        p->device, stream);
     case 2:
       return tc_dispatch<__half>(p->dh, p->block_q, p->block_k, a,
-                                 CU_TENSOR_MAP_DATA_TYPE_FLOAT16, stream);
+                                 CU_TENSOR_MAP_DATA_TYPE_FLOAT16, p->device,
+                                 stream);
     default:
       return cudaErrorInvalidValue;
   }

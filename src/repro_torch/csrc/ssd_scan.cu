@@ -56,13 +56,14 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "per_device.h"
+
 namespace {
 
 constexpr int kThreads = 256;  // 2 warpgroups
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;      // rows of a q tile and of a key tile
 constexpr int kMaxQ = 256;
-constexpr int kMaxDevices = 64;
 constexpr int kYHeads = 8;  // most heads of a y block
 constexpr int kSHeads = 4;  // most heads of a state block
 constexpr int kPB = 64;     // most x columns (p) of a block
@@ -697,14 +698,13 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_chunk_kernel(const Args a) {
 template <int P, int N>
 cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<P, N>();
-  static bool configured[kMaxDevices] = {};  // per device: the opt-in
-  if (!configured[a.p.device]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_chunk_kernel<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return e;
-    configured[a.p.device] = true;
-  }
+  static PerDevice configured;  // the opt-in, per device
+  const cudaError_t e = configured.once(a.p.device, [&] {
+    return cudaFuncSetAttribute(ssd_chunk_kernel<P, N>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                bytes);
+  });
+  if (e != cudaSuccess) return e;
   ssd_chunk_kernel<P, N><<<blocks, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  ``nvcc`` compiles it for
 Hopper (``sm_90a``) into a shared library under ``build/repro_torch/`` at
-the repository root, named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is not.  :func:`build` starts
+the repository root, named by a hash of the source, the headers beside it
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is not.  :func:`build` starts
 one ``nvcc`` per source, all at once.  Nothing here runs at import time:
 machines without ``nvcc`` (the CPU test runs) never reach it.
 :func:`_raw_stream` gives every wrapper the stream handle its launch takes.
@@ -64,7 +65,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every header beside it: an edited header rebuilds too
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.h")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

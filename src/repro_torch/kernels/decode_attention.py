@@ -203,6 +203,11 @@ class _Call(NamedTuple):
 #: prepared calls by signature (shapes, strides, types, devices, options):
 #: the checks, the plan and the parameter struct run once per signature,
 #: not once per decode step.  Cleared when it fills.
+#: Invoker threads share it without a lock, which is safe under the GIL:
+#: a lookup, an insert and a clear are each atomic; two threads that miss
+#: together each prepare an equal call, and the later insert wins; a call
+#: taken from the dict keeps its parameter struct alive while the thread
+#: holding it launches, even if another thread clears the dict meanwhile.
 _calls: Dict[tuple, _Call] = {}
 _CALLS_MAX = 256
 

@@ -80,7 +80,8 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_int32) for n in (
             "dtype", "B", "Tq", "Tk", "H", "Kv", "dh", "causal", "window",
             "block_q", "block_k")]
-        + [("scale", ctypes.c_float), ("softcap", ctypes.c_float)]
+        + [("scale", ctypes.c_float), ("softcap", ctypes.c_float),
+           ("device", ctypes.c_int32)]
     )
 
 
@@ -203,6 +204,11 @@ class _Call(NamedTuple):
 #: prepared calls by signature: the checks, the plan and the argument
 #: list run once per signature, not once per call (the wrapper's host
 #: time is part of every prefill layer's).  Cleared when it fills.
+#: Invoker threads share it without a lock, which is safe under the GIL:
+#: a lookup, an insert and a clear are each atomic; two threads that miss
+#: together each prepare an equal call, and the later insert wins; a call
+#: taken from the dict keeps its parameter struct alive while the thread
+#: holding it launches, even if another thread clears the dict meanwhile.
 _calls: Dict[tuple, _Call] = {}
 _CALLS_MAX = 256
 
@@ -260,7 +266,7 @@ def _prepare(q, k, v, causal: bool, scale: Optional[float],
         DTYPE_CODES[q.dtype], B, Tq, k.shape[1], H, k.shape[2], dh,
         int(causal), window if window is not None else 0, plan.block_q,
         plan.block_k, scale if scale is not None else 1.0 / math.sqrt(dh),
-        softcap if softcap is not None else 0.0,
+        softcap if softcap is not None else 0.0, q.get_device(),
     )
     return _Call(plan, (B, Tq, H, dh), params, ctypes.addressof(params))
 

@@ -1,5 +1,5 @@
-"""The port's façade: device validation and the parts not ported yet
-(``autoscaler``, and ``serving`` over the mixers of later slices).
+"""The port's façade: device validation, the autoscaler, and the part not
+ported yet (``serving`` over the mixers of later slices).
 
 On a machine without CUDA, ``device=True`` is refused unless the caller
 asks for the CPU with ``device_interpret=True``, as the reference refuses
@@ -12,6 +12,7 @@ import torch
 import repro.api as japi
 from repro_torch.api import ClusterConfig, ConfigError, MarvelClient
 from repro_torch.configs import get_config
+from repro_torch.core.autoscale import Autoscaler, PolicySpec
 from repro_torch.models import reduced_for_smoke
 
 
@@ -45,12 +46,24 @@ def test_interpret_runs_on_the_cpu():
     assert dev.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("method", ["serving", "autoscaler"])
+@pytest.mark.parametrize("method", ["serving"])
 def test_not_ported_yet(method):
     with MarvelClient(ClusterConfig()) as c:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            if method == "serving":  # attention and Mamba-2 are ported, MLA not
-                cfg = reduced_for_smoke(get_config("deepseek-v2-lite-16b"))
-                c.serving({}, cfg, prompt_len=4, max_tokens=2, device="cpu")
-            else:
-                c.autoscaler()
+            # attention and Mamba-2 are ported, MLA not
+            cfg = reduced_for_smoke(get_config("deepseek-v2-lite-16b"))
+            c.serving({}, cfg, prompt_len=4, max_tokens=2, device="cpu")
+
+
+def test_autoscaler_is_ported_with_spec_overrides():
+    with MarvelClient(ClusterConfig(invokers=2)) as c:
+        auto = c.autoscaler(max_invokers=5, target_per_invoker=3,
+                            interval_s=0.25)
+        assert isinstance(auto, Autoscaler)
+        assert auto.spec == PolicySpec(max_invokers=5, target_per_invoker=3)
+        assert auto.interval_s == 0.25
+        assert auto._gateways() == {"n0": c.gateway}
+        base = PolicySpec(min_invokers=2, max_invokers=3)
+        over = c.autoscaler(base, min_invokers=1)
+        assert over.spec == PolicySpec(min_invokers=1, max_invokers=3)
+        assert c.autoscaler(base).spec is base
