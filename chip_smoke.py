@@ -44,13 +44,19 @@ another sm_90a card).  It builds the port's CUDA kernels from
    versions (run in f32; tolerance 2e-2 for bf16, 2e-5 for f32) on the
    card: flash prefill at B=1, T=1024, H=16, Kv=2, dh=128, causal, then
    ragged T, T=1, softcap, dh 64 and 256 (and 256 with a window), MHA,
-   non-causal, a window, f32 and f16, T in {63, 64, 65, 127, 129} causal
-   and with a window (the edges of the 64-row tiles), Tq < Tk and Tq > Tk;
+   non-causal, a window, f32 and f16, MLA's q/k head dim 192 against v
+   head dim 128 (deepseek's prefill shape B=1, T=1024, H=16, then ragged
+   T, T=1, non-causal Tq < Tk and f32), recurrentgemma's local shape
+   (T=1024, 16 heads of 256 over one kv head, window 2048), T in {63, 64,
+   65, 127, 129} causal and with a window (the edges of the 64-row
+   tiles), Tq < Tk and Tq > Tk;
    every flash case on the route its type must take (tensor cores for
    bf16/f16) and run twice for the same bytes; a view whose strides TMA
    cannot take must raise ``ValueError``; decode over S=1088 at every
-   length from 1 to S, rep 8 and 1, dh 64, 128 and 256, softcap, a batch
-   of 8 with mixed lengths, f32, a zero length (zeros out), and decode
+   length from 1 to S, rep 8, 6 (dbrx) and 1, dh 64, 128 and 256,
+   softcap, a batch of 8 with mixed lengths, f32, a zero length (zeros
+   out), recurrentgemma's full 2048-slot ring (16 heads of 256 over one
+   kv head), and decode
    captured alone in a CUDA graph and replayed with new lengths (the
    bytes of the eager call);
 7. drives the serving path, ``MarvelClient.serving`` over a DRAM + PMEM
@@ -107,7 +113,32 @@ another sm_90a card).  It builds the port's CUDA kernels from
    64-layer model amplifies to a few percent, is printed beside it).
    The SSD kernel must have launched after the resume and after the
    restart;
-11. prints a ``kernels`` JSON line: each kernel's launches on its path
+11. serves recurrentgemma-9b at full width (38 blocks: 26 RG-LRU, 12
+   local attention with a 2048-slot ring; d_model 4096, lru_width 4096,
+   16 heads of 256 over 1 kv head, vocab 256000; 10.4 B parameters) the
+   way phase 10 serves Mamba-2: 4 conversations over a warm pool of 2,
+   prompts of 1024 tokens, lossless, each eviction pushing the RG-LRU
+   states and the attention rings to PMEM; lossless suspend/resume byte
+   identity; a restart that re-adopts every session; decode-step logits
+   against a fresh prefill (relative L2 <= 2e-2, the served weights
+   computed in f32, the bf16 error printed beside it); a profile of the
+   bare step.  Flash and decode must have launched after the resume and
+   after the restart;
+12. the same for deepseek-v2-lite-16b at full width (27 layers, MLA with
+   kv_lora 512, 64 routed experts top-6 and 2 shared, vocab 102400; 15.7
+   B parameters): the expanded prefill runs flash at q/k 192 against v
+   128, decode is the absorbed form over a 34 MB latent cache that the
+   pager writes whole every step (its share of the step printed), the
+   MoE decode reads every expert (its device time printed beside the
+   bound of that read); each MoE layer's expert histogram over the
+   prefill, with the embedding drawn at unit variance as served and at
+   its own init scale; decode against prefill at capacity factor 8, as
+   the reference's own decode test sets it;
+13. runs dbrx-132b at full width cut to 2 layers (d_model 6144, 48 heads
+   over 8, 16 experts top-4 of 10752; 7.7 B parameters): one 1024-token
+   prefill, 8 greedy decode steps, its routing as in 12, decode against
+   prefill at capacity factor 8 in f32, and a profile of the bare step;
+14. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
@@ -115,7 +146,9 @@ another sm_90a card).  It builds the port's CUDA kernels from
    SSD chunk) and the bound; every row also carries its kernel route and
    its device-only time from the profiler (and the library call's for
    the histogram, flash and decode; flash and decode also carry their
-   launches on phase 8's path), since an event-timed ``ms`` includes
+   launches on phase 8's path and on phases 11-13's, and their times at
+   those paths' shapes: flash at recurrentgemma's local and deepseek's
+   MLA prefill, decode at recurrentgemma's ring), since an event-timed ``ms`` includes
    the wrapper's host time.  Decode and SSD must make one launch a call, of
    their own kernel.
 
@@ -133,6 +166,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import shutil
@@ -142,6 +176,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -152,6 +187,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak, the f32 inputs' type
 REPS = 15
+START = time.perf_counter()  # the run's clock for the profiler's lines
 # Sizes of the run (see the module docstring for why these).
 KERNEL_KEYS = 1 << 28  # 1 GiB of int32 keys
 SHUFFLE_TOKENS = 1 << 28  # 1 GiB of tokens plus 1 GiB of values
@@ -170,6 +206,18 @@ SSM_MAX_TOKENS = 32
 SSM_CONVS = 4  # twice the warm pool of 2, so every step evicts and resumes
 SSM_STEPS = 3  # interleaved decode steps per conversation
 SSM_LOSSLESS_STEPS = 8
+RG_MODEL = "recurrentgemma-9b"  # full width: 38 blocks, d_model 4096, 16 heads of 256 over 1
+MLA_MODEL = "deepseek-v2-lite-16b"  # full width: 27 layers, MLA, 64 experts top-6 + 2
+MOE_MODEL = "dbrx-132b"  # full width, depth cut: d_model 6144, 16 experts top-4
+MIXER_PROMPT = 1024
+MIXER_MAX_TOKENS = 32
+MIXER_CONVS = 4  # twice the warm pool of 2, so every step evicts and resumes
+MIXER_STEPS = 2  # interleaved decode steps per conversation
+MIXER_LOSSLESS_STEPS = 8
+MOE_LAYERS = 2  # dbrx-132b's 40 layers cut to 2 (7.7 B parameters)
+MOE_STEPS = 8
+MOE_EMBED_GAIN = 50.0  # a MoE model's embedding init 0.02 -> unit variance
+MOE_CAPACITY = 8.0  # decode-vs-prefill capacity factor, as the reference's test
 
 
 class SmokeError(AssertionError):
@@ -325,7 +373,7 @@ class KernelRecord:
         before = bh.launches
         kernel_ms = time_ms(kernel)
         launches = bh.launches - before
-        dev_ms, ops, _ = device_profile(kernel, op_keys=OP_KEYS)
+        dev_ms, ops, _, _ = device_profile(kernel, op_keys=OP_KEYS)
         plain_ms = time_ms(lambda: bh.bucket_histogram_torch(keys, n_buckets))
         library_ms = time_ms(library)
         n = keys.numel()
@@ -459,17 +507,12 @@ def hist_at_main_shape(rec: KernelRecord, largest: dict) -> dict:
 
     bh._devices.clear()
     bh._calls.clear()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        bh.bucket_histogram(keys, nb)
-        torch.cuda.synchronize()
-    first = queries(prof.key_averages())
+    first = queries(traced(lambda: bh.bucket_histogram(keys, nb))[0])
     setups = []
     real = bh._configure
     bh._configure = lambda *a: setups.append(a) or real(*a)
     try:
-        events, _, _ = profile_window(lambda: bh.bucket_histogram(keys, nb))
+        events = profile_window(lambda: bh.bucket_histogram(keys, nb))[0]
     finally:
         bh._configure = real
     window = queries(events)
@@ -715,11 +758,13 @@ def _randn(g, shape, dtype, dev):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
-def flash_inputs(g, dev, B, T, H, Kv, dh, dtype, Tk=None):
+def flash_inputs(g, dev, B, T, H, Kv, dh, dtype, Tk=None, dv=None):
+    """q (B, T, H, dh), k (B, Tk, Kv, dh) and v (B, Tk, Kv, dv), dv = dh
+    unless given."""
     Tk = T if Tk is None else Tk
     return (_randn(g, (B, T, H, dh), dtype, dev),
             _randn(g, (B, Tk, Kv, dh), dtype, dev),
-            _randn(g, (B, Tk, Kv, dh), dtype, dev))
+            _randn(g, (B, Tk, Kv, dh if dv is None else dv), dtype, dev))
 
 
 #: the flash kernel's route by input type: tensor cores for bf16/f16
@@ -742,7 +787,8 @@ def flash_case(rec: AttnRecord, case: str, q, k, v, **kw) -> None:
     check(torch.equal(got, again),
           f"flash_attention {case}: two calls on the same inputs differ")
     emit("flash_edge", case=case, route=route, shape=list(q.shape),
-         kv_len=k.shape[1], kv_heads=k.shape[2], dtype=str(q.dtype),
+         kv_len=k.shape[1], kv_heads=k.shape[2], v_head_dim=v.shape[3],
+         dtype=str(q.dtype),
          max_abs_err=err, repeatable=True, ok=True,
          **{k_: v_ for k_, v_ in kw.items() if v_ is not None})
 
@@ -781,6 +827,24 @@ def phase_attention_kernels(dev, seed: int, flash: AttnRecord,
          {"softcap": 30.0, "scale": 0.1}),
     ):
         flash_case(flash, case, *flash_inputs(g, dev, B, t, h, kv, d, dt), **kw)
+    # MLA's expanded prefill (deepseek-v2-lite-16b): q/k head dim 192
+    # against v head dim 128, 16 heads, scale 1/sqrt(192): its path shape,
+    # then ragged T, T = 1 and the f32 route
+    mla = {"scale": 1 / math.sqrt(192)}
+    for case, (B, t, dt) in (("mla_path_192_128", (1, T, bf)),
+                             ("mla_ragged_T", (2, short - 37, bf)),
+                             ("mla_T=1", (1, 1, bf)),
+                             ("mla_non_causal_Tq<Tk", (1, 77, bf)),
+                             ("mla_float32", (1, short - 1, torch.float32))):
+        causal = "non_causal" not in case
+        tk = 200 if not causal else None
+        flash_case(flash, case, *flash_inputs(g, dev, B, t, 16, 16, 192, dt,
+                                              Tk=tk, dv=128),
+                   causal=causal, **mla)
+    # recurrentgemma-9b's local layers: 16 heads of 256 over one kv head,
+    # a 2048-key window, at its path shape
+    flash_case(flash, "local_path_dh256_mqa_window2048",
+               *flash_inputs(g, dev, 1, T, 16, 1, 256, bf), window=2048)
     # the edges of the 64-row q and 64-key kv tiles
     for t in (63, 64, 65, 127, 129):
         for kw in ({}, {"window": 50}):
@@ -824,6 +888,7 @@ def phase_attention_kernels(dev, seed: int, flash: AttnRecord,
         ("rep1_mha", (2, H, H, dh, bf), None, {}),
         ("dh256_mqa", (2, 8, 1, 256, bf), None, {}),
         ("dh64", (2, 8, 2, 64, bf), None, {}),
+        ("rep6_dbrx", (2, 48, 8, dh, bf), None, {}),
         ("softcap", (8, H, Kv, dh, bf), lengths8, {"softcap": 50.0}),
         ("float32", (2, H, Kv, dh, torch.float32), None, {}),
     ):
@@ -846,6 +911,16 @@ def phase_attention_kernels(dev, seed: int, flash: AttnRecord,
     check(bool((out[0] == 0).all()), "decode: lengths == 0 must give zeros")
     decode_case(decode, "zero_length", q, kc, vc, zero)
     emit("decode_edge", case="zero_length", ok=True)
+    # recurrentgemma-9b's local layers: a full 2048-slot ring, 16 heads of
+    # 256 over one kv head, every slot live and a ring still filling
+    ring = 2048
+    q = _randn(g, (2, 16, 256), bf, dev)
+    kc = _randn(g, (2, ring, 1, 256), bf, dev)
+    vc = _randn(g, (2, ring, 1, 256), bf, dev)
+    lens = torch.tensor([ring, 1187], dtype=torch.int32, device=dev)
+    err = decode_case(decode, "ring_S2048_dh256_mqa", q, kc, vc, lens)
+    emit("decode_edge", case="ring_S2048_dh256_mqa", B=2, S=ring, heads=16,
+         kv_heads=1, dh=256, lengths=lens.tolist(), max_abs_err=err, ok=True)
     decode_graph_case(dev, g, S)
 
 
@@ -897,44 +972,110 @@ QUERY_KEYS = ("cudaDeviceGetAttribute", "cudaFuncSetAttribute",
               "cudaOccupancy", "cudaGetDeviceProperties")
 
 
+def launch_lag_us(prof):
+    """Least and median time in us from a kernel's launch on the host to
+    its start on the card, over a finished window's launches matched to
+    their kernel records by correlation id (None where none match).  The
+    profiler stamps both on the host's clock; a lag below zero is the
+    error of its device-to-host clock conversion."""
+    try:
+        raw = prof.profiler.kineto_results.events()
+    except (AttributeError, RuntimeError):
+        return None
+    host, device = {}, {}
+    for e in raw:
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            device[e.correlation_id()] = e.start_ns()
+        elif e.name() in LAUNCH_KEYS:
+            host[e.correlation_id()] = e.start_ns()
+    lags = sorted(device[c] - host[c] for c in host.keys() & device.keys() if c)
+    if not lags:
+        return None
+    return {"min": lags[0] / 1e3, "median": lags[len(lags) // 2] / 1e3,
+            "matched": len(lags), "at_s": time.perf_counter() - START}
+
+
+#: seconds a profiler window stays open before and after its calls
+WINDOW_PAD_S = 0.25
+#: one-thread spin kernels launched around a window's calls (torch.cuda._sleep)
+EDGE_KERNELS = 256
+
+
+def traced(fn):
+    """The profiler's events (``key_averages``) of ``fn()`` over the host
+    and the card, ``fn`` synchronised before the window closes, and what
+    the window lost: its launch-to-kernel lag (:func:`launch_lag_us`) and
+    the edge kernels whose records it did not return.
+
+    In full runs the trace held back the records of a window's last
+    kernels, 12 to 22 of them by the middle of a run (counted against the
+    host's launches), and more later: a window of 15 short kernel calls
+    came back with its host events and no device record.  So
+    ``EDGE_KERNELS`` one-thread spin kernels run before and after
+    ``fn``, their records are dropped from the events and their launches
+    from the launch count, and the window stays open ``WINDOW_PAD_S``
+    either side (the device stamps, converted to the host's clock, were
+    off by up to 14 ms).  The trace is freed here: a profiler object sits
+    in a reference cycle, and its trace would stay until the cycle
+    collector runs."""
+    def edge():
+        for _ in range(EDGE_KERNELS):
+            torch.cuda._sleep(1)
+
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        time.sleep(WINDOW_PAD_S)
+        edge()
+        fn()
+        edge()
+        torch.cuda.synchronize()
+        time.sleep(WINDOW_PAD_S)
+    events = []
+    spins = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" in e.key:
+            spins += e.count
+            continue
+        if e.key == "cudaLaunchKernel":
+            e.count -= 2 * EDGE_KERNELS
+        events.append(e)
+    lost = {"launch_lag_us": launch_lag_us(prof),
+            "edge_records_missing": 2 * EDGE_KERNELS - spins}
+    prof.profiler = None  # the trace, released now
+    gc.collect()
+    return events, lost
+
+
 def profile_window(fn, reps: int = REPS):
     """One profiler window over ``reps`` calls of ``fn`` after a warm-up:
-    its events, its device records and their device time in us.  The
-    device trace of a window now and then comes back empty: take the first
-    of three windows that has one."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    its events, its device records, their device time in us and what it
+    lost (:func:`traced`).  Fails if the window holds no device record."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        kernels = [e for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        total = sum(e.self_device_time_total for e in kernels)
-        if total > 0:
-            break
+    events, lost = traced(lambda: [fn() for _ in range(reps)])
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels)
     check(total > 0, "the profiler saw no device time")
-    return events, kernels, total
+    return events, kernels, total, lost
 
 
 def device_profile(fn, reps: int = REPS, op_keys=LAUNCH_KEYS):
     """Device time of one call of ``fn`` in ms, the device operations one
-    call starts (kernel launches, or the host calls in ``op_keys``), and
-    the names of the device records it ran: one profiler window over
-    ``reps`` calls, without the host time that an event pair around each
-    call also holds.  The trace can miss some kernel records of a window
-    (seen for the SSD kernel: 7 of 15), so where it holds fewer kernel
-    records than host launches the time is scaled up by their ratio."""
-    events, kernels, total = profile_window(fn, reps)
+    call starts (kernel launches, or the host calls in ``op_keys``), the
+    names of the device records it ran and what the window lost
+    (:func:`traced`): one profiler window over ``reps`` calls, without the host time
+    that an event pair around each call also holds.  The trace can miss
+    some kernel records of a window (seen for the SSD kernel: 7 of 15), so
+    where it holds fewer kernel records than host launches the time is
+    scaled up by their ratio."""
+    events, kernels, total, lost = profile_window(fn, reps)
     launches = sum(e.count for e in events if e.key in LAUNCH_KEYS)
+    ops = sum(e.count for e in events if e.key in op_keys)
+    check(ops > 0, "the profiler saw no device operation launched")
     records = sum(e.count for e in kernels if "memset" not in e.key.lower())
     missed = max(1.0, launches / records) if records else 1.0
-    ops = sum(e.count for e in events if e.key in op_keys)
-    return (total * missed / reps / 1e3, ops / reps,
-            {e.key for e in kernels})
+    return total * missed / reps / 1e3, ops / reps, {e.key for e in kernels}, lost
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -945,32 +1086,47 @@ def device_ms(fn, reps: int = REPS) -> float:
 def measure_flash(q, k, v, kw) -> dict:
     """Kernel, plain-version and SDPA times at the path's shape (event-timed
     around each call, so with the wrapper's host time; and the device time
-    alone from the profiler), and the bound: the larger of the causal
-    operations over the bf16 peak and the bytes over the memory rate."""
+    alone from the profiler), and the bound: the larger of the operations
+    (causal and window pairs counted, q.k over dh and p.v over dv) over the
+    bf16 peak and the bytes over the memory rate.  SDPA is timed where it
+    computes the same function: a window that masks nothing, and head dims
+    it takes (``library_ms`` None where it refuses them)."""
     from repro_torch.kernels import flash_attention as fa
 
     B, T, H, dh = q.shape
-    Tk = k.shape[1]
+    Tk, dv = k.shape[1], v.shape[3]
     causal = kw.get("causal", True)
+    window = kw.get("window")
     flash = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=causal, enable_gqa=True)
+        qt, kt, vt, is_causal=causal, enable_gqa=True, scale=kw.get("scale"))
+    library_ms = library_device = None
+    if kw.get("softcap") is None and (window is None or window >= max(T, Tk)):
+        try:
+            sdpa()
+        except RuntimeError as exc:  # a yardstick only: record the refusal
+            emit("flash_library_refused", shape=list(q.shape), v_head_dim=dv,
+                 error=str(exc)[:160])
+        else:
+            library_ms, library_device = time_ms(sdpa), device_ms(sdpa)
     kernel_ms = time_ms(flash)
-    library_ms = time_ms(sdpa)
+    dev_ms, per_call, names, lost = device_profile(flash)
     plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v, **kw), reps=5)
-    pairs = sum(min(i + 1, Tk) for i in range(T)) if causal else T * Tk
-    flops = 4 * B * H * dh * pairs
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    pairs = sum(min(i + 1, Tk) - (max(0, i - window + 1) if window else 0)
+                if causal else Tk for i in range(T))
+    flops = 2 * B * H * (dh + dv) * pairs
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + B * T * H * dv)
     ops_ms = flops / BF16_FLOPS * 1e3
     bytes_ms = bytes_bound_ms(nbytes)
     return {
-        "shape": {"B": B, "T": T, "H": H, "Kv": k.shape[2], "dh": dh,
-                  "causal": causal, "dtype": str(q.dtype)},
+        "shape": {"B": B, "T": T, "H": H, "Kv": k.shape[2], "dh": dh, "dv": dv,
+                  "causal": causal, "window": window, "dtype": str(q.dtype)},
         "kernel_route": fa._plan(q, k, v).route,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "device_ms": device_ms(flash), "library_device_ms": device_ms(sdpa),
-        "bound_ms": max(ops_ms, bytes_ms),
+        "device_ms": dev_ms, "library_device_ms": library_device,
+        "launches_per_call": per_call, "kernels_seen": sorted(names),
+        "window_lost": lost, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "flops": flops, "bytes": nbytes,
     }
@@ -997,7 +1153,7 @@ def measure_decode(q, kc, vc, lengths) -> dict:
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
     library_ms = time_ms(sdpa)
     plan = da._plan(B, S, H, Kv, q.dtype, da._sm_count(q.get_device()))
-    dev_ms, per_call, names = device_profile(decode)
+    dev_ms, per_call, names, lost = device_profile(decode)
     check(per_call == 1 and all("decode_mma_kernel" in n for n in names),
           f"decode_attention made {per_call} launches a call, of {names}: "
           "want one of its own kernel")
@@ -1011,8 +1167,8 @@ def measure_decode(q, kc, vc, lengths) -> dict:
                  "heads": plan.heads, "groups": plan.groups},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "device_ms": dev_ms, "library_device_ms": device_ms(sdpa),
-        "launches_per_call": per_call,
-        "bound_ms": bytes_bound_ms(nbytes), "bound_by": "bytes",
+        "launches_per_call": per_call, "kernels_seen": sorted(names),
+        "window_lost": lost, "bound_ms": bytes_bound_ms(nbytes), "bound_by": "bytes",
         "bytes": nbytes,
     }
 
@@ -1034,34 +1190,53 @@ class _Spy:
     """Wraps a module attribute while installed: counts its calls, keeps
     the last call's arguments and adds up its wall seconds, synchronising
     the card first when ``timed`` (the kernels' own counts stay the
-    launch counts)."""
+    launch counts); with ``ranged`` each call runs in a profiler range
+    named after the attribute (a profile then reads the device time of
+    the kernels it launches), with ``keep`` every call's result is kept
+    in ``outputs``."""
 
-    def __init__(self, module, name: str, timed: bool = False) -> None:
+    def __init__(self, module, name: str, timed: bool = False,
+                 ranged: bool = False, keep: bool = False) -> None:
         self.module, self.name, self.timed = module, name, timed
+        self.ranged, self.keep = ranged, keep
         self.real = getattr(module, name)
         self.calls = 0
         self.seconds = 0.0
         self.last = None
+        self.outputs = []
         setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
         t = time.perf_counter()
-        out = self.real(*args, **kwargs)
+        if self.ranged:
+            with torch.profiler.record_function(self.name):
+                out = self.real(*args, **kwargs)
+        else:
+            out = self.real(*args, **kwargs)
         if self.timed:
             torch.cuda.synchronize()
         self.seconds += time.perf_counter() - t
         self.calls += 1
         self.last = (args, kwargs)
+        if self.keep:
+            self.outputs.append(out)
         return out
 
     def restore(self) -> None:
         setattr(self.module, self.name, self.real)
 
 
+def _blocks(params, cfg):
+    """(block parameters, block spec) of every prelude, body (stacked over
+    the periods) and postlude block."""
+    return [*zip(params["prelude"], cfg.prelude), *zip(params["body"], cfg.pattern),
+            *zip(params["postlude"], cfg.postlude)]
+
+
 def draw_params(cfg, seed: int, dev):
     """Random bf16 weights for ``cfg``, drawn on the card from ``seed``
-    with the model's own init, then with the attention projections scaled
-    to their true fan-in.
+    with the model's own init, then with the attention projections (GQA
+    and MLA) scaled to their true fan-in.
 
     The shared init rule (``ParamDef.fan_in_scale``, as in the reference
     package) reads ``shape[-2]`` as the fan-in, which for the 3-D
@@ -1073,17 +1248,38 @@ def draw_params(cfg, seed: int, dev):
     kernels (the serving phase prints that error, with the model's own
     init, beside the checked one).  Scaling by the true fan-in (D for
     q/k/v, H*dh for o) gives a model as well conditioned as a trained one,
-    on which decode and prefill can be held against each other.
+    on which decode and prefill can be held against each other.  MLA's
+    per-head projections have the same fault: ``wq`` (D, H, 192) and
+    ``wk_b``/``wv_b`` (r, H, ·) read H as the fan-in, ``wo`` (H, 128, D)
+    reads 128; they are scaled to D, r and H*128.  The RG-LRU, MoE and
+    dense FFN weights are 2-D or expert-batched with the fan-in at -2, and
+    keep the model's own init.
+
+    A MoE model's token embedding is drawn at unit variance
+    (``MOE_EMBED_GAIN`` times its init of 0.02, as gemma's sqrt(D) scale
+    does for its models): at 0.02 the token's own signal is some 50 times
+    smaller than the unit-variance outputs of the blocks above it, whose
+    causal-prefix averages all late tokens share, so the router sees
+    nearly one input for every token and sends them to one expert.  The
+    MoE phases print each layer's routing under both draws
+    (:func:`routing`).
     """
     from repro_torch.models import init_params, model_defs
 
     params = init_params(model_defs(cfg), torch.Generator(device=dev).manual_seed(seed), dev)
     D, H, Kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    fix = {"wq": (H / D) ** 0.5, "wk": (Kv / D) ** 0.5, "wv": (Kv / D) ** 0.5,
-           "wo": (dh / (H * dh)) ** 0.5}
-    for block in [*params["prelude"], *params["body"], *params["postlude"]]:
-        for name, factor in fix.items():
+    fixes = {"attn": {"wq": (H / D) ** 0.5, "wk": (Kv / D) ** 0.5,
+                      "wv": (Kv / D) ** 0.5, "wo": (dh / (H * dh)) ** 0.5}}
+    fixes["local"] = fixes["attn"]
+    if cfg.mla is not None:
+        r = cfg.mla.kv_lora_rank
+        fixes["mla"] = {"wq": (H / D) ** 0.5, "wk_b": (H / r) ** 0.5,
+                        "wv_b": (H / r) ** 0.5, "wo": (1 / H) ** 0.5}
+    for block, spec in _blocks(params, cfg):
+        for name, factor in fixes.get(spec.mixer, {}).items():
             block["mixer"][name].mul_(factor)
+    if cfg.moe is not None and not cfg.embed_scale:
+        params["embed"].mul_(MOE_EMBED_GAIN)
     return params
 
 
@@ -1182,7 +1378,7 @@ def phase_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
              int8_decode_calls=counts["int8_done"]["quant_decode_attention"])
 
         # (b) lossless suspend/resume and (c) a restart
-        stream_c, hot_rate = lossless_and_restart(
+        stream_c, hot_rate, _ = lossless_and_restart(
             cluster("lossless", lossless=True, warm_pool=8), serve, prompts,
             firsts, lossless_steps, mark, "serving", dev)
     finally:
@@ -1230,7 +1426,9 @@ def lossless_and_restart(config, serve, prompts, firsts, lossless_steps: int,
     same durable ``config`` re-adopts the three sessions and decodes on
     exactly.  ``serve(client)`` builds the pool; ``mark`` is called at
     "resumed", "after_resume" and "after_restart".  Returns "c"'s
-    tokens and the hot steps per second of "a" and "b"."""
+    tokens, the hot steps per second of "a" and "b", and the hot step's
+    split (ms a step: the whole step, ``decode_step``, ``load``,
+    ``write``) and the bytes of a conversation's blobs."""
     from repro_torch.api import MarvelClient
     from repro_torch.serving import decode_runtime
 
@@ -1299,7 +1497,9 @@ def lossless_and_restart(config, serve, prompts, firsts, lossless_steps: int,
               "did not reproduce the first token of the same prompt")
         mark("after_restart")
     emit(f"{label}_restart", adopted=adopted, continued=resumed, matches=True)
-    return stream["c"], hot_steps / hot_s
+    split = {"step_ms": hot_s / hot_steps * 1e3, **breakdown,
+             "blob_bytes": sum(map(len, blobs_a.values()))}
+    return stream["c"], hot_steps / hot_s, split
 
 
 @torch.no_grad()
@@ -1332,8 +1532,11 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
     """Where a bare model step's time goes: a prefill ``forward`` and hot
     ``decode_step`` wall times (host clock, synchronised), then one
     profiler window over ``steps`` decode steps for the device time and
-    kernel launches per step."""
+    kernel launches per step, and for a MoE model the device time under
+    ``moe_apply`` (every expert's weights read each token) beside the
+    bound of reading them."""
     from repro_torch.models import decode_step, forward
+    from repro_torch.models import moe as moe_module
 
     def prefill():
         return forward(params, cfg, {"tokens": tokens[:, :prompt_len]},
@@ -1348,16 +1551,13 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
         prefill_ms.append((time.perf_counter() - t) * 1e3)
     # one profiler window over a prefill: its device time, and the flash
     # kernel's share of it
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        prefill()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    prefill_device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    flash = [e for e in kernels if "flash_wgmma_kernel" in e.key
+    prefill_events, prefill_lost = traced(prefill)
+    prefill_kernels = [e for e in prefill_events
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+    prefill_device_ms = sum(e.self_device_time_total for e in prefill_kernels) / 1e3
+    flash = [e for e in prefill_kernels if "flash_wgmma_kernel" in e.key
              or "flash_f32_kernel" in e.key]
-    ssd = [e for e in kernels if "ssd_chunk_kernel" in e.key]
+    ssd = [e for e in prefill_kernels if "ssd_chunk_kernel" in e.key]
     step_ms = []
     for t in range(prompt_len, prompt_len + steps):
         torch.cuda.synchronize()
@@ -1365,19 +1565,37 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
         decode_step(params, cfg, tokens[:, t:t + 1], cache, t)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    with torch.profiler.profile(activities=acts) as prof:
-        for t in range(prompt_len, prompt_len + steps):
+    ranges = [_Spy(moe_module, "moe_apply", ranged=True)] if cfg.moe is not None else []
+    try:
+        events, step_lost = traced(lambda: [
             decode_step(params, cfg, tokens[:, t:t + 1], cache, t)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+            for t in range(prompt_len, prompt_len + steps)])
+    finally:
+        for r in ranges:
+            r.restore()
+    # a range also shows on the device timeline as an annotation spanning
+    # its kernels and the gaps between them: not a kernel of its own
+    ranged = {r.name for r in ranges}
+    moe = {}
+    if cfg.moe is not None:
+        m = cfg.moe
+        n_moe = sum(blk.ffn == "moe" for blk in cfg.all_blocks())
+        expert_bytes = n_moe * m.n_experts * 3 * cfg.d_model * m.d_expert \
+            * params["unembed"].element_size()
+        moe_us = sum(e.device_time_total for e in events if e.key == "moe_apply"
+                     and e.device_type == torch.autograd.DeviceType.CPU)
+        moe = {"moe_device_ms_per_step": moe_us / steps / 1e3,
+               "moe_expert_bytes_per_step": expert_bytes,
+               "moe_expert_read_bound_ms": bytes_bound_ms(expert_bytes)}
     # the kernels themselves (an operator's own entry repeats their time)
     kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ranged]
     decode = [e for e in kernels if "decode_mma_kernel" in e.key
               or "decode_f32_kernel" in e.key]
     launches = sum(e.count for e in events if e.key in LAUNCH_KEYS)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return {
+    out = {
         "prefill_forward_ms": statistics.median(prefill_ms),
         "prefill_device_ms": prefill_device_ms,
         "flash_ms_per_prefill": sum(e.self_device_time_total for e in flash) / 1e3,
@@ -1393,7 +1611,12 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
             sum(e.self_device_time_total for e in decode) / steps / 1e3,
         "top_kernels_ms_per_step": {
             e.key[:60]: e.self_device_time_total / steps / 1e3 for e in top},
+        "window_lost": {"prefill": prefill_lost, "steps": step_lost},
+        **moe,
     }
+    check(bool(prefill_kernels) and bool(kernels),
+          f"the profiler saw no device time in {cfg.name}'s prefill or steps")
+    return out
 
 
 # -- phase 8: traced multi-tenant serving under the autoscaler --------------
@@ -1738,7 +1961,7 @@ def measure_ssd(x, dt, dA_cs, Bm, Cm) -> dict:
     kernel_ms = time_ms(ssd)
     plain_ms = time_ms(lambda: ssd_scan.ssd_chunk_torch(x, dt, dA_cs, Bm, Cm),
                        reps=5)
-    dev_ms, per_call, names = device_profile(ssd)
+    dev_ms, per_call, names, lost = device_profile(ssd)
     check(per_call == 1 and all("ssd_chunk_kernel" in n for n in names),
           f"ssd_chunk made {per_call} launches a call, of {names}")
     bc_heads = [1 if t.stride(2) == 0 else H for t in (Bm, Cm)]
@@ -1757,7 +1980,7 @@ def measure_ssd(x, dt, dA_cs, Bm, Cm) -> dict:
         "plan": {"y_heads": plan.y_heads, "s_heads": plan.s_heads,
                  "blocks": plan.blocks},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-        "device_ms": dev_ms,
+        "device_ms": dev_ms, "kernels_seen": sorted(names), "window_lost": lost,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "flops": flops, "bytes": nbytes,
@@ -1893,7 +2116,7 @@ def phase_ssm_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
         shutil.rmtree(workdir / "ssm_pool", ignore_errors=True)
 
         # (b) lossless suspend/resume and (c) a restart
-        stream_c, _ = lossless_and_restart(
+        stream_c, _, _ = lossless_and_restart(
             cluster("ssm_lossless", warm_pool=8), serve, prompts, firsts,
             lossless_steps, mark, "ssm", dev)
     finally:
@@ -1938,6 +2161,295 @@ def phase_ssm_serving(dev, seed: int, cfg, prompt_len: int, max_tokens: int,
     emit("ssm_profile", **profile_decode(params, cfg, tokens, prompt_len,
                                          max_tokens))
     return launches, ssd_spy.last
+
+# -- phases 11-13: the remaining mixers at full width -------------------------
+
+def free_card() -> None:
+    """Return the memory of everything unreachable to the card: a serving
+    pool's client, gateway and pager refer to each other, so the weights
+    and caches they hold go only when the cycle collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _to_f32_in_place(tree, dev) -> None:
+    """Replace every tensor leaf of a dict/list tree by its f32 copy on
+    ``dev``, through the host: the f32 tree of a 16 B-parameter model
+    (63 GB) and its bf16 original (31 GB) do not fit on the card together,
+    and a card that has served holds cached segments that a leaf-by-leaf
+    conversion in place cannot reuse.  So every leaf goes to the host
+    first, the card's cache is emptied, and the leaves come back one by
+    one.  The tree must hold the only reference to each leaf."""
+    slots = []
+
+    def walk(node) -> None:
+        for key in list(node) if isinstance(node, dict) else range(len(node)):
+            if isinstance(node[key], torch.Tensor):
+                slots.append((node, key))
+            else:
+                walk(node[key])
+
+    walk(tree)
+    for node, key in slots:
+        node[key] = node[key].cpu()
+    free_card()
+    for node, key in slots:
+        node[key] = node[key].to(dev).float()
+        torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def routing(params, cfg, tokens, own_capacity: float) -> dict:
+    """Each MoE layer's routing over one forward of ``tokens``: its expert
+    histogram over the N·k entries (uniform: N·k/E each), the most first
+    choices one expert took, the experts used, and the entries that a
+    capacity factor of ``MOE_CAPACITY`` and the model's own would drop."""
+    from repro_torch.models import forward
+    from repro_torch.models import moe as moe_module
+
+    m = cfg.moe
+    spy = _Spy(moe_module, "_route", keep=True)
+    try:
+        forward(params, cfg, {"tokens": tokens})
+    finally:
+        spy.restore()
+    N, E = tokens.numel(), m.n_experts
+    out = {"histograms": [], "max_first_choices": [], "experts_used": [],
+           f"dropped_at_{MOE_CAPACITY:g}": [], "dropped_at_own_capacity": []}
+    for _, idx, _ in spy.outputs:
+        counts = torch.bincount(idx.reshape(-1), minlength=E)
+        out["histograms"].append(counts.tolist())
+        out["max_first_choices"].append(int(torch.bincount(idx[:, 0], minlength=E).max()))
+        out["experts_used"].append(int((counts > 0).sum()))
+        for cf, key in ((MOE_CAPACITY, f"dropped_at_{MOE_CAPACITY:g}"),
+                        (own_capacity, "dropped_at_own_capacity")):
+            cap = max(1, int(math.ceil(N * m.top_k / E * cf)))  # as moe.py
+            out[key].append(int((counts - cap).clamp_min(0).sum()))
+    out["max_entries"] = [max(h) for h in out["histograms"]]
+    return out
+
+
+def mixer_consistency(params, cfg, tokens, prompt_len: int, max_tokens: int,
+                      label: str) -> None:
+    """(d) of a mixer phase: decode-step logits against one prefill over
+    the same tokens, relative L2 <= 2e-2, held with the served weights
+    computed in f32 (converted in place: the last use of ``params``), as
+    the Mamba-2 phase holds it; the bf16 error, which a random deep model
+    amplifies, is printed beside it.  A MoE model runs here at capacity
+    factor ``MOE_CAPACITY``, as the reference's own decode test does: its
+    1024-token prefill would drop, at the model's own 1.25, entries that a
+    one-token step keeps.  Its routing over that prefill is printed first,
+    with the served embedding and with the embedding at its own init
+    scale (:func:`draw_params`)."""
+    if cfg.moe is not None:
+        own_capacity = cfg.moe.capacity_factor
+        cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=MOE_CAPACITY))
+        n_dec = min(max_tokens, tokens.shape[1] - prompt_len)
+        prefix = tokens[:, :prompt_len + n_dec - 1]
+        served = routing(params, cfg, prefix, own_capacity)
+        embed = params["embed"]
+        params["embed"] = embed / MOE_EMBED_GAIN
+        try:
+            own = routing(params, cfg, prefix, own_capacity)
+        finally:
+            params["embed"] = embed
+            del embed  # the tree must hold the only reference below
+        own.pop("histograms")
+        emit(f"{label}_routing", tokens=prefix.numel(), experts=cfg.moe.n_experts,
+             top_k=cfg.moe.top_k,
+             uniform_entries=prefix.numel() * cfg.moe.top_k / cfg.moe.n_experts,
+             served=served, embedding_at_own_init=own)
+    bf16_rel, bf16_agree, _ = decode_vs_prefill(params, cfg, tokens,
+                                                prompt_len, max_tokens)
+    _to_f32_in_place(params, tokens.device)
+    rel, agree, n_dec = decode_vs_prefill(params, cfg, tokens, prompt_len,
+                                          max_tokens)
+    emit(f"{label}_consistency", positions=n_dec, weights="served, in f32",
+         max_rel_l2=rel, argmax_agreement=agree, tolerance=2e-2,
+         capacity_factor=cfg.moe.capacity_factor if cfg.moe else None,
+         bf16_max_rel_l2=bf16_rel, bf16_argmax_agreement=bf16_agree)
+    check(rel <= 2e-2, f"{cfg.name} decode vs prefill logits: relative L2 "
+          f"error {rel} > 2e-2")
+
+
+def phase_mixer_serving(dev, seed: int, cfg, label: str, prompt_len: int,
+                        max_tokens: int, n_convs: int, steps: int,
+                        lossless_steps: int, workdir: Path):
+    """Marvel-Serve over recurrentgemma-9b (RG-LRU beside local attention)
+    or deepseek-v2-lite-16b (MLA and MoE) at full width through
+    ``MarvelClient.serving`` on the card, lossless: conversations
+    interleaved over a warm pool half their number (each eviction pushes a
+    conversation's caches to PMEM, each next step resumes one), lossless
+    suspend/resume byte identity, a restart that re-adopts the sessions,
+    decode-step logits against a fresh prefill, and a profile of the bare
+    model step.  Returns the attention kernels' launches on the path and
+    the arguments of the last flash and decode calls there."""
+    from repro_torch.api import ClusterConfig, MarvelClient, ServingConfig, TierSpec
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache
+    from repro_torch.serving import flatten_cache
+
+    t0 = time.perf_counter()
+    params = draw_params(cfg, seed, dev)
+    rng = np.random.default_rng(seed + 5)
+    prompts = rng.integers(0, cfg.vocab, (n_convs, 1, prompt_len), dtype=np.int32)
+    want = [l for l in flatten_cache(init_cache(cfg, 1, prompt_len + max_tokens,
+                                                device="meta"))[0]]
+    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(want))
+    torch.cuda.synchronize()
+    emit(f"{label}_setup", model=cfg.name,
+         params=sum(p.numel() for p in _leaves(params)),
+         param_bytes=sum(p.numel() * p.element_size() for p in _leaves(params)),
+         layers=cfg.n_layers, d_model=cfg.d_model, prompt_len=prompt_len,
+         max_tokens=max_tokens, conversations=n_convs,
+         cache_bytes_per_conversation=cache_bytes,
+         setup_s=time.perf_counter() - t0)
+
+    def cluster(name: str, warm_pool: int) -> ClusterConfig:
+        root = workdir / name
+        return ClusterConfig(
+            name=name,
+            tiers=(TierSpec("dram"), TierSpec("pmem", path=str(root / "pmem"))),
+            invokers=1, warm_pool=warm_pool, commit_every=1,
+            journal="pmem", journal_path=str(root / "journal"),
+            serving=ServingConfig(block_tokens=16, lossless=True),
+        )
+
+    def serve(client):
+        return client.serving(params, cfg, prompt_len=prompt_len,
+                              max_tokens=max_tokens, device=dev)
+
+    flash_spy = _Spy(ops, "flash_attention")
+    decode_spy = _Spy(ops, "decode_attention")
+    counts = {}
+
+    def mark(at: str) -> None:
+        counts[at] = {"flash_attention": fa.launches,
+                      "decode_attention": da.launches}
+
+    fa.launches = da.launches = 0  # this model's serving path starts here
+    try:
+        with MarvelClient(cluster(f"{label}_pool", warm_pool=n_convs // 2)) as client:
+            pool = serve(client)
+            convs = [f"{label}{i}" for i in range(n_convs)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            firsts = [_tok(pool.start(c, prompts[i])) for i, c in enumerate(convs)]
+            prefill_s = time.perf_counter() - t
+            mark("pool_prefilled")
+            streams = {c: [] for c in convs}
+            t = time.perf_counter()
+            for _ in range(steps):
+                for c in convs:
+                    streams[c].append(_tok(pool.step(c)))
+            torch.cuda.synchronize()
+            pool_s = time.perf_counter() - t
+            stats = pool.stats()
+            layers, _ = pool.pager.load(pool._scoped(convs[0]))
+        check(stats["demotions"] >= n_convs * steps and stats["resumes"] > 0,
+              f"the {cfg.name} pool did not evict and resume every step: {stats}")
+        check([type(l) for l in layers] == [type(w) for w in want]
+              and all(tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype
+                      and a.device == dev
+                      for a, b in zip(_leaves(layers), _leaves(want))),
+              f"a resumed {cfg.name} session did not come back as its cache "
+              "tree's layers on the card")
+        del layers
+        toks = [x for c in convs for x in streams[c]] + firsts
+        check(all(0 <= x < cfg.vocab for x in toks), "token out of vocabulary")
+        emit(f"{label}_pool", conversations=n_convs, warm_pool=n_convs // 2,
+             steps_each=steps, prefill_s=prefill_s,
+             prefill_tokens_per_s=n_convs * prompt_len / prefill_s,
+             decode_s=pool_s, tokens_per_s=n_convs * steps / pool_s,
+             demotions=stats["demotions"], resumes=stats["resumes"],
+             demand_faults=stats["demand_faults"],
+             blocks_written=stats["blocks_written"])
+        shutil.rmtree(workdir / f"{label}_pool", ignore_errors=True)
+
+        # (b) lossless suspend/resume and (c) a restart
+        stream_c, _, split = lossless_and_restart(
+            cluster(f"{label}_lossless", warm_pool=8), serve, prompts, firsts,
+            lossless_steps, mark, label, dev)
+    finally:
+        for spy in (flash_spy, decode_spy):
+            spy.restore()
+    launches = dict(counts["after_restart"])  # ... and ends here
+    path = ["flash_attention"] + (["decode_attention"] if cfg.mla is None else [])
+    for kernel in path:
+        check(counts["pool_prefilled"][kernel] > 0,
+              f"{kernel} did not launch in the {cfg.name} pool")
+        check(counts["after_resume"][kernel] > counts["resumed"][kernel],
+              f"{kernel} did not launch after the {cfg.name} resume")
+        check(counts["after_restart"][kernel] > counts["after_resume"][kernel],
+              f"{kernel} did not launch after the {cfg.name} restart")
+    # the whole cache is written every step (opaque leaves): its share
+    emit(f"{label}_launches", **counts,
+         write_share_of_step=split["write_ms_per_step"] / split["step_ms"],
+         cache_bytes_written_per_step=cache_bytes)
+    tokens = torch.tensor([prompts[0, 0].tolist() + stream_c[:max_tokens]],
+                          dtype=torch.int32, device=dev)
+    emit(f"{label}_profile", **profile_decode(params, cfg, tokens, prompt_len,
+                                              max_tokens))
+    mixer_consistency(params, cfg, tokens, prompt_len, max_tokens, label)
+    return launches, flash_spy.last, decode_spy.last
+
+
+@torch.no_grad()
+def phase_moe_model(dev, seed: int, cfg, prompt_len: int, steps: int) -> dict:
+    """dbrx-132b at full width with its depth cut: one prefill of
+    ``prompt_len`` tokens and ``steps`` greedy decode steps through
+    ``forward``/``decode_step`` (no serving pool), decode-step logits
+    against one prefill, and a profile of the bare step.  Returns the
+    attention kernels' launches on the path."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import decode_step, forward, logits_fn
+
+    t0 = time.perf_counter()
+    params = draw_params(cfg, seed, dev)
+    prompt = torch.from_numpy(np.random.default_rng(seed + 7).integers(
+        0, cfg.vocab, (1, prompt_len), dtype=np.int32)).to(dev)
+    torch.cuda.synchronize()
+    emit("moe_setup", model=cfg.name, layers=cfg.n_layers,
+         params=sum(p.numel() for p in _leaves(params)),
+         param_bytes=sum(p.numel() * p.element_size() for p in _leaves(params)),
+         d_model=cfg.d_model, experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+         d_expert=cfg.moe.d_expert, prompt_len=prompt_len, steps=steps,
+         setup_s=time.perf_counter() - t0)
+    fa.launches = da.launches = 0  # this path starts here
+    t = time.perf_counter()
+    h, aux, cache = forward(params, cfg, {"tokens": prompt}, collect_cache=True,
+                            cache_len=prompt_len + steps)
+    tok = torch.argmax(logits_fn(params, cfg, h[:, -1]), -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    check(bool(torch.isfinite(aux)) and float(aux) > 0, f"MoE aux loss {aux}")
+    out = [int(tok)]
+    t = time.perf_counter()
+    for i in range(steps):
+        lg, cache = decode_step(params, cfg, tok, cache, prompt_len + i)
+        tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
+        out.append(int(tok))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    launches = {"flash_attention": fa.launches, "decode_attention": da.launches}
+    check(launches["flash_attention"] == cfg.n_layers
+          and launches["decode_attention"] == cfg.n_layers * steps,
+          f"{cfg.name}: launches {launches} for one prefill and {steps} steps "
+          f"of {cfg.n_layers} layers")
+    check(all(0 <= x < cfg.vocab for x in out), "token out of vocabulary")
+    emit("moe_run", prefill_s=prefill_s,
+         prefill_tokens_per_s=prompt_len / prefill_s, decode_s=decode_s,
+         hot_tokens_per_s=steps / decode_s, aux_loss=float(aux), tokens=out,
+         **launches)
+    del cache
+    tokens = torch.cat([prompt, torch.tensor([out], dtype=torch.int32, device=dev)],
+                       dim=1)
+    emit("moe_profile", **profile_decode(params, cfg, tokens, prompt_len, steps))
+    mixer_consistency(params, cfg, tokens, prompt_len, steps, "moe")
+    return launches
 
 
 def _tree_map(fn, tree):
@@ -2070,7 +2582,7 @@ def main(argv=None) -> int:
             SERVE_MAX_TOKENS, Path(workdir),
         )
     del params
-    torch.cuda.empty_cache()
+    free_card()
     emit("phase_done", name="traced_serving", s=time.perf_counter() - t0)
 
     ssd_rec = SSDRecord()
@@ -2087,6 +2599,49 @@ def main(argv=None) -> int:
     emit("phase_done", name="ssm_serving", s=time.perf_counter() - t0)
     ssd_shape = measure_ssd(*ssd_last[0])
     emit("ssd_path_shape", **ssd_shape)
+    del ssd_last
+    free_card()
+
+    # the remaining mixers: RG-LRU (recurrentgemma-9b), MLA and MoE
+    # (deepseek-v2-lite-16b), MoE with GQA (dbrx-132b, 2 layers)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rg_") as workdir:
+        rg_launches, rg_flash, rg_decode = phase_mixer_serving(
+            dev, args.seed, get_config(RG_MODEL), "rg", MIXER_PROMPT,
+            MIXER_MAX_TOKENS, MIXER_CONVS, MIXER_STEPS, MIXER_LOSSLESS_STEPS,
+            Path(workdir))
+    free_card()
+    emit("phase_done", name="recurrentgemma_serving", s=time.perf_counter() - t0)
+    local_shape = measure_flash(*rg_flash[0], rg_flash[1])
+    emit("flash_local_path_shape", **local_shape)
+    (dq, dk, dv, dlen), _ = rg_decode
+    ring_shape = measure_decode(dq, dk, dv, dlen)
+    emit("decode_ring_path_shape", **ring_shape)
+    del rg_flash, rg_decode, dq, dk, dv, dlen
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mla_") as workdir:
+        mla_launches, mla_flash, _ = phase_mixer_serving(
+            dev, args.seed, get_config(MLA_MODEL), "mla", MIXER_PROMPT,
+            MIXER_MAX_TOKENS, MIXER_CONVS, MIXER_STEPS, MIXER_LOSSLESS_STEPS,
+            Path(workdir))
+    free_card()
+    emit("phase_done", name="deepseek_serving", s=time.perf_counter() - t0)
+    mla_shape = measure_flash(*mla_flash[0], mla_flash[1])
+    emit("flash_mla_path_shape", **mla_shape)
+    del mla_flash
+    t0 = time.perf_counter()
+    moe_launches = phase_moe_model(
+        dev, args.seed, replace(get_config(MOE_MODEL), n_periods=MOE_LAYERS),
+        MIXER_PROMPT, MOE_STEPS)
+    free_card()
+    emit("phase_done", name="dbrx", s=time.perf_counter() - t0)
+
+    def path_row(m, launches):
+        return {"shape": m["shape"], "launches": launches, "ms": m["kernel_ms"],
+                "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
+                "library_ms": m["library_ms"],
+                "library_device_ms": m["library_device_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"]}
 
     def row(name, source, replaces, n, record_err, checks, m, extra):
         return {
@@ -2116,7 +2671,16 @@ def main(argv=None) -> int:
          "kernel_route": flash_shape["kernel_route"],
          "device_ms": flash_shape["device_ms"],
          "library_device_ms": flash_shape["library_device_ms"],
-         "traced_launches": traced_launches["flash_attention"]},
+         "traced_launches": traced_launches["flash_attention"],
+         "path_launches": {
+             "recurrentgemma-9b": rg_launches["flash_attention"],
+             "deepseek-v2-lite-16b": mla_launches["flash_attention"],
+             "dbrx-132b_2_layers": moe_launches["flash_attention"]},
+         "path_shapes": {
+             "recurrentgemma-9b_local": path_row(
+                 local_shape, rg_launches["flash_attention"]),
+             "deepseek-v2-lite-16b_mla": path_row(
+                 mla_shape, mla_launches["flash_attention"])}},
         {**row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                "src/repro/kernels/decode_attention.py:127",
                serve_launches["decode_attention"], decode_rec.max_abs_err,
@@ -2124,7 +2688,13 @@ def main(argv=None) -> int:
          "kernel_route": decode_shape["kernel_route"],
          "device_ms": decode_shape["device_ms"],
          "library_device_ms": decode_shape["library_device_ms"],
-         "traced_launches": traced_launches["decode_attention"]},
+         "traced_launches": traced_launches["decode_attention"],
+         "path_launches": {
+             "recurrentgemma-9b": rg_launches["decode_attention"],
+             "dbrx-132b_2_layers": moe_launches["decode_attention"]},
+         "path_shapes": {
+             "recurrentgemma-9b_ring": path_row(
+                 ring_shape, rg_launches["decode_attention"])}},
         {**row("ssd_chunk", "src/repro_torch/csrc/ssd_scan.cu",
                "src/repro/kernels/ssd_scan.py:80", ssd_launches,
                ssd_rec.max_abs_err, ssd_rec.checks, ssd_shape,

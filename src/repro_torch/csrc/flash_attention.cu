@@ -1,6 +1,10 @@
 // Flash attention forward on Hopper (sm_90a): causal or full attention
-// over (B, Tq, H, dh) queries and (B, Tk, Kv, dh) keys/values, with GQA,
-// an optional softcap and sliding window, and an f32 online softmax.
+// over (B, Tq, H, dqk) queries, (B, Tk, Kv, dqk) keys and (B, Tk, Kv, dv)
+// values into a (B, Tq, H, dv) output, with GQA, an optional softcap and
+// sliding window, and an f32 online softmax.  The head dims are template
+// parameters: dqk = dv in {64, 128, 256} for the dense models, and
+// (dqk, dv) = (192, 128) for the expanded prefill of multi-head latent
+// attention (MLA: 128 "nope" plus 64 rotary columns against 128 of V).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention_fwd, pallas_call at line 138).  The TPU kernel runs a
@@ -14,8 +18,8 @@
 // Two routes, chosen by the input type alone:
 //
 // * bf16 / f16: the tensor-core kernel (`flash_wgmma_kernel`).  A block
-//   is NC consumer warpgroups of 64 query rows each (NC = 2 for dh 64 and
-//   128, 1 for dh 256, whose output alone takes 128 f32 registers a
+//   is NC consumer warpgroups of 64 query rows each (NC = 2 for dv 64 and
+//   128, 1 for dv 256, whose output alone takes 128 f32 registers a
 //   thread) and one producer warpgroup, which gives its registers to the
 //   consumers (setmaxnreg 24 / 240) and whose first thread issues every
 //   load.  It loads the Q tiles once and streams 64-key K and V tiles
@@ -23,9 +27,10 @@
 //   (cp.async.bulk.tensor, 128-byte swizzle; K and V each complete on an
 //   mbarrier of their own), and reloads a stage when every consumer
 //   thread has arrived on its "empty" barrier.
-//   - S = Q.K^T is wgmma m64n64k16 (bf16/f16 in, f32 accumulators), both
-//     operands read from shared memory through descriptors.
-//   - O += P.V is wgmma m64n64k16 per 64 head-dim columns: P comes from
+//   - S = Q.K^T is wgmma m64n64k16 (bf16/f16 in, f32 accumulators), dqk/16
+//     k-steps, both operands read from shared memory through descriptors
+//     (Q and K arrive as dqk/64 column chunks, V as dv/64).
+//   - O += P.V is wgmma m64n64k16 per 64 columns of V: P comes from
 //     registers (the S accumulator exponentiated, rounded to the input
 //     type and packed as the A fragment), V is read from shared memory
 //     as an MN-major ("transposed") B operand, so V is never copied
@@ -59,7 +64,7 @@
 // output is acc / max(l, 1e-30), rounded to the input type.  The
 // tensor-core route rounds p to the input type before p.v.
 //
-// What bounds it: 4 * Tq * Tk * dh * H operations (about half when
+// What bounds it: 2 * Tq * Tk * (dqk + dv) * H operations (about half when
 // causal) against reading q, k, v and writing o once: at the prefill's
 // shapes the tensor cores' rate.  At the qwen2.5-3b prefill's shape
 // (B=1, T=1024, H=16, dh=128) the kernel is held back by the latency of
@@ -124,32 +129,33 @@ __device__ __forceinline__ void kv_range(const Args& a, int q0, int rows,
 constexpr int kF32Threads = 128;  // 4 warps
 constexpr int kF32BlockK = 32;    // keys per tile: one per lane in the softmax
 
-// Shared memory, in floats: Q tile (BQ x (DH+1)), K tile (BK x (DH+1)),
-// V tile (BK x DH), scores/probabilities (BQ x (BK+1)), and the per-row
+// Shared memory, in floats: Q tile (BQ x (DQK+1)), K tile (BK x (DQK+1)),
+// V tile (BK x DV), scores/probabilities (BQ x (BK+1)), and the per-row
 // rescale factor (BQ).  The +1 pads make the column walks of the score
 // product hit 32 distinct banks.
-template <int DH, int BQ>
+template <int DQK, int DV, int BQ>
 constexpr int f32_smem_floats() {
-  return BQ * (DH + 1) + kF32BlockK * (DH + 1) + kF32BlockK * DH +
+  return BQ * (DQK + 1) + kF32BlockK * (DQK + 1) + kF32BlockK * DV +
          BQ * (kF32BlockK + 1) + BQ;
 }
-template <int DH, int BQ>
+template <int DQK, int DV, int BQ>
 __global__ void __launch_bounds__(kF32Threads)
     flash_f32_kernel(const Args a) {
-  static_assert(DH % 32 == 0, "head dim must be a multiple of 32");
+  static_assert(DQK % 32 == 0 && DV % 32 == 0,
+                "head dims must be multiples of 32");
   static_assert(BQ % 16 == 0, "q tile must be a multiple of 16");
   constexpr int RPT = BQ / 16;      // score rows per thread
   constexpr int ROWS_W = BQ / 4;    // softmax / output rows per warp
-  constexpr int COLS = DH / 32;     // output columns per lane
-  constexpr int QS = DH + 1;        // padded row strides
-  constexpr int KS = DH + 1;
+  constexpr int COLS = DV / 32;     // output columns per lane
+  constexpr int QS = DQK + 1;       // padded row strides
+  constexpr int KS = DQK + 1;
   constexpr int SS = kF32BlockK + 1;
 
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + BQ * QS;
   float* sV = sK + kF32BlockK * KS;
-  float* sS = sV + kF32BlockK * DH;
+  float* sS = sV + kF32BlockK * DV;
   float* sC = sS + BQ * SS;
 
   const int tid = threadIdx.x;
@@ -168,8 +174,8 @@ __global__ void __launch_bounds__(kF32Threads)
   const float* v = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   float* o = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
 
-  for (int i = tid; i < BQ * DH; i += kF32Threads) {
-    const int r = i / DH, d = i % DH;
+  for (int i = tid; i < BQ * DQK; i += kF32Threads) {
+    const int r = i / DQK, d = i % DQK;
     const int row = q0 + r;
     sQ[r * QS + d] = row < a.Tq ? q[row * a.q_st + d] : 0.f;
   }
@@ -195,12 +201,15 @@ __global__ void __launch_bounds__(kF32Threads)
   for (int kt = t_begin; kt < t_end; ++kt) {
     const int k0 = kt * kF32BlockK;
     __syncthreads();  // previous tile's K/V/S fully consumed
-    for (int i = tid; i < kF32BlockK * DH; i += kF32Threads) {
-      const int j = i / DH, d = i % DH;
+    for (int i = tid; i < kF32BlockK * DQK; i += kF32Threads) {
+      const int j = i / DQK, d = i % DQK;
       const int key = k0 + j;
-      const bool in = key < a.Tk;
-      sK[j * KS + d] = in ? k[key * a.k_st + d] : 0.f;
-      sV[j * DH + d] = in ? v[key * a.v_st + d] : 0.f;
+      sK[j * KS + d] = key < a.Tk ? k[key * a.k_st + d] : 0.f;
+    }
+    for (int i = tid; i < kF32BlockK * DV; i += kF32Threads) {
+      const int j = i / DV, d = i % DV;
+      const int key = k0 + j;
+      sV[j * DV + d] = key < a.Tk ? v[key * a.v_st + d] : 0.f;
     }
     __syncthreads();
 
@@ -211,7 +220,7 @@ __global__ void __launch_bounds__(kF32Threads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[RPT], kv[4];
 #pragma unroll
       for (int i = 0; i < RPT; ++i) qv[i] = sQ[(rg * RPT + i) * QS + d];
@@ -271,7 +280,7 @@ __global__ void __launch_bounds__(kF32Threads)
     for (int j = 0; j < kF32BlockK; ++j) {
       float vv[COLS];
 #pragma unroll
-      for (int cc = 0; cc < COLS; ++cc) vv[cc] = sV[j * DH + lane + 32 * cc];
+      for (int cc = 0; cc < COLS; ++cc) vv[cc] = sV[j * DV + lane + 32 * cc];
 #pragma unroll
       for (int r = 0; r < ROWS_W; ++r) {
         const float p = sS[(warp * ROWS_W + r) * SS + j];
@@ -461,16 +470,17 @@ __device__ __forceinline__ uint32_t pack2<__half>(float x0, float x1, float* r0,
 // Shared-memory layout of a tensor-core block: the Q tile, the K and V
 // rings, then the mbarriers (Q loaded; per stage K loaded, V loaded, and
 // "empty": released by every consumer thread).  Each tile is stored as
-// DH/64 column chunks of (rows x 128 bytes), the layout TMA's 128-byte
-// swizzle writes and wgmma's descriptors read.
-template <int DH, int NC>
+// DQK/64 (Q, K) or DV/64 (V) column chunks of (rows x 128 bytes), the
+// layout TMA's 128-byte swizzle writes and wgmma's descriptors read.
+template <int DQK, int DV, int NC>
 struct TcLayout {
   static constexpr int BQ = 64 * NC;  // query rows: 64 per consumer warpgroup
   static constexpr int THREADS = (NC + 1) * 128;  // + the producer warpgroup
-  static constexpr int KV_BYTES = kBlockK * DH * 2;  // one K or V tile
-  static constexpr int K_OFF = BQ * DH * 2;
-  static constexpr int V_OFF = K_OFF + kStages * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + kStages * KV_BYTES;
+  static constexpr int K_BYTES = kBlockK * DQK * 2;  // one K tile
+  static constexpr int V_BYTES = kBlockK * DV * 2;   // one V tile
+  static constexpr int K_OFF = BQ * DQK * 2;
+  static constexpr int V_OFF = K_OFF + kStages * K_BYTES;
+  static constexpr int BAR_OFF = V_OFF + kStages * V_BYTES;
   // + slack to align the dynamic base to the 1024-byte swizzle atom
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 3 * kStages) + 1024;
 };
@@ -481,13 +491,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <typename T, int DH, int NC>
-__global__ void __launch_bounds__(TcLayout<DH, NC>::THREADS, 1)
+template <typename T, int DQK, int DV, int NC>
+__global__ void __launch_bounds__(TcLayout<DQK, DV, NC>::THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap kmap,
               const __grid_constant__ CUtensorMap vmap, const Args a) {
-  using L = TcLayout<DH, NC>;
-  constexpr int ND = DH / kChunk;  // 64-column chunks of the head dim
+  using L = TcLayout<DQK, DV, NC>;
+  constexpr int NQ = DQK / kChunk;  // 64-column chunks of q and k
+  constexpr int ND = DV / kChunk;   // 64-column chunks of v and o
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base;
@@ -543,8 +554,8 @@ __global__ void __launch_bounds__(TcLayout<DH, NC>::THREADS, 1)
     // thread issues every TMA load
     if (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == NC * 128) {
-      mbar_expect_tx(q_full, (two ? 2 : 1) * 64 * DH * 2);
-      for (int c = 0; c < ND; ++c) {
+      mbar_expect_tx(q_full, (two ? 2 : 1) * 64 * DQK * 2);
+      for (int c = 0; c < NQ; ++c) {
         tma_load(sQ + c * L::BQ * kRowBytes, &qmap, q_full, c * kChunk, h,
                  64 * tile0, b);
         if (two)
@@ -555,13 +566,13 @@ __global__ void __launch_bounds__(TcLayout<DH, NC>::THREADS, 1)
         const int s = it % kStages;
         if (it >= kStages) mbar_wait(empty + 8 * s, ((it / kStages) - 1) & 1);
         const int k0 = (t_begin + it) * kBlockK;
-        mbar_expect_tx(k_full + 8 * s, L::KV_BYTES);
-        for (int c = 0; c < ND; ++c)
-          tma_load(sK + s * L::KV_BYTES + c * kBlockK * kRowBytes, &kmap,
+        mbar_expect_tx(k_full + 8 * s, L::K_BYTES);
+        for (int c = 0; c < NQ; ++c)
+          tma_load(sK + s * L::K_BYTES + c * kBlockK * kRowBytes, &kmap,
                    k_full + 8 * s, c * kChunk, kvh, k0, b);
-        mbar_expect_tx(v_full + 8 * s, L::KV_BYTES);
+        mbar_expect_tx(v_full + 8 * s, L::V_BYTES);
         for (int c = 0; c < ND; ++c)
-          tma_load(sV + s * L::KV_BYTES + c * kBlockK * kRowBytes, &vmap,
+          tma_load(sV + s * L::V_BYTES + c * kBlockK * kRowBytes, &vmap,
                    v_full + 8 * s, c * kChunk, kvh, k0, b);
       }
     }
@@ -620,9 +631,9 @@ __global__ void __launch_bounds__(TcLayout<DH, NC>::THREADS, 1)
   auto release = [&](int it) { mbar_arrive(empty + 8 * (it % kStages)); };
   // S = Q.K^T for tile `it` into d
   auto issue_s = [&](int it) {
-    const uint32_t ks = sK + (it % kStages) * L::KV_BYTES;
+    const uint32_t ks = sK + (it % kStages) * L::K_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       // 16 head-dim columns: chunk kk / 4, 32 bytes into its rows
       const uint32_t col_bytes = (kk % 4) * 32;
       wgmma_ss<T>(d,
@@ -637,7 +648,7 @@ __global__ void __launch_bounds__(TcLayout<DH, NC>::THREADS, 1)
   // 64-column chunks kBlockK * 128 bytes apart
   auto issue_pv = [&](int it) {
     wait_v(it);
-    const uint32_t vs = sV + (it % kStages) * L::KV_BYTES;
+    const uint32_t vs = sV + (it % kStages) * L::V_BYTES;
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk)
 #pragma unroll
@@ -795,10 +806,11 @@ __global__ void __launch_bounds__(TcLayout<DH, NC>::THREADS, 1)
 
 // -- host side -------------------------------------------------------------------
 
-template <int DH, int BQ>
+template <int DQK, int DV, int BQ>
 cudaError_t f32_launch(const Args& a, int device, cudaStream_t stream) {
-  constexpr int smem = f32_smem_floats<DH, BQ>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_f32_kernel<DH, BQ>;
+  constexpr int smem =
+      f32_smem_floats<DQK, DV, BQ>() * static_cast<int>(sizeof(float));
+  auto kernel = flash_f32_kernel<DQK, DV, BQ>;
   static PerDevice configured;  // the attribute, per kernel and device
   const cudaError_t err = configured.once(device, [&] {
     return cudaFuncSetAttribute(
@@ -810,15 +822,19 @@ cudaError_t f32_launch(const Args& a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t f32_dispatch(int dh, const Args& a, int device,
+// The built head dims (dqk, dv): (64, 64), (128, 128), (256, 256) and
+// (192, 128); query tiles of 64 rows, 32 for dqk 256.
+cudaError_t f32_dispatch(int dqk, int dv, const Args& a, int device,
                          cudaStream_t stream) {
-  switch (dh) {
+  if (dqk == 192 && dv == 128) return f32_launch<192, 128, 64>(a, device, stream);
+  if (dqk != dv) return cudaErrorInvalidValue;
+  switch (dqk) {
     case 64:
-      return f32_launch<64, 64>(a, device, stream);
+      return f32_launch<64, 64, 64>(a, device, stream);
     case 128:
-      return f32_launch<128, 64>(a, device, stream);
+      return f32_launch<128, 128, 64>(a, device, stream);
     case 256:
-      return f32_launch<256, 32>(a, device, stream);
+      return f32_launch<256, 256, 32>(a, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -925,11 +941,11 @@ bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
   return true;
 }
 
-template <typename T, int DH, int NC>
+template <typename T, int DQK, int DV, int NC>
 cudaError_t tc_launch(const Args& a, const CUtensorMap (&maps)[3], int device,
                       cudaStream_t stream) {
-  using L = TcLayout<DH, NC>;
-  auto kernel = flash_wgmma_kernel<T, DH, NC>;
+  using L = TcLayout<DQK, DV, NC>;
+  auto kernel = flash_wgmma_kernel<T, DQK, DV, NC>;
   static PerDevice configured;  // the attribute, per kernel and device
   const cudaError_t err = configured.once(device, [&] {
     return cudaFuncSetAttribute(
@@ -942,30 +958,33 @@ cudaError_t tc_launch(const Args& a, const CUtensorMap (&maps)[3], int device,
   return cudaGetLastError();
 }
 
-// The built tiles: 128 query rows (two consumer warpgroups) for dh 64 and
-// 128, 64 rows (one) for dh 256; 64 keys.
+// The built head dims (dqk, dv) and tiles: (64, 64) and (128, 128) with
+// 128 query rows (two consumer warpgroups), (256, 256) with 64 rows (one),
+// (192, 128) with 128 rows (the output of dv 128, with Q 48 KB and the
+// K/V rings 80 KB of shared memory); 64 keys.
 template <typename T>
-cudaError_t tc_dispatch(int dh, int block_q, int block_k, const Args& a,
-                        CUtensorMapDataType type, int device,
+cudaError_t tc_dispatch(int dqk, int dv, int block_q, int block_k,
+                        const Args& a, CUtensorMapDataType type, int device,
                         cudaStream_t stream) {
-  if (block_q != (dh == 256 ? 64 : 128) || block_k != kBlockK)
+  const bool built = (dqk == dv && (dqk == 64 || dqk == 128 || dqk == 256)) ||
+                     (dqk == 192 && dv == 128);
+  if (!built || block_q != (dqk == 256 ? 64 : 128) || block_k != kBlockK)
     return cudaErrorInvalidValue;
   const cudaError_t bound = bind_context(device);
   if (bound != cudaSuccess) return bound;
   CUtensorMap maps[3];
-  if (!encode(&maps[0], type, a.q, dh, a.H, a.Tq, a.B, a.q_sh, a.q_st, a.q_sb) ||
-      !encode(&maps[1], type, a.k, dh, a.Kv, a.Tk, a.B, a.k_sh, a.k_st, a.k_sb) ||
-      !encode(&maps[2], type, a.v, dh, a.Kv, a.Tk, a.B, a.v_sh, a.v_st, a.v_sb))
+  if (!encode(&maps[0], type, a.q, dqk, a.H, a.Tq, a.B, a.q_sh, a.q_st, a.q_sb) ||
+      !encode(&maps[1], type, a.k, dqk, a.Kv, a.Tk, a.B, a.k_sh, a.k_st, a.k_sb) ||
+      !encode(&maps[2], type, a.v, dv, a.Kv, a.Tk, a.B, a.v_sh, a.v_st, a.v_sb))
     return cudaErrorInvalidValue;
-  switch (dh) {
+  if (dqk == 192) return tc_launch<T, 192, 128, 2>(a, maps, device, stream);
+  switch (dqk) {
     case 64:
-      return tc_launch<T, 64, 2>(a, maps, device, stream);
+      return tc_launch<T, 64, 64, 2>(a, maps, device, stream);
     case 128:
-      return tc_launch<T, 128, 2>(a, maps, device, stream);
-    case 256:
-      return tc_launch<T, 256, 1>(a, maps, device, stream);
+      return tc_launch<T, 128, 128, 2>(a, maps, device, stream);
     default:
-      return cudaErrorInvalidValue;
+      return tc_launch<T, 256, 256, 1>(a, maps, device, stream);
   }
 }
 
@@ -980,10 +999,12 @@ struct Params {
   int64_t v_sb, v_st, v_sh;
   int64_t o_sb, o_st, o_sh;
   int32_t dtype;  // 0 float32 (the f32 route), 1 bfloat16, 2 float16
-  int32_t B, Tq, Tk, H, Kv, dh;
+  int32_t B, Tq, Tk, H, Kv;
+  int32_t dh;  // of q and k
+  int32_t dv;  // of v and o
   int32_t causal;
   int32_t window;   // <= 0: none
-  int32_t block_q;  // tensor-core route: 128 (dh 64, 128) or 64 (dh 256)
+  int32_t block_q;  // tensor-core route: 128 (dh 64, 128, 192) or 64 (dh 256)
   int32_t block_k;  // tensor-core route: 64
   float scale;
   float softcap;   // <= 0: off
@@ -992,11 +1013,11 @@ struct Params {
 
 // o[b, t, h, :] = attention of q[b, t, h, :] over k/v[b, :, h / (H/Kv), :]
 // on `stream`, without synchronising; q, k, v and o of p->dtype, the head
-// dim contiguous.  Returns a cudaError_t (cudaErrorInvalidValue for an
-// unsupported dtype, dh or tile, or a layout TMA refuses).
-static_assert(sizeof(Params) == 152 && offsetof(Params, dtype) == 96 &&
-                  offsetof(Params, scale) == 140 &&
-                  offsetof(Params, device) == 148,
+// dims contiguous.  Returns a cudaError_t (cudaErrorInvalidValue for an
+// unsupported dtype, (dh, dv) or tile, or a layout TMA refuses).
+static_assert(sizeof(Params) == 160 && offsetof(Params, dtype) == 96 &&
+                  offsetof(Params, scale) == 144 &&
+                  offsetof(Params, device) == 152,
               "Params must match the wrapper's ctypes structure");
 
 extern "C" int flash_attention_launch(const Params* p, const void* q,
@@ -1013,13 +1034,13 @@ extern "C" int flash_attention_launch(const Params* p, const void* q,
                p->window};
   switch (p->dtype) {
     case 0:
-      return f32_dispatch(p->dh, a, p->device, stream);
+      return f32_dispatch(p->dh, p->dv, a, p->device, stream);
     case 1:
-      return tc_dispatch<__nv_bfloat16>(p->dh, p->block_q, p->block_k, a,
-                                        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      return tc_dispatch<__nv_bfloat16>(p->dh, p->dv, p->block_q, p->block_k,
+                                        a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                                         p->device, stream);
     case 2:
-      return tc_dispatch<__half>(p->dh, p->block_q, p->block_k, a,
+      return tc_dispatch<__half>(p->dh, p->dv, p->block_q, p->block_k, a,
                                  CU_TENSOR_MAP_DATA_TYPE_FLOAT16, p->device,
                                  stream);
     default:

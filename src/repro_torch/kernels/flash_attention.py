@@ -6,17 +6,19 @@ keys before it.  This replaces the Pallas TPU kernel
 call its XLA twin, ``layers.chunked_attention``).  The TPU kernel takes
 heads flattened to ``(B·H, T, dh)`` with GQA expanded upstream by a
 ``jnp.repeat`` copy of K/V; the CUDA kernel (``csrc/flash_attention.cu``)
-reads q as ``(B, Tq, H, dh)`` and k/v as ``(B, Tk, Kv, dh)`` through their
-strides and maps query head ``h`` to kv head ``h // (H // Kv)``, so no
-copy is made.  One block owns one (batch, head, q tile) and loops over
+reads q as ``(B, Tq, H, dqk)``, k as ``(B, Tk, Kv, dqk)`` and v as ``(B,
+Tk, Kv, dv)`` through their strides and maps query head ``h`` to kv head
+``h // (H // Kv)``, so no copy is made.  The head dims it is built for
+are :data:`HEAD_DIM_PAIRS`: the dense models' square 64, 128 and 256, and
+MLA's expanded prefill, q/k of 192 against v of 128.  One block owns one (batch, head, q tile) and loops over
 the kv tiles with an f32 online softmax; causal blocks skip the tiles
 above the diagonal.
 
 :func:`_plan` routes by dtype alone:
 
 * ``"wgmma"`` for bf16 and f16: a tensor-core kernel.  Consumer
-  warpgroups of 64 query rows each (two a block for dh 64 and 128, one
-  for dh 256) run ``wgmma`` for ``Q·Kᵀ`` and, with P rounded to the input
+  warpgroups of 64 query rows each (two a block for dv 64 and 128, one
+  for dv 256) run ``wgmma`` for ``Q·Kᵀ`` and, with P rounded to the input
   type and kept in registers, for ``P·V``; a producer warpgroup streams
   64-key K/V tiles into a two-stage shared-memory ring with TMA.  TMA
   binds the layout: each base 16-byte aligned, the batch, token and head
@@ -26,7 +28,7 @@ above the diagonal.
 * ``"f32"`` for float32: the same algorithm on CUDA cores (``wgmma`` has
   no f32 inputs; TF32 would not hold the f32 tolerance).
 
-What bounds it: ``4·Tq·Tk·dh·H`` operations (about half when causal)
+What bounds it: ``2·Tq·Tk·(dqk + dv)·H`` operations (about half when causal)
 against one read of q, k, v and one write of o, so at prefill shapes the
 tensor cores' rate is the bound; the kernel sits above it by the latency
 of one warpgroup's chain of key tiles (PERF.md has its time beside the
@@ -51,18 +53,22 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import _raw_stream
 
-__all__ = ["flash_attention", "flash_attention_torch", "launches", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_torch", "launches", "HEAD_DIMS",
+           "HEAD_DIM_PAIRS"]
 
 #: kernel launches so far (the plain CPU version does not count).
 launches = 0
-#: head dims the kernel is compiled for (the dense configs' 64, 128, 256).
+#: square head dims (the dense configs' 64, 128, 256; the decode kernel's).
 HEAD_DIMS = (64, 128, 256)
+#: (q/k head dim, v head dim) pairs the kernel is compiled for: the square
+#: ones and MLA's expanded prefill (128 + 64 rotary against 128).
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MASK_VALUE = -1e30
 #: query rows per block of the tensor-core route (64 per consumer
-#: warpgroup), by head dim: dh 256 holds 128 f32 output accumulators a
-#: thread and takes one warpgroup.
-BLOCK_Q = {64: 128, 128: 128, 256: 64}
+#: warpgroup), by q/k head dim: dh 256 holds 128 f32 output accumulators a
+#: thread and takes one warpgroup; (192, 128) holds dv 128's 64.
+BLOCK_Q = {64: 128, 128: 128, 192: 128, 256: 64}
 BLOCK_K = 64  #: keys per kv tile of the tensor-core route
 TMA_ALIGN = 16  # bytes: TMA's rule for base addresses and strides
 _count_lock = threading.Lock()
@@ -78,8 +84,8 @@ class _Params(ctypes.Structure):
             "q_sb", "q_st", "q_sh", "k_sb", "k_st", "k_sh",
             "v_sb", "v_st", "v_sh", "o_sb", "o_st", "o_sh")]
         + [(n, ctypes.c_int32) for n in (
-            "dtype", "B", "Tq", "Tk", "H", "Kv", "dh", "causal", "window",
-            "block_q", "block_k")]
+            "dtype", "B", "Tq", "Tk", "H", "Kv", "dh", "dv", "causal",
+            "window", "block_q", "block_k")]
         + [("scale", ctypes.c_float), ("softcap", ctypes.c_float),
            ("device", ctypes.c_int32)]
     )
@@ -111,6 +117,7 @@ def flash_attention_torch(
 ) -> torch.Tensor:
     """The plain version: one einsum softmax in f32 over the GQA layout."""
     B, Tq, H, dh = q.shape
+    dv = v.shape[3]
     Tk, Kv = k.shape[1], k.shape[2]
     rep = H // Kv
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
@@ -127,17 +134,17 @@ def flash_attention_torch(
         live &= q_pos - k_pos < window
     p = torch.softmax(s.masked_fill(~live, MASK_VALUE), dim=-1)
     o = torch.einsum("bkrqc,bckd->bqkrd", p, v.float())
-    return o.reshape(B, Tq, H, dh).to(q.dtype)
+    return o.reshape(B, Tq, H, dv).to(q.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(
-            f"want q (B, Tq, H, dh) and k/v (B, Tk, Kv, dh), got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            f"want q (B, Tq, H, dh), k (B, Tk, Kv, dh) and v (B, Tk, Kv, "
+            f"dv), got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     B, Tq, H, dh = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != dh:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != dh:
         raise ValueError(
             f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not fit q {tuple(q.shape)}"
         )
@@ -164,13 +171,14 @@ class Plan(NamedTuple):
 
 
 def _plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
-    """The route, tiles and grid for q ``(B, Tq, H, dh)``, k/v ``(B, Tk,
-    Kv, dh)``, by dtype alone; raises ``ValueError`` on a layout the
-    route's kernel does not take.  Reads only shapes, strides, the dtype
-    and the base addresses."""
+    """The route, tiles and grid for q ``(B, Tq, H, dh)``, k ``(B, Tk, Kv,
+    dh)`` and v ``(B, Tk, Kv, dv)``, by dtype alone; raises ``ValueError``
+    on head dims or a layout the route's kernel does not take.  Reads only
+    shapes, strides, the dtype and the base addresses."""
     B, Tq, H, dh = q.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in the kernel's {HEAD_DIMS}")
+    if (dh, v.shape[3]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (q/k, v) {(dh, v.shape[3])} not in the "
+                         f"kernel's {HEAD_DIM_PAIRS}")
     qs, ks, vs = q.stride(), k.stride(), v.stride()
     if qs[3] != 1 or ks[3] != 1 or vs[3] != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
@@ -216,14 +224,14 @@ _CALLS_MAX = 256
 def flash_attention(
     q: torch.Tensor,  # (B, Tq, H, dh)
     k: torch.Tensor,  # (B, Tk, Kv, dh)
-    v: torch.Tensor,  # (B, Tk, Kv, dh)
+    v: torch.Tensor,  # (B, Tk, Kv, dv)
     *,
     causal: bool = True,
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Attention forward, ``(B, Tq, H, dh)`` in q's type.  Query position
+    """Attention forward, ``(B, Tq, H, dv)`` in q's type.  Query position
     ``i`` sees key ``j`` when ``j <= i`` (causal) and ``i - j < window``
     (when a window is given); scores are ``softcap·tanh(q·k·scale /
     softcap)`` with ``scale`` defaulting to ``1/sqrt(dh)``."""
@@ -260,15 +268,16 @@ def _prepare(q, k, v, causal: bool, scale: Optional[float],
         raise ValueError(f"window must be >= 1, got {window}")
     plan = _plan(q, k, v)
     B, Tq, H, dh = q.shape
+    dv = v.shape[3]
     params = _Params(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        Tq * H * dh, H * dh, dh,  # a fresh contiguous output
-        DTYPE_CODES[q.dtype], B, Tq, k.shape[1], H, k.shape[2], dh,
+        Tq * H * dv, H * dv, dv,  # a fresh contiguous output
+        DTYPE_CODES[q.dtype], B, Tq, k.shape[1], H, k.shape[2], dh, dv,
         int(causal), window if window is not None else 0, plan.block_q,
         plan.block_k, scale if scale is not None else 1.0 / math.sqrt(dh),
         softcap if softcap is not None else 0.0, q.get_device(),
     )
-    return _Call(plan, (B, Tq, H, dh), params, ctypes.addressof(params))
+    return _Call(plan, (B, Tq, H, dv), params, ctypes.addressof(params))
 
 
 def _launch(q, ptrs, call: _Call) -> torch.Tensor:

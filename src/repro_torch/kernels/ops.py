@@ -34,13 +34,13 @@ __all__ = [
 def flash_attention(
     q: torch.Tensor,  # (B, Tq, H, dh)
     k: torch.Tensor,  # (B, Tk, Kv, dh)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (B, Tk, Kv, dv)
     causal: bool = True,
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Batched GQA flash attention -> (B, Tq, H, dh)."""
+    """Batched GQA flash attention -> (B, Tq, H, dv)."""
     return _flash(q, k, v, causal=causal, scale=scale, softcap=softcap,
                   window=window)
 

@@ -35,7 +35,7 @@ def bucket_histogram_ref(
 def flash_attention_ref(
     q: torch.Tensor,  # (BH, Tq, dh)
     k: torch.Tensor,  # (BH, Tk, dh)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (BH, Tk, dv): -> (BH, Tq, dv)
     *,
     causal: bool = True,
     scale: Optional[float] = None,

@@ -1,8 +1,8 @@
 """Model zoo of the port: config schema, shared layers, and the models
-assembled in ``transformer.py`` from GQA attention blocks with dense FFNs
-and from Mamba-2 SSD blocks (``ssm.py``).  The other mixers of the
-reference package (MLA, MoE, RG-LRU) wait for later slices (ROADMAP.md,
-queue A item 9).
+assembled in ``transformer.py`` from the reference package's mixers (GQA
+attention, multi-head latent attention ``mla.py``, Mamba-2 SSD ``ssm.py``,
+RG-LRU ``rglru.py``) and FFNs (dense, mixture of experts ``moe.py``):
+every configuration of ``repro_torch.configs``.
 """
 
 from repro_torch.models.config import (
@@ -15,8 +15,11 @@ from repro_torch.models.config import (
     ShapeConfig,
     reduced_for_smoke,
 )
+from repro_torch.models import attention, mla, moe, rglru, ssm
 from repro_torch.models.convert import from_jax_params
+from repro_torch.models.mla import MLACache
 from repro_torch.models.param import ParamDef, init_params, stack_defs
+from repro_torch.models.rglru import RGLRUCache
 from repro_torch.models.ssm import SSMCache
 from repro_torch.models.transformer import (
     decode_step,
@@ -35,6 +38,13 @@ __all__ = [
     "SSMConfig",
     "ShapeConfig",
     "SSMCache",
+    "MLACache",
+    "RGLRUCache",
+    "attention",
+    "mla",
+    "moe",
+    "rglru",
+    "ssm",
     "reduced_for_smoke",
     "from_jax_params",
     "ParamDef",

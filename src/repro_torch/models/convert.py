@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param import ParamDef, default_device
+from repro_torch.models.param import ParamDef, default_device, leaf_dtype
 
 __all__ = ["from_jax_params", "to_tensor"]
 
@@ -39,15 +39,19 @@ def from_jax_params(tree: Any, cfg: ModelConfig, device=None,
                     dtype: Optional[torch.dtype] = None) -> Any:
     """The reference's parameter tree (``np.asarray`` leaves, e.g. from
     ``jax.tree_util.tree_map(np.asarray, params)``) as the port's, on
-    ``device`` (default: the card); ``dtype`` casts every leaf (default:
-    keep each leaf's)."""
+    ``device`` (default: the card).  Each leaf keeps its own type unless
+    ``dtype`` is given; then the weight leaves take it, and a leaf the
+    model declares f32 (the MoE router, RG-LRU's ``lam``, Mamba-2's
+    ``A_log``/``Dskip``/``dt_bias``) becomes f32, as ``init_params``
+    makes it (:func:`~repro_torch.models.param.leaf_dtype`)."""
     from repro_torch.models.transformer import model_defs
 
     device = default_device(device)
 
     def walk(defs: Any, node: Any, path: str) -> Any:
         if isinstance(defs, ParamDef):
-            t = to_tensor(node, device, dtype)
+            t = to_tensor(node, device,
+                          None if dtype is None else leaf_dtype(defs, dtype))
             if tuple(t.shape) != tuple(defs.shape):
                 raise ValueError(
                     f"{path}: shape {tuple(t.shape)}, the model wants "

@@ -98,14 +98,14 @@ def apply_rope(
 def chunked_attention(
     q: torch.Tensor,  # (B, Tq, H, Dh)
     k: torch.Tensor,  # (B, Tk, Kv, Dh)
-    v: torch.Tensor,  # (B, Tk, Kv, Dh)
+    v: torch.Tensor,  # (B, Tk, Kv, Dhv)
     *,
     causal: bool = True,
     window: Optional[int] = None,
     attn_softcap: Optional[float] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Full-sequence attention through the flash kernel -> (B, Tq, H, Dh).
+    """Full-sequence attention through the flash kernel -> (B, Tq, H, Dhv).
 
     The reference's ``q_chunk``/``kv_chunk`` tile its XLA twin; the kernel
     picks its own tiles and computes the same function."""

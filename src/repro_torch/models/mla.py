@@ -1,0 +1,158 @@
+"""Multi-head Latent Attention (DeepSeek-V2): compressed-KV attention.
+
+The port of ``repro/models/mla.py``.  Prefill uses the *expanded* form:
+the normed latents ``c_kv`` are decompressed to per-head K (128 "nope"
+columns, then the 64 rotary columns of the one shared ``k_pe``) and V
+(128), and attention runs through ``layers.chunked_attention``, i.e. the
+flash kernel at q/k head dim 192 against v head dim 128 (the reference
+calls its XLA twin of the Pallas kernel here).  ``k_pe`` is broadcast to
+every head by the concatenation, so K is one contiguous tensor whose
+strides TMA takes.
+
+Decode uses the *absorbed* form, as torch ops, as the reference computes
+it outside any kernel: queries are projected into the latent space, so
+attention runs over the ``(B, S, kv_lora_rank + rope_dim)`` cache in f32.
+:func:`mla_decode` writes the new latent row at position ``t`` into the
+cache it is given, in place.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, chunked_attention, rms_norm
+from repro_torch.models.param import FSDP, TP, ParamDef, default_device
+
+__all__ = ["mla_defs", "mla_apply", "mla_decode", "init_mla_cache", "MLACache"]
+
+MASK_VALUE = -1e30
+
+
+def mla_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": ParamDef((D, H, dq), (FSDP, TP, None)),
+        "wkv_a": ParamDef((D, m.kv_lora_rank + m.qk_rope_head_dim), (FSDP, None)),
+        "kv_norm": ParamDef((m.kv_lora_rank,), (None,), init_value=1.0),
+        "wk_b": ParamDef((m.kv_lora_rank, H, m.qk_nope_head_dim), (None, TP, None)),
+        "wv_b": ParamDef((m.kv_lora_rank, H, m.v_head_dim), (None, TP, None)),
+        "wo": ParamDef((H, m.v_head_dim, D), (TP, None, FSDP)),
+    }
+
+
+def _scale(cfg: ModelConfig) -> float:
+    m = cfg.mla
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., r) @ w (r, H, d) -> (..., H, d): one matmul over the
+    flattened heads."""
+    r, H, d = w.shape
+    return (x @ w.reshape(r, H * d)).view(*x.shape[:-1], H, d)
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor  # (B, S, r) compressed latents (normed)
+    k_pe: torch.Tensor  # (B, S, dr) roped shared key
+
+
+def mla_apply(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # (B, T, D)
+    cfg: ModelConfig,
+    *,
+    collect_cache: bool = False,
+    cache_len: Optional[int] = None,
+):
+    """Expanded-form MLA (prefill), through the flash kernel.
+
+    With ``collect_cache`` also returns the compressed ``(c_kv, k_pe)``
+    cache the absorbed-form decode reads, ``cache_len`` rows long."""
+    m = cfg.mla
+    B, T, D = x.shape
+    H = cfg.n_heads
+    r, dr = m.kv_lora_rank, m.qk_rope_head_dim
+    pos = torch.arange(T, device=x.device)[None, :]
+    q = _heads(x, p["wq"])  # (B, T, H, dq)
+    q_nope, q_pe = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_pe = apply_rope(q_pe, pos, cfg.rope_theta)
+
+    kv_a = x @ p["wkv_a"]  # (B, T, r + dr)
+    c_kv = rms_norm(kv_a[..., :r], p["kv_norm"])
+    k_pe = apply_rope(kv_a[..., r:][:, :, None, :], pos, cfg.rope_theta)
+
+    k_nope = _heads(c_kv, p["wk_b"])  # (B, T, H, nope)
+    v = _heads(c_kv, p["wv_b"])  # (B, T, H, dv)
+    k = torch.cat([k_nope, k_pe.expand(B, T, H, dr)], dim=-1)
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    o = chunked_attention(q_full, k, v, causal=cfg.causal, scale=_scale(cfg))
+    wo = p["wo"]  # (H, dv, D)
+    out = o.reshape(B, T, -1) @ wo.reshape(-1, wo.shape[-1])
+    if not collect_cache:
+        return out
+    pad = (cache_len or T) - T
+    return out, MLACache(c_kv=F.pad(c_kv, (0, 0, 0, pad)),
+                         k_pe=F.pad(k_pe[:, :, 0], (0, 0, 0, pad)))
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
+                   device=None) -> MLACache:
+    """Zero latents on ``device`` (default: the card)."""
+    device = default_device(device)
+    m = cfg.mla
+    return MLACache(
+        c_kv=torch.zeros(batch, seq_len, m.kv_lora_rank, dtype=dtype,
+                         device=device),
+        k_pe=torch.zeros(batch, seq_len, m.qk_rope_head_dim, dtype=dtype,
+                         device=device),
+    )
+
+
+def mla_decode(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # (B, 1, D)
+    cache: MLACache,  # written in place
+    t: int,  # position of x
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, MLACache]:
+    """Absorbed-form decode: attention in the compressed space.  Returns
+    (out (B, 1, D), ``cache``) with row ``t`` written in place.  Raises
+    when the cache is not on x's device."""
+    if cache.c_kv.device != x.device or cache.k_pe.device != x.device:
+        raise ValueError(
+            f"decode on {x.device} but the MLA cache is on {cache.c_kv.device}"
+        )
+    m = cfg.mla
+    B = x.shape[0]
+    r = m.kv_lora_rank
+    pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    q = _heads(x, p["wq"])[:, 0]  # (B, H, dq)
+    q_nope, q_pe = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_pe = apply_rope(q_pe[:, None], pos, cfg.rope_theta)[:, 0]
+
+    kv_a = x @ p["wkv_a"]  # (B, 1, r + dr)
+    cache.c_kv[:, t] = rms_norm(kv_a[..., :r], p["kv_norm"])[:, 0]
+    cache.k_pe[:, t] = apply_rope(kv_a[..., r:][:, :, None, :], pos,
+                                  cfg.rope_theta)[:, 0, 0]
+
+    # Absorb: q_c = q_nope @ wk_b -> (B, H, r); scores over the latents.
+    q_c = torch.einsum("bhk,rhk->bhr", q_nope, p["wk_b"])
+    c_kv = cache.c_kv.float()
+    s = (torch.einsum("bhr,bsr->bhs", q_c.float(), c_kv)
+         + torch.einsum("bhk,bsk->bhs", q_pe.float(), cache.k_pe.float())
+         ) * _scale(cfg)
+    valid = torch.arange(c_kv.shape[1], device=x.device) <= t
+    s = s.masked_fill(~valid, MASK_VALUE)
+    attn = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", attn, c_kv)
+    o = torch.einsum("bhr,rhv->bhv", ctx, p["wv_b"].float())
+    out = torch.einsum("bhv,hvd->bd", o.to(x.dtype), p["wo"])[:, None]
+    return out, cache

@@ -15,8 +15,8 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-__all__ = ["ParamDef", "default_device", "init_params", "stack_defs",
-           "tree_map_defs"]
+__all__ = ["ParamDef", "default_device", "init_params", "leaf_dtype",
+           "stack_defs", "tree_map_defs"]
 
 #: logical axis names used in ParamDef specs (kept for parity, unused)
 TP = "tp"
@@ -58,6 +58,15 @@ def tree_map_defs(fn: Callable[[ParamDef], Any], tree: Any) -> Any:
     raise TypeError(f"not a ParamDef tree node: {type(tree).__name__}")
 
 
+def leaf_dtype(pd: ParamDef, dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The type of leaf ``pd`` when a caller asks for ``dtype`` (None: the
+    leaf's own).  Only the weights take it; a leaf the model declares f32
+    keeps f32, as the reference does."""
+    if dtype is None or pd.dtype == torch.float32:
+        return pd.dtype
+    return dtype
+
+
 def init_params(
     defs: Any,
     generator: torch.Generator,
@@ -69,14 +78,17 @@ def init_params(
     Draws a truncated normal in [-2, 2] standard deviations (then times the
     leaf's scale) from ``generator``, which must live on ``device``; leaves
     are drawn in the reference's leaf order, one after another.  ``dtype``
-    overrides every leaf's own type.  The numbers differ from the
+    overrides the type of the weight leaves (those of the default bf16); a
+    leaf the model declares f32 (the MoE router, RG-LRU's ``lam``,
+    Mamba-2's ``A_log``/``Dskip``/``dt_bias``) stays f32, as in the
+    reference.  The numbers differ from the
     reference's ``jax.random`` draws: carry a reference tree across with
     :func:`repro_torch.models.convert.from_jax_params` to compare.
     """
     device = torch.device(device) if device is not None else generator.device
 
     def draw(pd: ParamDef) -> torch.Tensor:
-        out_dtype = dtype or pd.dtype
+        out_dtype = leaf_dtype(pd, dtype)
         if pd.init_value is not None:
             return torch.full(pd.shape, pd.init_value, dtype=out_dtype,
                               device=device)

@@ -1,6 +1,8 @@
 """Model assembly: frontend → prelude → period body → postlude → final
-norm → unembed, for blocks whose mixer is attention (``attn``/``local``)
-or Mamba-2 SSD (``ssm``) and whose FFN is dense or absent.
+norm → unembed, for blocks whose mixer is attention (``attn``/``local``),
+multi-head latent attention (``mla``), Mamba-2 SSD (``ssm``) or RG-LRU
+(``rglru``) and whose FFN is dense, MoE or absent: every configuration of
+the reference package.
 
 The port of ``repro/models/transformer.py``.  The parameter tree and the
 cache tree keep the reference's layout and names: the repeating block
@@ -8,11 +10,9 @@ pattern is stacked along a leading ``n_periods`` axis (``params["body"]``
 and ``cache["body"]``), so a reference tree converts leaf by leaf and the
 KV pager pages the stacked body cache as one leaf.  The reference scans
 over that axis with ``lax.scan``; here a Python loop indexes it.  Decode
-writes each layer's new K/V row, or its new SSM conv window and state,
-into the stacked cache in place.
-
-The other mixers (``mla``, ``rglru``) and the MoE FFN are not ported yet
-and raise ``NotImplementedError`` (ROADMAP.md, queue A item 9).
+writes each layer's new K/V or latent row, or its new conv window and
+recurrent state, into the stacked cache in place.  ``forward`` returns
+the MoE balance loss summed over the layers, as the reference does.
 """
 
 from __future__ import annotations
@@ -23,20 +23,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import attention, ssm
+from repro_torch.models import attention, mla, moe, rglru, ssm
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import layer_norm, mlp_apply, mlp_defs, rms_norm, softcap
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device, stack_defs
 from repro_torch.models.quant_cache import init_quant_cache
 
 __all__ = ["model_defs", "forward", "logits_fn", "decode_step", "init_cache"]
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: see ROADMAP.md, queue A item 9 "
-        "(remaining mixers and configs)"
-    )
 
 
 # -- defs ---------------------------------------------------------------
@@ -60,18 +53,24 @@ def _norm_apply(p, x, cfg: ModelConfig):
 def _mixer_defs(blk: BlockSpec, cfg: ModelConfig) -> Dict[str, ParamDef]:
     if blk.mixer in ("attn", "local"):
         return attention.attn_defs(cfg)
+    if blk.mixer == "mla":
+        return mla.mla_defs(cfg)
     if blk.mixer == "ssm":
         return ssm.ssm_defs(cfg)
-    raise _unported(f"mixer {blk.mixer!r}")
+    if blk.mixer == "rglru":
+        return rglru.rglru_defs(cfg)
+    raise ValueError(blk.mixer)
 
 
 def _ffn_defs(blk: BlockSpec, cfg: ModelConfig) -> Optional[Dict[str, ParamDef]]:
     if blk.ffn == "dense":
         # encoder-style plain MLP when act is gelu_plain
         return mlp_defs(cfg.d_model, cfg.d_ff, gated=cfg.act != "gelu_plain")
+    if blk.ffn == "moe":
+        return moe.moe_defs(cfg)
     if blk.ffn == "none":
         return None
-    raise _unported(f"ffn {blk.ffn!r}")
+    raise ValueError(blk.ffn)
 
 
 def _block_defs(blk: BlockSpec, cfg: ModelConfig) -> Dict[str, Any]:
@@ -163,32 +162,41 @@ def _mixer_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
             window=blk.window if blk.mixer == "local" else None,
             collect_cache=collect_cache, cache_len=cache_len,
         )
+    elif blk.mixer == "mla":
+        out = mla.mla_apply(p, x, cfg, collect_cache=collect_cache,
+                            cache_len=cache_len)
     elif blk.mixer == "ssm":
         out = ssm.ssm_apply(p, x, cfg, collect_cache=collect_cache)
+    elif blk.mixer == "rglru":
+        out = rglru.rglru_apply(p, x, cfg, collect_cache=collect_cache)
     else:
-        raise _unported(f"mixer {blk.mixer!r}")
+        raise ValueError(blk.mixer)
     return out if collect_cache else (out, None)
 
 
-def _ffn_apply(p, x, blk: BlockSpec, cfg: ModelConfig) -> torch.Tensor:
+def _ffn_apply(p, x, blk: BlockSpec, cfg: ModelConfig):
+    """The FFN's output and its aux loss (None but for MoE)."""
     if blk.ffn == "dense":
         act = "gelu" if cfg.act == "gelu_plain" else cfg.act
-        return mlp_apply(p, x, act)
-    raise _unported(f"ffn {blk.ffn!r}")
+        return mlp_apply(p, x, act), None
+    if blk.ffn == "moe":
+        return moe.moe_apply(p, x, cfg)
+    raise ValueError(blk.ffn)
 
 
 def _finish_block(p, x, h, blk: BlockSpec, cfg: ModelConfig):
     """The residual add of the mixer output ``h``, then the FFN sub-block
-    (prefill and decode alike)."""
+    (prefill and decode alike).  Returns (x, the FFN's aux loss or None)."""
     if cfg.post_block_norm:
         h = _norm_apply(p["post1"], h, cfg)
     x = x + h
+    aux = None
     if blk.ffn != "none":
-        h = _ffn_apply(p["ffn"], _norm_apply(p["norm2"], x, cfg), blk, cfg)
+        h, aux = _ffn_apply(p["ffn"], _norm_apply(p["norm2"], x, cfg), blk, cfg)
         if cfg.post_block_norm:
             h = _norm_apply(p["post2"], h, cfg)
         x = x + h
-    return x
+    return x, aux
 
 
 def _block_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
@@ -197,7 +205,8 @@ def _block_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
         p["mixer"], _norm_apply(p["norm1"], x, cfg), blk, cfg,
         collect_cache, cache_len,
     )
-    return _finish_block(p, x, h, blk, cfg), cache
+    x, aux = _finish_block(p, x, h, blk, cfg)
+    return x, aux, cache
 
 
 def forward(
@@ -210,27 +219,31 @@ def forward(
     """Full-sequence forward.  Returns (hidden (B, T, D), aux loss) or,
     with ``collect_cache`` (prefill), (hidden, aux, cache tree).
     ``cache_len`` reserves decode headroom in the collected caches.  The
-    aux loss is the MoE balance loss, 0 for the dense FFNs ported so far."""
+    aux loss is the MoE balance loss summed over the MoE layers (0 when
+    there are none), in f32."""
     x = _frontend(params, cfg, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, List[Any]] = {"prelude": [], "body": [], "postlude": []}
 
+    def block(p, blk):
+        nonlocal x, aux
+        x, a, c = _block_apply(p, x, blk, cfg, collect_cache, cache_len)
+        if a is not None:
+            aux = aux + a
+        return c
+
     for p, blk in zip(params["prelude"], cfg.prelude):
-        x, c = _block_apply(p, x, blk, cfg, collect_cache, cache_len)
-        caches["prelude"].append(c)
+        caches["prelude"].append(block(p, blk))
 
     body: List[List[Any]] = [[] for _ in cfg.pattern]
     for i in range(cfg.n_periods):
         for j, blk in enumerate(cfg.pattern):
-            x, c = _block_apply(_period(params["body"][j], i), x, blk, cfg,
-                                collect_cache, cache_len)
-            body[j].append(c)
+            body[j].append(block(_period(params["body"][j], i), blk))
     if collect_cache and cfg.n_periods > 0:
         caches["body"] = [_stack(cs) for cs in body]
 
     for p, blk in zip(params["postlude"], cfg.postlude):
-        x, c = _block_apply(p, x, blk, cfg, collect_cache, cache_len)
-        caches["postlude"].append(c)
+        caches["postlude"].append(block(p, blk))
 
     x = _norm_apply(params["final_norm"], x, cfg)
     if collect_cache:
@@ -247,10 +260,14 @@ def logits_fn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _mixer_cache(blk: BlockSpec, cfg: ModelConfig, batch: int, seq_len: int,
                  dtype, quant_attn: bool, device):
+    if blk.mixer == "mla":
+        return mla.init_mla_cache(cfg, batch, seq_len, dtype, device=device)
     if blk.mixer == "ssm":
         return ssm.init_ssm_cache(cfg, batch, dtype, device=device)
+    if blk.mixer == "rglru":
+        return rglru.init_rglru_cache(cfg, batch, dtype, device=device)
     if blk.mixer not in ("attn", "local"):
-        raise _unported(f"mixer {blk.mixer!r}")
+        raise ValueError(blk.mixer)
     window = blk.window if blk.mixer == "local" else None
     if quant_attn:
         return init_quant_cache(cfg, batch, seq_len, window, device=device)
@@ -277,11 +294,15 @@ def _block_decode(p, x, cache, t: int, blk: BlockSpec, cfg: ModelConfig):
     xn = _norm_apply(p["norm1"], x, cfg)
     if blk.mixer in ("attn", "local"):
         h, new_cache = attention.attn_decode(p["mixer"], xn, cache, t, cfg)
+    elif blk.mixer == "mla":
+        h, new_cache = mla.mla_decode(p["mixer"], xn, cache, t, cfg)
     elif blk.mixer == "ssm":
         h, new_cache = ssm.ssm_decode(p["mixer"], xn, cache, cfg)
+    elif blk.mixer == "rglru":
+        h, new_cache = rglru.rglru_decode(p["mixer"], xn, cache, cfg)
     else:
-        raise _unported(f"mixer {blk.mixer!r}")
-    return _finish_block(p, x, h, blk, cfg), new_cache
+        raise ValueError(blk.mixer)
+    return _finish_block(p, x, h, blk, cfg)[0], new_cache
 
 
 def decode_step(

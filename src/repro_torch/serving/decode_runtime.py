@@ -10,9 +10,11 @@ writes back only the dirty blocks.  Dispatch to the int8 path is
 structural: a session that was demoted quantized comes back as
 :class:`QuantAttnCache` leaves, which ``attn_decode`` routes to
 ``quant_decode_attention``; raw sessions take the decode kernel.  The
-prefill runs the flash kernel (the SSD kernel for Mamba-2 blocks, whose
-decode step is the recurrent form and whose conv window and state the
-pager stores whole every step).  Both run on the pager's device: prompts
+prefill runs the flash kernel (the SSD kernel for Mamba-2 blocks).  The
+recurrent mixers (Mamba-2, RG-LRU) decode in their recurrent form, and
+MLA in its absorbed form over the latent cache; the pager stores their
+caches' tensors (conv window and state, latents and rotary keys) whole,
+every step, as the reference does.  Both run on the pager's device: prompts
 and journaled tokens are moved there, and resumed layers are placed there
 by the pager.
 """
@@ -44,9 +46,9 @@ def flatten_cache(cache: Any) -> Tuple[List[Any], Any]:
     reference's pytree order (dict keys sorted, NamedTuple fields in
     order).  Attention caches stay whole (one pager layer each — the
     stacked body caches ride as single leaves with a leading period axis);
-    other NamedTuples (``SSMCache``) are nodes whose bare tensors
-    (recurrent state, conv window) are opaque leaves the pager stores
-    whole.  The structure records each node's type, so
+    other NamedTuples (``SSMCache``, ``RGLRUCache``, ``MLACache``) are
+    nodes whose bare tensors (recurrent state, conv window, latents) are
+    opaque leaves the pager stores whole.  The structure records each node's type, so
     :func:`unflatten_cache` rebuilds a NamedTuple as its own class."""
     layers: List[Any] = []
 

@@ -23,7 +23,8 @@ block), so the hierarchy can place each session independently:
 
 The pager is deliberately ignorant of transformer structure: it pages a
 flat list of per-layer caches (:class:`AttnCache` /
-:class:`QuantAttnCache` / opaque array leaves for recurrent mixers);
+:class:`QuantAttnCache` / opaque array leaves for the recurrent mixers'
+states and MLA's latents);
 ``decode_runtime`` owns the flatten/unflatten against the model's cache
 tree.
 

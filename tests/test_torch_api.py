@@ -1,11 +1,12 @@
-"""The port's façade: device validation, the autoscaler, and the part not
-ported yet (``serving`` over the mixers of later slices).
+"""The port's façade: device validation, the autoscaler, and ``serving``
+over every configuration of the model zoo.
 
 On a machine without CUDA, ``device=True`` is refused unless the caller
 asks for the CPU with ``device_interpret=True``, as the reference refuses
 it off-TPU without interpret mode.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -13,7 +14,7 @@ import repro.api as japi
 from repro_torch.api import ClusterConfig, ConfigError, MarvelClient
 from repro_torch.configs import get_config
 from repro_torch.core.autoscale import Autoscaler, PolicySpec
-from repro_torch.models import reduced_for_smoke
+from repro_torch.models import init_params, model_defs, reduced_for_smoke
 
 
 @pytest.fixture
@@ -46,13 +47,19 @@ def test_interpret_runs_on_the_cpu():
     assert dev.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("method", ["serving"])
-def test_not_ported_yet(method):
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "deepseek-v2-lite-16b",
+                                  "dbrx-132b"])
+def test_serving_takes_the_remaining_mixers(arch):
+    """RG-LRU, MLA and MoE models build a pool whose first conversation
+    prefills and decodes on the CPU."""
+    cfg = reduced_for_smoke(get_config(arch))
+    params = init_params(model_defs(cfg), torch.Generator().manual_seed(0),
+                         "cpu", dtype=torch.float32)
     with MarvelClient(ClusterConfig()) as c:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            # attention and Mamba-2 are ported, MLA not
-            cfg = reduced_for_smoke(get_config("deepseek-v2-lite-16b"))
-            c.serving({}, cfg, prompt_len=4, max_tokens=2, device="cpu")
+        pool = c.serving(params, cfg, prompt_len=4, max_tokens=2, device="cpu")
+        first = pool.start("c0", np.arange(4, dtype=np.int32)[None])
+        assert first.result() is not None
+        assert pool.step("c0").result() is not None
 
 
 def test_autoscaler_is_ported_with_spec_overrides():

@@ -319,10 +319,11 @@ def test_flash_prepared_call_fills_the_kernels_parameter_struct():
     assert (p.q_sb, p.q_st, p.q_sh) == q.stride()[:3]
     assert (p.k_sb, p.k_st, p.k_sh) == k.stride()[:3]
     assert (p.o_sb, p.o_st, p.o_sh) == (100 * 8 * 128, 8 * 128, 128)
-    assert (p.dtype, p.B, p.Tq, p.Tk, p.H, p.Kv, p.dh) == (1, 2, 100, 120, 8, 2, 128)
+    assert (p.dtype, p.B, p.Tq, p.Tk, p.H, p.Kv, p.dh, p.dv) == \
+        (1, 2, 100, 120, 8, 2, 128, 128)
     assert (p.causal, p.window, p.block_q, p.block_k) == (0, 7, 128, 64)
     assert (p.scale, p.softcap) == (0.25, 30.0)
-    assert call.address == ctypes.addressof(p) and ctypes.sizeof(p) == 152
+    assert call.address == ctypes.addressof(p) and ctypes.sizeof(p) == 160
 
 
 # -- the decode kernel's plan, its prepared call and P's rounding -------------

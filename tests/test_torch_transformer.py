@@ -222,12 +222,75 @@ def test_from_jax_params_checks_shapes():
         from_jax_params(jp, cfg, "cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "dbrx-132b",
-                                  "recurrentgemma-9b"])
-def test_mixers_of_later_slices_raise(arch):
+def _cache_leaves(tree):
+    """A port cache tree's tensors in the reference's pytree order (dict
+    keys sorted, NamedTuple fields in order)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _cache_leaves(tree[k])]
+    return [t for v in tree for t in _cache_leaves(v)]
+
+
+@pytest.mark.parametrize("arch,window", [
+    # RG-LRU blocks beside local attention whose window is cut so that the
+    # ring cache wraps, as gemma2-9b's cases do
+    pytest.param("recurrentgemma-9b", 3, id="recurrentgemma-9b-window3"),
+    pytest.param("recurrentgemma-9b", 5, id="recurrentgemma-9b-window5"),
+    # MLA with a dense first layer, then MoE layers with a shared expert
+    pytest.param("deepseek-v2-lite-16b", None, id="deepseek-v2-lite-16b"),
+    # GQA attention with MoE layers
+    pytest.param("dbrx-132b", None, id="dbrx-132b"),
+])
+def test_remaining_mixers_match_reference(arch, window):
+    """Prefill and teacher-forced decode logits, the MoE aux loss and every
+    cache leaf against the reference, 1e-4 with f32 weights."""
+    jcfg, cfg = _cfgs(arch)
+    if window is not None:
+        jcfg, cfg = _windowed(jcfg, window), _windowed(cfg, window)
+    jp, tp = _params(jcfg, cfg, "float32")
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab, (2, TOTAL)).astype(np.int32)
+    jl, tl, jc, tc = _run_both(jcfg, cfg, jp, tp, tokens)
+    for j, t in zip(jl, tl):
+        np.testing.assert_allclose(t.numpy(), j, atol=1e-4, rtol=1e-4)
+    jleaves, tleaves = jax.tree_util.tree_leaves(jc), _cache_leaves(tc)
+    assert len(tleaves) == len(jleaves)
+    for j, t in zip(jleaves, tleaves):
+        assert tuple(t.shape) == j.shape
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                                   atol=1e-4, rtol=1e-4)
+    shape = ShapeConfig(name="t", kind="prefill", seq_len=TOTAL, global_batch=2,
+                        q_chunk=4, kv_chunk=4, remat="none")
+    _, jaux = jforward(jp, jcfg, {"tokens": jnp.asarray(tokens)}, shape)
+    _, aux = forward(tp, cfg, {"tokens": torch.from_numpy(tokens)})
+    assert aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(jaux), atol=1e-4, rtol=1e-4)
+    assert (float(aux) > 0) == (cfg.moe is not None)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "deepseek-v2-lite-16b",
+                                  "dbrx-132b"])
+def test_decode_matches_teacher_forced_forward(arch):
+    """The port alone: decode from an empty cache gives the logits of one
+    forward pass over the same tokens (the recurrent and absorbed forms
+    against the scan and the expanded form), 1e-4 in f32.  MoE runs at
+    capacity factor 8, as the reference's own test does: a 16-token
+    forward drops entries that a one-token step keeps."""
     _, cfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_defs(cfg)
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=8.0))
+    tp = init_params(model_defs(cfg), torch.Generator().manual_seed(1), "cpu",
+                     dtype=torch.float32)
+    T = 16
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, T)).astype(np.int32))
+    h, _ = forward(tp, cfg, {"tokens": tokens})
+    full = logits_fn(tp, cfg, h)
+    cache = init_cache(cfg, 2, T, dtype=torch.float32, device="cpu")
+    for t in range(T):
+        lg, cache = decode_step(tp, cfg, tokens[:, t:t + 1], cache, t)
+        np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(), atol=1e-4,
+                                   rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "gemma2-9b", "hubert-xlarge",
