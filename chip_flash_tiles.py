@@ -141,7 +141,7 @@ def main() -> int:
         lib_path, regs, spilled = build(text, f"variant{i}", _build._nvcc(),
                                         _build.NVCC_FLAGS)
         fn = ctypes.CDLL(str(lib_path)).flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 6
+        fn.argtypes = [ctypes.c_void_p] * 7
         fn.restype = ctypes.c_int
         params = fa._Params.from_buffer_copy(call.params)
         params.block_q = block_q
@@ -149,7 +149,7 @@ def main() -> int:
         def run():
             out = q.new_empty(q.shape)
             err = fn(ctypes.addressof(params), q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), out.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), None,  # no lse
                      torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"{name}: launch failed ({err})")

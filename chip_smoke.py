@@ -138,7 +138,34 @@ another sm_90a card).  It builds the port's CUDA kernels from
    over 8, 16 experts top-4 of 10752; 7.7 B parameters): one 1024-token
    prefill, 8 greedy decode steps, its routing as in 12, decode against
    prefill at capacity factor 8 in f32, and a profile of the bare step;
-14. prints a ``kernels`` JSON line: each kernel's launches on its path
+   then times flash and decode at its shapes on seeded inputs;
+14. training, last: holds the flash forward's log-sum-exp and the flash
+   backward kernel (``csrc/flash_attention_bwd.cu``) against their plain
+   versions in f32 (relative L2 of dq, dk, dv <= 2e-2 for bf16/f16, 1e-4
+   for f32), every case run twice for the same bits: the training shape
+   (B=1, T=4096, H=16, Kv=2, dh 128, causal, bf16), dh 64 and 256 over
+   one kv head, rep 1 not causal, gemma2-9b's softcap 50 and window 4096
+   over 4160 tokens, T=1000, f32, and f16 with a window; times the
+   backward at the training shape (event and device ms) beside SDPA's
+   forward and backward, the plain version and its bound, and the
+   forward at T=4096; then ``loss.backward()`` of qwen2.5-3b at full
+   width cut to 2 layers (one sequence of 1024, f32, remat "full")
+   through the kernels and through the plain versions, each parameter's
+   gradient within relative L2 1e-3; then trains qwen2.5-3b at full width
+   (36 layers, f32 masters, bf16 compute, 4 sequences of 4096 tokens in 4
+   microbatches a step, remat "full", AdamW lr 3e-4) for 6 steps through
+   ``make_train_step``: every loss and grad norm finite, the last loss
+   below the first, the forward and backward kernels launched 288 and
+   144 times a step, no plain version reached; it prints each step's
+   loss, grad norm, ms and tokens/s, the peak memory, one profiled
+   step's device ms split into GEMMs, flash forward and backward and the
+   rest, AdamW's and the loss's ms; then the training loop of
+   ``launch.train`` (``train``) over the model cut to 2 layers, straight
+   through 4 steps and again with a checkpoint to a PMEM tier at step 2
+   and a crash at step 3: the replayed losses must equal the
+   uninterrupted run's (checkpoint bytes, staging, drain and restore
+   times printed);
+15. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
@@ -148,8 +175,11 @@ another sm_90a card).  It builds the port's CUDA kernels from
    the histogram, flash and decode; flash and decode also carry their
    launches on phase 8's path and on phases 11-13's, and their times at
    those paths' shapes: flash at recurrentgemma's local and deepseek's
-   MLA prefill, decode at recurrentgemma's ring), since an event-timed ``ms`` includes
-   the wrapper's host time.  Decode and SSD must make one launch a call, of
+   MLA prefill, dbrx's and the training shape, decode at recurrentgemma's
+   ring and dbrx's), since an event-timed ``ms`` includes
+   the wrapper's host time.  The ``flash_attention_bwd`` row counts its
+   launches on the training path and carries SDPA's forward and backward
+   as its library time.  Decode and SSD must make one launch a call, of
    their own kernel.
 
 The build prints ptxas's registers, shared memory and spills for every
@@ -2452,6 +2482,495 @@ def phase_moe_model(dev, seed: int, cfg, prompt_len: int, steps: int) -> dict:
     return launches
 
 
+# -- phases 14-17: training at full qwen2.5-3b width ----------------------------
+
+TRAIN_MODEL = "qwen2.5-3b"  # full width: 36 layers, d_model 2048, 3.40 B parameters
+TRAIN_SEQ = 4096  # the reference's train_4k length
+TRAIN_BATCH = 4  # train_4k's global batch of 256 in 8 microbatches, cut to 4 in 4
+TRAIN_MICROBATCHES = 4
+TRAIN_STEPS = 6
+#: AdamW's rate.  3e-3 (the reference launcher's default, sized for its
+#: reduced models) diverges at full width: AdamW's first steps move every
+#: weight by about the rate, and the loss rose from 12.33 to 13.61 over 6
+#: steps (PERF.md §6); 3e-4 is the optimizer's own default
+TRAIN_LR = 3e-4
+GRAD_LAYERS = 2  # the whole-model gradient check: full width, 2 layers
+GRAD_SEQ = 1024
+GRAD_TOL = 1e-3  # relative L2 per parameter, kernels against plain versions, f32
+CRASH_LAYERS = 2  # crash and restore: full width, 2 layers (see phase_crash_restore)
+CRASH_SEQ = 1024
+CRASH_STEPS, CRASH_EVERY, CRASH_AT = 4, 2, 3
+#: the backward kernel against its plain version (run in f32): relative L2
+#: of dq, dk, dv; the bf16/f16 limit is the forward's
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+class BwdRecord:
+    """Checks of the backward kernel: its largest relative L2 and absolute
+    errors against the plain version run in f32, and the cases checked."""
+
+    def __init__(self) -> None:
+        self.max_rel_l2 = 0.0
+        self.max_abs_err = 0.0
+        self.checks = 0
+
+
+def bwd_case(rec: BwdRecord, case: str, q, k, v, do, **kw) -> None:
+    """The forward kernel's lse and the backward kernel's dq, dk, dv
+    against the plain versions in f32 on the same inputs, each call made
+    twice: the same bits both times."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    o2, lse2 = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    got = fb.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = fb.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    check(torch.equal(o, o2) and torch.equal(lse, lse2)
+          and all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention_bwd {case}: two calls on the same inputs differ")
+    _, lse_want = fa.flash_attention_torch(q.float(), k.float(), v.float(),
+                                           return_lse=True, **kw)
+    lse_err = float((lse - lse_want).abs().max())
+    check(lse_err <= LSE_TOL[q.dtype], f"flash lse {case}: max abs err {lse_err}")
+    want = fb.flash_attention_bwd_torch(q.float(), k.float(), v.float(), o.float(),
+                                        do.float(), lse, **kw)
+    rels, abss = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.dtype == q.dtype and g.shape == w.shape
+              and bool(torch.isfinite(g.float()).all()),
+              f"flash_attention_bwd {case}: {name} {g.dtype} {tuple(g.shape)}")
+        rels[name] = _rel_l2(g, w)
+        abss[name] = float((g.float() - w.float()).abs().max())
+        check(rels[name] <= BWD_TOL[q.dtype],
+              f"flash_attention_bwd {case}: {name} relative L2 {rels[name]}")
+    rec.max_rel_l2 = max(rec.max_rel_l2, *rels.values())
+    rec.max_abs_err = max(rec.max_abs_err, *abss.values())
+    rec.checks += 1
+    emit("flash_bwd_case", case=case, shape=list(q.shape), kv_heads=k.shape[2],
+         dtype=str(q.dtype), rel_l2=rels, max_abs_err=abss, lse_max_abs_err=lse_err,
+         tol=BWD_TOL[q.dtype], bit_identical_rerun=True, ok=True,
+         **{k_: v_ for k_, v_ in kw.items() if v_ is not None})
+
+
+def phase_flash_backward(dev, seed: int, rec: BwdRecord):
+    """The backward kernel's cases; returns the training shape's inputs."""
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(B, T, H, Kv, dh, dtype):
+        q, k, v = flash_inputs(g, dev, B, T, H, Kv, dh, dtype)
+        return q, k, v, _randn(g, (B, T, H, dh), dtype, dev)
+
+    train = inputs(1, TRAIN_SEQ, 16, 2, 128, bf16)
+    bwd_case(rec, "train_shape", *train, causal=True)
+    bwd_case(rec, "dh64_kv1", *inputs(1, 1024, 16, 1, 64, bf16), causal=True)
+    bwd_case(rec, "dh256_kv1", *inputs(1, 1024, 16, 1, 256, bf16), causal=True)
+    bwd_case(rec, "rep1_full", *inputs(1, 1024, 16, 16, 128, bf16), causal=False)
+    # gemma2-9b's attention: 16 heads of 256 over 8, softcap 50, window
+    # 4096, over 4160 tokens so that the window masks
+    bwd_case(rec, "gemma2_softcap_window", *inputs(1, 4160, 16, 8, 256, bf16),
+             causal=True, softcap=50.0, window=4096)
+    bwd_case(rec, "ragged_T1000", *inputs(1, 1000, 16, 2, 128, bf16), causal=True)
+    bwd_case(rec, "f32_route", *inputs(1, 1024, 16, 2, 128, f32), causal=True)
+    bwd_case(rec, "f16_ragged", *inputs(2, 333, 8, 2, 64, torch.float16), causal=True,
+             window=100)
+    return train
+
+
+class _PlainFlash(torch.autograd.Function):
+    """Attention through the plain versions of both kernels, for the
+    whole-model gradient check."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, softcap, window):
+        from repro_torch.kernels import flash_attention as fa
+
+        ctx.kw = dict(causal=causal, scale=scale, softcap=softcap, window=window)
+        o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **ctx.kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels import flash_attention_bwd as fb
+
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*fb.flash_attention_bwd_torch(q, k, v, o, do, lse, **ctx.kw),
+                None, None, None, None)
+
+
+def phase_grad_check(dev, seed: int) -> dict:
+    """``loss.backward()`` of qwen2.5-3b at full width cut to 2 layers, one
+    sequence of 1024, f32, remat "full": through the kernels, then through
+    the plain versions of both (``_PlainFlash`` in place of the
+    wrapper); every parameter's gradient held to relative L2 GRAD_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import autograd_leaves
+    from repro_torch.models import forward
+    from repro_torch.models.layers import chunked_ce_loss
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = replace(get_config(TRAIN_MODEL), n_periods=GRAD_LAYERS)
+    params = draw_params(cfg, seed, dev)
+    _to_f32_in_place(params, dev)
+    batch = make_batch(PipelineConfig(vocab=cfg.vocab, seq_len=GRAD_SEQ,
+                                      global_batch=1), 0)
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    labels = torch.from_numpy(batch["labels"]).to(dev)
+
+    def grads():
+        buf = tree_map(torch.zeros_like, params)
+        leaves = autograd_leaves(params, buf)
+        h, aux = forward(leaves, cfg, {"tokens": tokens}, remat="full")
+        loss, _ = chunked_ce_loss(h, leaves["unembed"], labels, t_chunk=512)
+        (loss + 0.01 * aux).backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), tree_leaves(buf)
+
+    fa.launches = fb.launches = 0
+    loss_k, grads_k = grads()
+    launches = {"flash_attention": fa.launches, "flash_attention_bwd": fb.launches}
+    check(launches == {"flash_attention": 2 * GRAD_LAYERS,
+                       "flash_attention_bwd": GRAD_LAYERS},
+          f"gradient check: launches {launches} for {GRAD_LAYERS} layers under "
+          "remat full")
+    kernel_fn = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, causal=True, scale=None, softcap=None, \
+        window=None: _PlainFlash.apply(q, k, v, causal, scale, softcap, window)
+    try:
+        loss_p, grads_p = grads()
+    finally:
+        ops.flash_attention = kernel_fn
+    check(fa.launches == 2 * GRAD_LAYERS and fb.launches == GRAD_LAYERS,
+          "the plain pass launched a kernel")
+    rels = [_rel_l2(a, b) for a, b in zip(grads_k, grads_p)]
+    worst = max(rels)
+    check(all(math.isfinite(r) for r in rels) and worst <= GRAD_TOL,
+          f"gradient check: worst relative L2 {worst} > {GRAD_TOL}")
+    out = {"layers": GRAD_LAYERS, "seq": GRAD_SEQ, "dtype": "float32",
+           "loss_kernels": loss_k, "loss_plain": loss_p, "leaves": len(rels),
+           "worst_rel_l2": worst, "median_rel_l2": statistics.median(rels),
+           "tol": GRAD_TOL, **launches}
+    emit("train_grad_check", **out)
+    del params, grads_k, grads_p
+    free_card()
+    return out
+
+
+def _host_memory() -> dict:
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                info[key] = int(value.split()[0]) * 1024
+    return info
+
+
+class _NoPlain:
+    """Within it, a call of either kernel's plain version fails: on the
+    card every gradient path must run the kernels."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import flash_attention_bwd as fb
+
+        def refuse(*a, **k):
+            raise SmokeError("a plain attention version ran on the training path")
+
+        self.saved = (fa.flash_attention_torch, fb.flash_attention_bwd_torch)
+        fa.flash_attention_torch = fb.flash_attention_bwd_torch = refuse
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import flash_attention_bwd as fb
+
+        fa.flash_attention_torch, fb.flash_attention_bwd_torch = self.saved
+        return False
+
+
+GEMM_KEYS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
+FLASH_FWD_KEYS = ("flash_wgmma_kernel", "flash_f32_kernel")
+#: the backward's kernels live in the namespace ``fa_bwd`` (its four
+#: names alone would also match PyTorch's ``at::native::reduce_kernel``)
+FLASH_BWD_KEYS = ("fa_bwd::",)
+FLASH_BWD_KERNELS_PER_CALL = 4  # delta, dk/dv, dq, the group's reduce
+
+
+def _split_device_ms(events) -> dict:
+    """Device ms of a profiled window by kernel class: GEMMs, the flash
+    forward and backward kernels, everything else."""
+    split = {"gemm": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0, "other": 0.0}
+    counts = dict.fromkeys(split, 0)
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        cls = ("flash_fwd" if any(k in e.key for k in FLASH_FWD_KEYS) else
+               "flash_bwd" if any(k in e.key for k in FLASH_BWD_KEYS) else
+               "gemm" if any(k in name for k in GEMM_KEYS) else "other")
+        split[cls] += e.self_device_time_total / 1e3
+        counts[cls] += e.count
+    return {"ms": split, "kernels": counts, "total_ms": sum(split.values())}
+
+
+def phase_training(dev, seed: int) -> dict:
+    """qwen2.5-3b at full width, all 36 layers: TRAIN_STEPS AdamW steps of
+    TRAIN_BATCH sequences of TRAIN_SEQ tokens in TRAIN_MICROBATCHES
+    microbatches, remat "full", f32 masters, bf16 compute, through
+    ``make_train_step``.  Returns the kernels' launches on the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import ShapeConfig
+    from repro_torch.models.layers import chunked_ce_loss
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_MODEL)
+    params = draw_params(cfg, seed, dev)
+    _to_f32_in_place(params, dev)
+    opt = adamw_init(params)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    shape = ShapeConfig(name="train_4k_cut", kind="train", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, microbatches=TRAIN_MICROBATCHES,
+                        q_chunk=512, kv_chunk=1024, loss_chunk=512, remat="full")
+    step_fn = make_train_step(cfg, shape, AdamWConfig(lr=TRAIN_LR, weight_decay=0.0),
+                              device=dev)
+    pipe = PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    emit("train_setup", model=cfg.name, layers=cfg.n_layers, params=n_params,
+         state_bytes=12 * n_params, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+         microbatches=TRAIN_MICROBATCHES, remat=shape.remat, lr=TRAIN_LR,
+         setup_s=time.perf_counter() - t0,
+         allocated_bytes=torch.cuda.memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, per_step = [], [], []
+    with _NoPlain():
+        fa.launches = fb.launches = 0  # the training path starts here
+        for step in range(TRAIN_STEPS):
+            before = (fa.launches, fb.launches)
+            t = time.perf_counter()
+            params, opt, m = step_fn(params, opt, make_batch(pipe, step))
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            dt = time.perf_counter() - t
+            losses.append(loss)
+            norms.append(gnorm)
+            per_step.append((fa.launches - before[0], fb.launches - before[1]))
+            emit("train_step", step=step + 1, loss=loss, grad_norm=gnorm,
+                 step_ms=dt * 1e3, tokens=int(m["tokens"]),
+                 tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / dt,
+                 flash_launches=per_step[-1][0], flash_bwd_launches=per_step[-1][1])
+        launches = {"flash_attention": fa.launches, "flash_attention_bwd": fb.launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"training: non-finite loss or grad norm {losses} {norms}")
+    check(losses[-1] < losses[0], f"training: last loss {losses[-1]} not below "
+          f"the first {losses[0]}")
+    want = (2 * cfg.n_layers * TRAIN_MICROBATCHES, cfg.n_layers * TRAIN_MICROBATCHES)
+    check(all(s == want for s in per_step),
+          f"training: launches a step {per_step}, want {want} (forward and "
+          "remat recompute; backward)")
+    # one more step under the profiler: device ms by kernel class, each
+    # flash class's kernel records held to the wrappers' launches
+    before = (fa.launches, fb.launches)
+    events, lost = traced(lambda: step_fn(params, opt, make_batch(pipe, TRAIN_STEPS)))
+    traced_launches = (fa.launches - before[0], fb.launches - before[1])
+    split = _split_device_ms(events)
+    check(traced_launches == per_step[0]
+          and split["kernels"]["flash_fwd"] == traced_launches[0]
+          and split["kernels"]["flash_bwd"]
+          == FLASH_BWD_KERNELS_PER_CALL * traced_launches[1],
+          f"the profiled step's flash kernel records {split['kernels']} do not "
+          f"match its launches {traced_launches} (forward; backward, "
+          f"{FLASH_BWD_KERNELS_PER_CALL} kernels each)")
+    # AdamW over the whole state, and the loss of one microbatch, alone
+    grads = tree_map(torch.zeros_like, params)
+    adamw_ms = time_ms(lambda: adamw_update(params, grads, opt,
+                                            AdamWConfig(lr=0.0, weight_decay=0.0)),
+                       reps=3, warmup=1)
+    del grads
+    h = torch.randn(TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, cfg.d_model,
+                    device=dev, dtype=torch.bfloat16, requires_grad=True)
+    unembed = params["unembed"].to(torch.bfloat16).requires_grad_()
+    labels = torch.from_numpy(make_batch(pipe, 0)["labels"][:1]).to(dev)
+    loss_ms = time_ms(lambda: chunked_ce_loss(h, unembed, labels, t_chunk=512)[0]
+                      .backward(), reps=3, warmup=1)
+    out = {"losses": losses, "grad_norms": norms, "launches": launches,
+           "launches_per_step": {"flash_attention": per_step[0][0],
+                                 "flash_attention_bwd": per_step[0][1]},
+           "launches_each_step": per_step,
+           "peak_allocated_bytes": peak, "profiled_step": split,
+           "profile_lost": lost, "adamw_ms": adamw_ms,
+           "loss_fwd_bwd_ms_per_microbatch": loss_ms}
+    emit("train_run", **out)
+    del params, opt, step_fn, h, unembed
+    free_card()
+    return out
+
+
+def measure_flash_bwd(q, k, v, do, kw) -> dict:
+    """The backward kernel at the training shape: event-timed ms (with the
+    wrapper's host time) and device ms, beside the plain version, SDPA's
+    forward and backward (``enable_gqa``), and the bound: 5 products of
+    2·dh operations over each causal (row, key) pair at the bf16 peak,
+    against q, k, v, o, do and lse read once and dq, dk, dv written once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    B, T, H, dh = q.shape
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    bwd = lambda: fb.flash_attention_bwd(q, k, v, o, do, lse, **kw)  # noqa: E731
+    kernel_ms = time_ms(bwd)
+    dev_ms, per_call, names, lost = device_profile(bwd)
+    fwd_bwd_ms = time_ms(lambda: (fa.flash_attention(q, k, v, return_lse=True, **kw),
+                                  bwd()))
+    plain_ms = time_ms(lambda: fb.flash_attention_bwd_torch(
+        q, k, v, o, do, lse, **kw), reps=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=kw["causal"],
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    library_ms = library_device = library_fwd_ms = None
+    try:
+        sdpa()
+    except RuntimeError as exc:  # a yardstick only: record the refusal
+        emit("flash_bwd_library_refused", error=str(exc)[:160])
+    else:
+        library_ms, library_device = time_ms(sdpa), device_ms(sdpa)
+        with torch.no_grad():
+            library_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=kw["causal"], enable_gqa=True))
+    pairs = T * (T + 1) // 2 if kw["causal"] else T * T
+    flops = 5 * 2 * dh * pairs * B * H
+    # q, o, do read and dq written; k, v read and dk, dv written; lse read
+    nbytes = q.element_size() * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bytes_ms = bytes_bound_ms(nbytes)
+    return {
+        "shape": {"B": B, "T": T, "H": H, "Kv": k.shape[2], "dh": dh,
+                  "causal": kw["causal"], "dtype": str(q.dtype)},
+        "kernel_route": "cuda_cores_f32",
+        "kernel_ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "fwd_bwd_ms": fwd_bwd_ms, "library_ms": library_ms,
+        "library_device_ms": library_device, "library_fwd_ms": library_fwd_ms,
+        "launches_per_call": per_call, "kernels_seen": sorted(names),
+        "window_lost": lost, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+def phase_crash_restore(dev, seed: int, workdir: Path) -> dict:
+    """The training loop of ``launch.train`` (``train``) over qwen2.5-3b at full
+    width cut to CRASH_LAYERS layers, twice from the same weights: straight
+    through CRASH_STEPS steps, and with a checkpoint every CRASH_EVERY steps
+    to a PMEM tier and a crash at CRASH_AT that drops the device state,
+    restores the newest durable checkpoint and replays from it.  The
+    replayed losses must equal the uninterrupted run's, bit for bit.
+
+    Depth is cut because a checkpoint is staged in host memory, serialized
+    (a second host copy), hashed and written, and read and hashed again on
+    restore: at 36 layers that is 40.8 GB a checkpoint (f32 parameters and
+    both moments), several times this phase's share of the time limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import ShapeConfig, model_defs
+    from repro_torch.models.param import tree_map_defs
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.storage import CheckpointManager, PmemTier
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(TRAIN_MODEL)
+    full_params = sum(math.prod(pd.shape) for pd in tree_leaves(
+        tree_map_defs(lambda pd: pd, model_defs(full))))
+    cfg = replace(full, n_periods=CRASH_LAYERS)
+    shape = ShapeConfig(name="crash", kind="train", seq_len=CRASH_SEQ,
+                        global_batch=1, microbatches=1, loss_chunk=512,
+                        remat="full")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, weight_decay=0.0)
+    emit("crash_setup", model=cfg.name, layers=cfg.n_layers, seq=CRASH_SEQ,
+         host_memory=_host_memory(), full_depth_state_bytes=12 * full_params,
+         disk_free_bytes=shutil.disk_usage(workdir).free)
+    runs = {}
+    for name, fail_at, every in (("clean", None, 10 ** 9),
+                                 ("crash", CRASH_AT, CRASH_EVERY)):
+        params = draw_params(cfg, seed, dev)
+        _to_f32_in_place(params, dev)
+        ckpt = CheckpointManager(PmemTier(str(workdir / name)), f"train/{cfg.name}",
+                                 keep=1)
+        t0 = time.perf_counter()
+        try:
+            out = train(cfg, shape, opt_cfg, ckpt, steps=CRASH_STEPS,
+                        checkpoint_every=every, fail_at=fail_at, device=dev,
+                        params=params, log=lambda s: None)
+        finally:
+            ckpt.close()
+        runs[name] = {"history": out["history"], "saves": out["saves"],
+                      "restores": out["restores"], "s": time.perf_counter() - t0}
+        del out, params
+        free_card()
+    clean = [(h["step"], h["loss"]) for h in runs["clean"]["history"]]
+    crash = [(h["step"], h["loss"]) for h in runs["crash"]["history"]]
+    replay = crash[CRASH_AT:]
+    check([s for s, _ in crash] == [1, 2, 3, 3, 4],
+          f"crash run stepped {[s for s, _ in crash]}")
+    check(crash[:CRASH_AT] == clean[:CRASH_AT] and replay == clean[CRASH_EVERY:],
+          f"replayed losses {replay} differ from the uninterrupted run's "
+          f"{clean[CRASH_EVERY:]}")
+    saves = runs["crash"]["saves"]
+    out = {"layers": CRASH_LAYERS, "clean_losses": [x for _, x in clean],
+           "replayed_losses": [x for _, x in replay], "equal": True,
+           "restored_from_step": runs["crash"]["restores"][0]["step"],
+           "checkpoint_bytes": saves[0].nbytes,
+           "staging_ms": [s.wall_time * 1e3 for s in saves],
+           "drain_s": [s.drain_time for s in saves],
+           "restore_s": runs["crash"]["restores"][0]["restore_s"],
+           "run_s": {k: v["s"] for k, v in runs.items()}}
+    emit("crash_restore", **out)
+    return out
+
+
+def dbrx_path_shapes(dev, seed: int, cfg, prompt_len: int, steps: int) -> tuple:
+    """Flash and decode timed at phase 13's shapes (dbrx-132b: 48 heads
+    over 8 of 128; a prompt of ``prompt_len``, then a cache of ``prompt_len
+    + steps`` rows at length ``prompt_len + 1``), on seeded inputs."""
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    H, Kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = flash_inputs(g, dev, 1, prompt_len, H, Kv, dh, torch.bfloat16)
+    flash = measure_flash(q, k, v, {"causal": True})
+    S = prompt_len + steps
+    dq = _randn(g, (1, H, dh), torch.bfloat16, dev)
+    kc = _randn(g, (1, S, Kv, dh), torch.bfloat16, dev)
+    vc = _randn(g, (1, S, Kv, dh), torch.bfloat16, dev)
+    lengths = torch.tensor([prompt_len + 1], dtype=torch.int32, device=dev)
+    decode = measure_decode(dq, kc, vc, lengths)
+    emit("flash_dbrx_path_shape", **flash)
+    emit("decode_dbrx_path_shape", **decode)
+    return flash, decode
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, torch.Tensor):
         return fn(tree)
@@ -2633,8 +3152,31 @@ def main(argv=None) -> int:
     moe_launches = phase_moe_model(
         dev, args.seed, replace(get_config(MOE_MODEL), n_periods=MOE_LAYERS),
         MIXER_PROMPT, MOE_STEPS)
+    dbrx_flash, dbrx_decode = dbrx_path_shapes(
+        dev, args.seed, get_config(MOE_MODEL), MIXER_PROMPT, MOE_STEPS)
     free_card()
     emit("phase_done", name="dbrx", s=time.perf_counter() - t0)
+
+    # training: the backward kernel, whole-model gradients, full-width
+    # steps, crash and restore
+    bwd_rec = BwdRecord()
+    t0 = time.perf_counter()
+    tq, tk, tv, tdo = phase_flash_backward(dev, args.seed, bwd_rec)
+    bwd_shape = measure_flash_bwd(tq, tk, tv, tdo, {"causal": True})
+    emit("flash_bwd_train_shape", **bwd_shape)
+    flash_train_shape = measure_flash(tq, tk, tv, {"causal": True})
+    emit("flash_train_path_shape", **flash_train_shape)
+    del tq, tk, tv, tdo
+    free_card()
+    emit("phase_done", name="flash_backward", s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_grad_check(dev, args.seed)
+    train_out = phase_training(dev, args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        phase_crash_restore(dev, args.seed, Path(workdir))
+    free_card()
+    emit("phase_done", name="training", s=time.perf_counter() - t0)
+    train_launches = train_out["launches"]
 
     def path_row(m, launches):
         return {"shape": m["shape"], "launches": launches, "ms": m["kernel_ms"],
@@ -2680,7 +3222,24 @@ def main(argv=None) -> int:
              "recurrentgemma-9b_local": path_row(
                  local_shape, rg_launches["flash_attention"]),
              "deepseek-v2-lite-16b_mla": path_row(
-                 mla_shape, mla_launches["flash_attention"])}},
+                 mla_shape, mla_launches["flash_attention"]),
+             "dbrx-132b_2_layers": path_row(
+                 dbrx_flash, moe_launches["flash_attention"]),
+             "qwen2.5-3b_train_4k": path_row(
+                 flash_train_shape, train_launches["flash_attention"])},
+         "training_launches": train_launches["flash_attention"]},
+        {**row("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+               "jax.vjp of src/repro/models/layers.py:112 chunked_attention",
+               train_launches["flash_attention_bwd"], bwd_rec.max_abs_err,
+               bwd_rec.checks, bwd_shape, bwd_shape["shape"]),
+         "kernel_route": bwd_shape["kernel_route"],
+         "device_ms": bwd_shape["device_ms"],
+         "library_device_ms": bwd_shape["library_device_ms"],
+         "library": "scaled_dot_product_attention forward + backward",
+         "library_fwd_ms": bwd_shape["library_fwd_ms"],
+         "fwd_bwd_ms": bwd_shape["fwd_bwd_ms"],
+         "max_rel_l2": bwd_rec.max_rel_l2,
+         "launches_per_step": train_out["launches_per_step"]["flash_attention_bwd"]},
         {**row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                "src/repro/kernels/decode_attention.py:127",
                serve_launches["decode_attention"], decode_rec.max_abs_err,
@@ -2694,7 +3253,9 @@ def main(argv=None) -> int:
              "dbrx-132b_2_layers": moe_launches["decode_attention"]},
          "path_shapes": {
              "recurrentgemma-9b_ring": path_row(
-                 ring_shape, rg_launches["decode_attention"])}},
+                 ring_shape, rg_launches["decode_attention"]),
+             "dbrx-132b_2_layers": path_row(
+                 dbrx_decode, moe_launches["decode_attention"])}},
         {**row("ssd_chunk", "src/repro_torch/csrc/ssd_scan.cu",
                "src/repro/kernels/ssd_scan.py:80", ssd_launches,
                ssd_rec.max_abs_err, ssd_rec.checks, ssd_shape,

@@ -106,6 +106,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Tq) f32 log-sum-exp of each row's scores; null: off
   int64_t q_sb, q_st, q_sh;  // element strides: batch, token, head
   int64_t k_sb, k_st, k_sh;
   int64_t v_sb, v_st, v_sh;
@@ -300,6 +301,13 @@ __global__ void __launch_bounds__(kF32Threads)
         o[row * a.o_st + lane + 32 * cc] = acc[r][cc] / l;
       }
     }
+  }
+  // lse = m + log(l); a row that saw no key gets +inf (its weights are 0)
+  if (a.lse != nullptr && lane < ROWS_W) {
+    const int row = q0 + warp * ROWS_W + lane;
+    if (row < a.Tq)
+      a.lse[(static_cast<int64_t>(b) * a.H + h) * a.Tq + row] =
+          l_row > 0.f ? m_row + logf(l_row) : INFINITY;
   }
 }
 
@@ -787,6 +795,16 @@ __global__ void __launch_bounds__(TcLayout<DQK, DV, NC>::THREADS, 1)
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // lse = (m + log2 l) ln 2, m the running max in the log2 domain; a row
+  // that saw no key gets +inf (its weights are 0)
+  if (a.lse != nullptr && lane % 4 == 0) {
+    float* lrow = a.lse + (static_cast<int64_t>(b) * a.H + h) * a.Tq;
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (row0 < a.Tq)
+      lrow[row0] = m0 == -INFINITY || !(l0 > 0.f) ? INFINITY : (m0 + log2f(l0)) * kLn2;
+    if (row1 < a.Tq)
+      lrow[row1] = m1 == -INFINITY || !(l1 > 0.f) ? INFINITY : (m1 + log2f(l1)) * kLn2;
+  }
   T* out = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
@@ -1013,7 +1031,9 @@ struct Params {
 
 // o[b, t, h, :] = attention of q[b, t, h, :] over k/v[b, :, h / (H/Kv), :]
 // on `stream`, without synchronising; q, k, v and o of p->dtype, the head
-// dims contiguous.  Returns a cudaError_t (cudaErrorInvalidValue for an
+// dims contiguous.  A non-null `lse` (f32, (B, H, Tq) contiguous) also
+// receives each row's log-sum-exp of its scaled (softcapped) scores over
+// the keys it sees, which the backward pass recomputes P from.  Returns a cudaError_t (cudaErrorInvalidValue for an
 // unsupported dtype, (dh, dv) or tile, or a layout TMA refuses).
 static_assert(sizeof(Params) == 160 && offsetof(Params, dtype) == 96 &&
                   offsetof(Params, scale) == 144 &&
@@ -1022,12 +1042,12 @@ static_assert(sizeof(Params) == 160 && offsetof(Params, dtype) == 96 &&
 
 extern "C" int flash_attention_launch(const Params* p, const void* q,
                                       const void* k, const void* v, void* o,
-                                      cudaStream_t stream) {
+                                      float* lse, cudaStream_t stream) {
   if (p->B <= 0 || p->Tq <= 0) return cudaSuccess;
   if (p->Tk <= 0 || p->Kv <= 0 || p->H % p->Kv != 0 || p->device < 0 ||
       p->device >= kMaxDevices)
     return cudaErrorInvalidValue;
-  const Args a{q,        k,        v,        o,        p->q_sb,   p->q_st,
+  const Args a{q,        k,        v,        o,        lse,       p->q_sb,   p->q_st,
                p->q_sh,  p->k_sb,  p->k_st,  p->k_sh,  p->v_sb,   p->v_st,
                p->v_sh,  p->o_sb,  p->o_st,  p->o_sh,  p->B,      p->Tq,
                p->Tk,    p->H,     p->Kv,    p->scale, p->softcap, p->causal,

@@ -7,7 +7,9 @@ and the flags, so an edited source or header is rebuilt and an unchanged
 one is not.  :func:`build` starts
 one ``nvcc`` per source, all at once.  Nothing here runs at import time:
 machines without ``nvcc`` (the CPU test runs) never reach it.
-:func:`_raw_stream` gives every wrapper the stream handle its launch takes.
+:func:`_raw_stream` gives every wrapper the stream handle its launch takes,
+and :func:`forward_only` guards the wrappers of kernels without a
+backward.
 """
 
 from __future__ import annotations
@@ -23,12 +25,13 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "build", "load"]
+__all__ = ["SOURCES", "build", "forward_only", "load"]
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parents[1] / "build" / "repro_torch"
-SOURCES = ("bucket_histogram", "flash_attention", "decode_attention", "ssd_scan")
+SOURCES = ("bucket_histogram", "flash_attention", "flash_attention_bwd",
+           "decode_attention", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +48,17 @@ def _raw_stream(index: int) -> int:
     if _current_raw_stream is None:
         return torch.cuda.current_stream(index).cuda_stream
     return _current_raw_stream(index)
+
+
+def forward_only(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record a kernel that has no backward: grad
+    mode on and an input off the CPU that requires grad.  (On the CPU the
+    wrappers run their plain versions, which autograd differentiates.)"""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad and t.device.type != "cpu" for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel yet: call it under "
+            "torch.no_grad() or with inputs that do not require grad")
 
 
 _lock = threading.Lock()

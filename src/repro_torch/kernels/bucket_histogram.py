@@ -43,7 +43,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import _raw_stream
+from repro_torch.kernels._build import _raw_stream, forward_only
 
 __all__ = ["bucket_histogram", "bucket_histogram_torch", "launches"]
 
@@ -216,6 +216,8 @@ def bucket_histogram(
 ) -> torch.Tensor:
     """Counts per bucket, ``(n_buckets,)`` in ``out_dtype``."""
     global launches
+    if keys.requires_grad:  # never for int32 keys: a float input raises here
+        forward_only("bucket_histogram", keys)
     if n_buckets < 1:
         raise ValueError(f"n_buckets must be >= 1, got {n_buckets}")
     if keys.dtype != torch.int32:

@@ -36,6 +36,11 @@ bound).  The wrapper's host time counts in every call, so its checks,
 plan and argument list are prepared once per signature (shapes, strides,
 types, devices, options) and reused.
 
+With ``return_lse`` both routes also write each row's log-sum-exp (f32,
+``(B, H, Tq)``), from which the backward kernel
+(``flash_attention_bwd.py``) recomputes the attention weights; serving
+does not ask for it and passes a null pointer.
+
 :func:`flash_attention` launches the kernel for CUDA tensors and takes the
 plain version, :func:`flash_attention_torch`, only for CPU tensors.
 ``launches`` counts the kernel's launches.
@@ -96,13 +101,27 @@ def _launcher():
     if _entry is None:
         lib = _build.load("flash_attention")
         fn = lib.flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 6
+        fn.argtypes = [ctypes.c_void_p] * 7
         fn.restype = ctypes.c_int
         err = lib.flash_attention_error
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _entry = (fn, err)
     return _entry
+
+
+def live_mask(Tq: int, Tk: int, causal: bool, window: Optional[int],
+              device) -> torch.Tensor:
+    """(Tq, Tk) bool: query ``i`` sees key ``j`` (``j <= i`` when causal,
+    ``i - j < window`` when a window is given)."""
+    q_pos = torch.arange(Tq, device=device)[:, None]
+    k_pos = torch.arange(Tk, device=device)[None, :]
+    live = torch.ones(Tq, Tk, dtype=torch.bool, device=device)
+    if causal:
+        live &= q_pos >= k_pos
+    if window is not None:
+        live &= q_pos - k_pos < window
+    return live
 
 
 def flash_attention_torch(
@@ -114,8 +133,11 @@ def flash_attention_torch(
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
     window: Optional[int] = None,
-) -> torch.Tensor:
-    """The plain version: one einsum softmax in f32 over the GQA layout."""
+    return_lse: bool = False,
+):
+    """The plain version: one einsum softmax in f32 over the GQA layout.
+    With ``return_lse`` also each row's log-sum-exp, f32 ``(B, H, Tq)``
+    (+inf for a row that sees no key)."""
     B, Tq, H, dh = q.shape
     dv = v.shape[3]
     Tk, Kv = k.shape[1], k.shape[2]
@@ -125,16 +147,15 @@ def flash_attention_torch(
     s = torch.einsum("bqkrd,bckd->bkrqc", qg, k.float()) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    q_pos = torch.arange(Tq, device=q.device)[:, None]
-    k_pos = torch.arange(Tk, device=q.device)[None, :]
-    live = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
-    if causal:
-        live &= q_pos >= k_pos
-    if window is not None:
-        live &= q_pos - k_pos < window
-    p = torch.softmax(s.masked_fill(~live, MASK_VALUE), dim=-1)
+    live = live_mask(Tq, Tk, causal, window, q.device)
+    s = s.masked_fill(~live, MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkrqc,bckd->bqkrd", p, v.float())
-    return o.reshape(B, Tq, H, dv).to(q.dtype)
+    o = o.reshape(B, Tq, H, dv).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1).masked_fill(~live.any(-1), math.inf)
+    return o, lse.reshape(B, H, Tq)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -205,6 +226,7 @@ class _Call(NamedTuple):
 
     plan: Plan
     out_shape: Tuple[int, ...]
+    lse_shape: Optional[Tuple[int, ...]]  # (B, H, Tq) when asked for, else None
     params: _Params  # kept alive: the kernel reads it through `address`
     address: int
 
@@ -230,20 +252,24 @@ def flash_attention(
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
     window: Optional[int] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Attention forward, ``(B, Tq, H, dv)`` in q's type.  Query position
     ``i`` sees key ``j`` when ``j <= i`` (causal) and ``i - j < window``
     (when a window is given); scores are ``softcap·tanh(q·k·scale /
-    softcap)`` with ``scale`` defaulting to ``1/sqrt(dh)``."""
+    softcap)`` with ``scale`` defaulting to ``1/sqrt(dh)``.  With
+    ``return_lse``, ``(o, lse)``: lse is each row's log-sum-exp of its
+    scores over the keys it sees, f32 ``(B, H, Tq)``, which the backward
+    pass recomputes the weights from."""
     if q.is_cuda:
         # everything before the launch counts in the call's latency: one
         # dict lookup on the signature, then the pointers
         key = (q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
                q.dtype, k.dtype, v.dtype, q.get_device(), k.get_device(),
-               v.get_device(), causal, scale, softcap, window)
+               v.get_device(), causal, scale, softcap, window, return_lse)
         call = _calls.get(key)
         if call is None:
-            call = _prepare(q, k, v, causal, scale, softcap, window)
+            call = _prepare(q, k, v, causal, scale, softcap, window, return_lse)
             if len(_calls) >= _CALLS_MAX:
                 _calls.clear()
             _calls[key] = call
@@ -257,11 +283,13 @@ def flash_attention(
     if q.device.type != "cpu":
         raise ValueError(f"attention on unsupported device {q.device}")
     return flash_attention_torch(q, k, v, causal=causal, scale=scale,
-                                 softcap=softcap, window=window)
+                                 softcap=softcap, window=window,
+                                 return_lse=return_lse)
 
 
 def _prepare(q, k, v, causal: bool, scale: Optional[float],
-             softcap: Optional[float], window: Optional[int]) -> _Call:
+             softcap: Optional[float], window: Optional[int],
+             return_lse: bool = False) -> _Call:
     """Check CUDA tensors, plan the call and build its argument list."""
     _check(q, k, v)
     if window is not None and window < 1:
@@ -277,26 +305,32 @@ def _prepare(q, k, v, causal: bool, scale: Optional[float],
         plan.block_k, scale if scale is not None else 1.0 / math.sqrt(dh),
         softcap if softcap is not None else 0.0, q.get_device(),
     )
-    return _Call(plan, (B, Tq, H, dv), params, ctypes.addressof(params))
+    return _Call(plan, (B, Tq, H, dv), (B, H, Tq) if return_lse else None,
+                 params, ctypes.addressof(params))
 
 
-def _launch(q, ptrs, call: _Call) -> torch.Tensor:
+def _launch(q, ptrs, call: _Call):
     """Launch the kernel of a prepared call on q, k, v at ``ptrs``."""
     global launches
     out = q.new_empty(call.out_shape)
+    lse = None
+    if call.lse_shape is not None:
+        lse = torch.empty(call.lse_shape, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out
+        return out if lse is None else (out, lse)
     fn, err_str = _entry or _launcher()
     index = q.get_device()
+    lse_ptr = None if lse is None else lse.data_ptr()
     if index == torch.cuda.current_device():
-        err = fn(call.address, *ptrs, out.data_ptr(), _raw_stream(index))
+        err = fn(call.address, *ptrs, out.data_ptr(), lse_ptr, _raw_stream(index))
     else:
         with torch.cuda.device(index):
-            err = fn(call.address, *ptrs, out.data_ptr(), _raw_stream(index))
+            err = fn(call.address, *ptrs, out.data_ptr(), lse_ptr,
+                     _raw_stream(index))
     if err:
         raise RuntimeError(
             f"flash_attention launch failed: {err_str(err).decode()}"
         )
     with _count_lock:
         launches += 1
-    return out
+    return out if lse is None else (out, lse)

@@ -17,9 +17,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._build import forward_only
 from repro_torch.kernels.bucket_histogram import bucket_histogram
 from repro_torch.kernels.decode_attention import decode_attention as _decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.flash_attention_bwd import FlashAttention
 from repro_torch.kernels.ssd_scan import ssd_chunk_fwd
 
 __all__ = [
@@ -40,7 +42,11 @@ def flash_attention(
     softcap: Optional[float] = None,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Batched GQA flash attention -> (B, Tq, H, dv)."""
+    """Batched GQA flash attention -> (B, Tq, H, dv); differentiable
+    through the backward kernel when an input requires grad."""
+    if torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale, softcap, window)
     return _flash(q, k, v, causal=causal, scale=scale, softcap=softcap,
                   window=window)
 
@@ -54,6 +60,7 @@ def decode_attention(
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-token GQA attention over a KV cache -> (B, H, dh)."""
+    forward_only("decode_attention", q, k_cache, v_cache)
     return _decode(q, k_cache, v_cache, lengths, scale=scale, softcap=softcap)
 
 
@@ -66,6 +73,7 @@ def ssd_chunk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD within-chunk output and chunk states -> (y_diag (BC, Q, H, P),
     states (BC, H, P, N)), f32."""
+    forward_only("ssd_chunk", x, dt, dA_cs, Bm, Cm)
     return ssd_chunk_fwd(x, dt, dA_cs, Bm, Cm)
 
 

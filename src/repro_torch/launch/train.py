@@ -1,0 +1,210 @@
+"""End-to-end training launcher with stateful-serverless semantics.
+
+The port of ``repro/launch/train.py`` for one card.  The training job runs
+as a Marvel-style stateful application:
+
+  * model and optimizer state live on the card (the hot tier),
+  * an async :class:`~repro_torch.storage.CheckpointManager` drains
+    snapshots to the PMEM tier (files) every ``--checkpoint-every`` steps,
+  * ``--fail-at N`` injects a crash at step N: every tensor of the device
+    state is dropped, and the loop restores from the last durable
+    checkpoint and resumes: the paper's §4.3 fault-tolerance story,
+  * the data pipeline is deterministic in (seed, step), and the step is
+    deterministic on the card (the attention backward kernel has no
+    atomics), so the resumed run replays the losses it would have had.
+
+Only configurations whose mixers all have a backward on the card train
+there: the dense-attention ones (Mamba-2, RG-LRU, MLA and MoE wait for
+theirs).  The reference's mesh flags wait for the port's sharding.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+      --steps 40 --reduced --ckpt-dir CKPT_DIR [--fail-at 25] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.data.pipeline import PipelineConfig, make_batch
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import ShapeConfig, init_params, model_defs, reduced_for_smoke
+from repro_torch.models.convert import to_tensor
+from repro_torch.models.param import tree_map_defs
+from repro_torch.optim.adamw import AdamWConfig, OptState, adamw_init
+from repro_torch.storage import CheckpointManager, PmemTier
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+__all__ = ["build", "init_state", "restore_state", "train", "main"]
+
+
+def build(args):
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_for_smoke(cfg)
+    shape = ShapeConfig(
+        name="cli", kind="train", seq_len=args.seq, global_batch=args.batch,
+        microbatches=args.microbatches, q_chunk=min(512, args.seq),
+        kv_chunk=min(1024, args.seq), loss_chunk=min(512, args.seq),
+        remat="none" if args.reduced else "full",
+    )
+    return cfg, shape
+
+
+def init_state(cfg, device, seed: int = 0):
+    """f32 master parameters drawn from ``seed`` and zero AdamW state."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(model_defs(cfg), gen, device, dtype=torch.float32)
+    return params, adamw_init(params)
+
+
+def _skeleton(cfg) -> tuple:
+    """The (params, opt) tree structure, with placeholder leaves."""
+    params = tree_map_defs(lambda pd: 0, model_defs(cfg))
+    return params, OptState(mu=params, nu=params, step=0)
+
+
+def restore_state(ckpt: CheckpointManager, cfg, device, step: Optional[int] = None):
+    """(params, opt) from the checkpoint at ``step`` (default: the newest
+    durable one) on ``device``: the leaves the reference's launcher writes,
+    ``{"params": leaves, "opt": leaves}``, so either package's
+    checkpoints restore."""
+    state = ckpt.restore(step)
+    like_p, like_o = _skeleton(cfg)
+    params = tree_unflatten(like_p, [to_tensor(x, device) for x in state["params"]])
+    opt = tree_unflatten(like_o, [to_tensor(x, device) for x in state["opt"]])
+    return params, opt
+
+
+def _drop_device_state() -> None:
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def train(
+    cfg,
+    shape: ShapeConfig,
+    opt_cfg: AdamWConfig,
+    ckpt: CheckpointManager,
+    *,
+    steps: int,
+    checkpoint_every: int,
+    fail_at: Optional[int] = None,
+    compress_grads: bool = False,
+    device: Any = "cuda",
+    seed: int = 0,
+    params: Any = None,
+    log: Callable[[str], None] = print,
+) -> Dict[str, Any]:
+    """The training loop: resume from ``ckpt``'s newest checkpoint if it
+    has one (else start from ``params``, or draw them from ``seed``), run
+    to ``steps``, checkpoint every ``checkpoint_every`` steps, and at
+    ``fail_at`` drop the device state and restore.  Returns the history
+    (one record a step run, replays included), the checkpoints written,
+    and the restore's step and seconds."""
+    device = torch.device(device)
+    step_fn = make_train_step(cfg, shape, opt_cfg, compress_grads=compress_grads,
+                              device=device)
+    start = ckpt.latest_step()
+    if start is not None:
+        params, opt = restore_state(ckpt, cfg, device)
+        log(f"resumed from durable checkpoint @ step {start}")
+    elif params is None:
+        params, opt = init_state(cfg, device, seed)
+    else:
+        opt = adamw_init(params)
+    ef = None
+    if compress_grads:
+        from repro_torch.optim.compression import ef_init
+        ef = ef_init(params)
+    pipe = PipelineConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                          global_batch=shape.global_batch)
+    history: List[Dict[str, float]] = []
+    saves, restores = [], []
+    failed = False
+    step = int(start or 0)
+    while step < steps:
+        t0 = time.perf_counter()
+        out = step_fn(params, opt, make_batch(pipe, step), *((ef,) if ef is not None else ()))
+        params, opt, metrics = out[:3]
+        if ef is not None:
+            ef = out[3]
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        step += 1
+        history.append({"step": step, "loss": loss, "grad_norm": gnorm,
+                        "tokens": int(metrics["tokens"]),
+                        "step_s": time.perf_counter() - t0})
+        if step % 5 == 0 or step == steps:
+            log(f"step {step:5d}  loss {loss:.4f}  gnorm {gnorm:.3f}")
+        if step % checkpoint_every == 0:
+            saves.append(ckpt.save(step, {"params": tree_leaves(params),
+                                          "opt": tree_leaves(opt)}))
+        if fail_at is not None and step == fail_at and not failed:
+            failed = True
+            log(f"!! injected crash at step {step}: dropping all state")
+            params = opt = metrics = out = None
+            _drop_device_state()
+            t0 = time.perf_counter()
+            ckpt.wait()
+            restore_step = ckpt.latest_step()
+            if restore_step is None:
+                raise SystemExit("no durable checkpoint: job lost (the "
+                                 "stock-serverless failure the paper fixes)")
+            params, opt = restore_state(ckpt, cfg, device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            restores.append({"step": restore_step,
+                             "restore_s": time.perf_counter() - t0})
+            step = restore_step
+            log(f"recovered from PMEM tier @ step {restore_step}; resuming")
+    ckpt.wait()
+    return {"history": history, "saves": saves, "restores": restores,
+            "params": params, "opt": opt}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b", choices=ARCH_IDS)
+    ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", required=True)
+    ap.add_argument("--checkpoint-every", type=int, default=10)
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="inject a crash at this step (fault-tolerance demo)")
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg, shape = build(args)
+    if cfg.frontend != "tokens":
+        raise SystemExit("the train launcher takes token frontends")
+    ckpt = CheckpointManager(PmemTier(args.ckpt_dir), f"train/{cfg.name}", keep=2)
+    t_start = time.perf_counter()
+    step0 = int(ckpt.latest_step() or 0)
+    try:
+        train(cfg, shape, AdamWConfig(lr=args.lr, weight_decay=0.0), ckpt,
+              steps=args.steps, checkpoint_every=args.checkpoint_every,
+              fail_at=args.fail_at, compress_grads=args.compress_grads,
+              device=args.device)
+    finally:
+        ckpt.close()
+    dt = time.perf_counter() - t_start
+    print(f"done: {args.steps - step0} steps in {dt:.1f}s "
+          f"({(args.steps - step0) / dt:.2f} steps/s)")
+
+
+if __name__ == "__main__":
+    main()

@@ -7,7 +7,8 @@ computes attention with XLA twins of its Pallas kernels
 (``chunked_attention``, ``decode_attention``); here both entry points call
 the hand-written kernels through :mod:`repro_torch.kernels.ops`, which take
 the plain PyTorch versions only for tensors on the CPU.  Norms, RoPE and
-the MLP are plain torch ops, as the reference leaves them to XLA.
+the MLP are plain torch ops, as the reference leaves them to XLA; so is
+the training loss, :func:`chunked_ce_loss`.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.param import FSDP, TP, ParamDef
@@ -31,6 +33,7 @@ __all__ = [
     "decode_attention",
     "mlp_defs",
     "mlp_apply",
+    "chunked_ce_loss",
 ]
 
 
@@ -159,3 +162,46 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         h = act_fn(x @ p["wi"])
     return h @ p["wo"]
+
+
+# -- loss ---------------------------------------------------------------
+
+def _chunk_ce(xb: torch.Tensor, unembed: torch.Tensor, lb: torch.Tensor,
+              logit_softcap: Optional[float]):
+    """Summed CE and valid count of one T-chunk."""
+    logits = softcap((xb @ unembed).float(), logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, lb.clamp(min=0).long()[..., None],
+                              dim=-1)[..., 0]
+    valid = lb >= 0
+    return torch.where(valid, lse - ll, 0.0).sum(), valid.sum()
+
+
+def chunked_ce_loss(
+    x: torch.Tensor,  # (B, T, D) final hidden states
+    unembed: torch.Tensor,  # (D, V)
+    labels: torch.Tensor,  # (B, T) int; -100 = ignore
+    *,
+    t_chunk: int = 512,
+    logit_softcap: Optional[float] = None,
+):
+    """Mean CE over valid tokens, computed in T-chunks so the (.., V)
+    logits tensor never exists at full sequence length.  Returns
+    ``(loss, n_valid)``.  Under autograd each chunk is checkpointed, so
+    the backward pass too holds one chunk's logits at a time."""
+    B, T, _ = x.shape
+    t_chunk = min(t_chunk, T)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int64, device=x.device)
+    grad = torch.is_grad_enabled() and (x.requires_grad or unembed.requires_grad)
+    for t0 in range(0, T, t_chunk):
+        xb, lb = x[:, t0:t0 + t_chunk], labels[:, t0:t0 + t_chunk]
+        if grad:
+            s, n = checkpoint(_chunk_ce, xb, unembed, lb, logit_softcap,
+                              use_reentrant=False)
+        else:
+            s, n = _chunk_ce(xb, unembed, lb, logit_softcap)
+        total = total + s
+        count = count + n
+    n = torch.clamp(count, min=1)
+    return total / n, n

@@ -13,6 +13,15 @@ over that axis with ``lax.scan``; here a Python loop indexes it.  Decode
 writes each layer's new K/V or latent row, or its new conv window and
 recurrent state, into the stacked cache in place.  ``forward`` returns
 the MoE balance loss summed over the layers, as the reference does.
+
+For training, ``forward`` takes the reference's remat policies per period
+(``torch.utils.checkpoint``, non-reentrant) and a compute ``dtype``: f32
+weights are cast at their point of use, inside the checkpointed period,
+so their gradients land in the f32 masters and no bf16 copy of the tree
+outlives its period.  A body leaf may come as :class:`Periods` (one
+tensor per period) rather than stacked: indexing a stacked leaf that
+requires grad would make autograd build a zero tensor of the whole stack
+for every period's gradient.
 """
 
 from __future__ import annotations
@@ -22,14 +31,24 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention, mla, moe, rglru, ssm
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import layer_norm, mlp_apply, mlp_defs, rms_norm, softcap
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device, stack_defs
 from repro_torch.models.quant_cache import init_quant_cache
+from repro_torch.tree import tree_map
 
-__all__ = ["model_defs", "forward", "logits_fn", "decode_step", "init_cache"]
+__all__ = ["model_defs", "forward", "logits_fn", "decode_step", "init_cache",
+           "Periods", "REMAT_POLICIES", "cast_weights"]
+
+#: remat policies per layer period, the reference's ``shape.remat``
+REMAT_POLICIES = ("none", "full", "dots", "save_block_out")
 
 
 # -- defs ---------------------------------------------------------------
@@ -111,9 +130,14 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 # -- tree helpers ---------------------------------------------------------
 
+class Periods(list):
+    """A body leaf held as one tensor per period instead of one stacked
+    tensor (the training step's per-period autograd leaves)."""
+
+
 def _period(tree: Any, i: int) -> Any:
     """Period ``i`` of a stacked parameter or cache tree (views, no copy)."""
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, Periods)):
         return tree[i]
     if isinstance(tree, dict):
         return {k: _period(v, i) for k, v in tree.items()}
@@ -131,6 +155,42 @@ def _stack(caches: List[Any]) -> Any:
 
 
 # -- apply ---------------------------------------------------------------
+
+def cast_weights(tree: Any, dtype: Optional[torch.dtype]) -> Any:
+    """``tree`` with every f32 leaf of rank >= 1 cast to ``dtype`` (None:
+    as it is), as the reference's train step casts its f32 masters."""
+    if dtype is None:
+        return tree
+    return tree_map(lambda t: t.to(dtype) if t.dtype == torch.float32
+                    and t.dim() > 0 else t, tree)
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for "dots": keep the outputs of the
+    matmuls without batch dims, recompute the rest (the reference's
+    ``dots_with_no_batch_dims_saveable``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the remat policy: "none" as it is; "full" keeps only
+    its inputs; "dots" keeps its matmul outputs too.  ("save_block_out"
+    checkpoints each block's mixer and FFN halves: see
+    ``_saving_halves``.)"""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if policy == "dots":
+        return lambda *a: checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(_save_matmuls))
+    raise ValueError(f"remat policy {policy!r} not in {REMAT_POLICIES}")
+
 
 def _embed_scale(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if not cfg.embed_scale:
@@ -184,15 +244,23 @@ def _ffn_apply(p, x, blk: BlockSpec, cfg: ModelConfig):
     raise ValueError(blk.ffn)
 
 
-def _finish_block(p, x, h, blk: BlockSpec, cfg: ModelConfig):
+def _direct(fn, q, x):
+    return fn(q, x)
+
+
+def _finish_block(p, x, h, blk: BlockSpec, cfg: ModelConfig, half=_direct):
     """The residual add of the mixer output ``h``, then the FFN sub-block
-    (prefill and decode alike).  Returns (x, the FFN's aux loss or None)."""
+    (prefill and decode alike), run through ``half`` (see
+    ``_block_apply``).  Returns (x, the FFN's aux loss or None)."""
     if cfg.post_block_norm:
         h = _norm_apply(p["post1"], h, cfg)
     x = x + h
     aux = None
     if blk.ffn != "none":
-        h, aux = _ffn_apply(p["ffn"], _norm_apply(p["norm2"], x, cfg), blk, cfg)
+        def ffn(q, x_):
+            return _ffn_apply(q["ffn"], _norm_apply(q["norm2"], x_, cfg), blk, cfg)
+
+        h, aux = half(ffn, {"norm2": p["norm2"], "ffn": p["ffn"]}, x)
         if cfg.post_block_norm:
             h = _norm_apply(p["post2"], h, cfg)
         x = x + h
@@ -200,13 +268,27 @@ def _finish_block(p, x, h, blk: BlockSpec, cfg: ModelConfig):
 
 
 def _block_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
-                 collect_cache: bool = False, cache_len=None):
-    h, cache = _mixer_apply(
-        p["mixer"], _norm_apply(p["norm1"], x, cfg), blk, cfg,
-        collect_cache, cache_len,
-    )
-    x, aux = _finish_block(p, x, h, blk, cfg)
+                 collect_cache: bool = False, cache_len=None, half=_direct):
+    """One block.  Its mixer half and its FFN half each run as
+    ``half(fn, q, x)``, ``fn(q, x)`` over the half's own slice ``q`` of
+    ``p``: directly, or checkpointed under "save_block_out"."""
+    def mixer(q, x_):
+        return _mixer_apply(q["mixer"], _norm_apply(q["norm1"], x_, cfg), blk,
+                            cfg, collect_cache, cache_len)
+
+    h, cache = half(mixer, {"norm1": p["norm1"], "mixer": p["mixer"]}, x)
+    x, aux = _finish_block(p, x, h, blk, cfg, half)
     return x, aux, cache
+
+
+def _saving_halves(dtype):
+    """``half`` for "save_block_out": each half checkpointed, so the
+    backward pass keeps the mixer and FFN outputs and recomputes what lies
+    inside them, with the half's weights cast inside the checkpoint."""
+    def half(fn, q, x):
+        return checkpoint(lambda q_, x_: fn(cast_weights(q_, dtype), x_), q, x,
+                          use_reentrant=False)
+    return half
 
 
 def forward(
@@ -215,37 +297,73 @@ def forward(
     inputs: Dict[str, torch.Tensor],
     collect_cache: bool = False,
     cache_len: Optional[int] = None,
+    *,
+    remat: str = "none",
+    dtype: Optional[torch.dtype] = None,
 ):
     """Full-sequence forward.  Returns (hidden (B, T, D), aux loss) or,
     with ``collect_cache`` (prefill), (hidden, aux, cache tree).
     ``cache_len`` reserves decode headroom in the collected caches.  The
     aux loss is the MoE balance loss summed over the MoE layers (0 when
-    there are none), in f32."""
-    x = _frontend(params, cfg, inputs)
+    there are none), in f32.
+
+    ``remat`` (one of :data:`REMAT_POLICIES`) recomputes each body period
+    in the backward pass, as the reference's ``shape.remat`` does; it acts
+    only when autograd records (and never with ``collect_cache``).
+    ``dtype`` casts f32 weights to the compute type where they are used
+    (:func:`cast_weights`); None computes in the weights' own types."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {remat!r} not in {REMAT_POLICIES}")
+    if collect_cache or not torch.is_grad_enabled():
+        remat = "none"
+    x = _frontend(cast_weights(
+        {k: params[k] for k in ("embed", "frame_proj") if k in params}, dtype),
+        cfg, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, List[Any]] = {"prelude": [], "body": [], "postlude": []}
 
+    def add(total, a):
+        return total if a is None else total + a
+
     def block(p, blk):
         nonlocal x, aux
-        x, a, c = _block_apply(p, x, blk, cfg, collect_cache, cache_len)
-        if a is not None:
-            aux = aux + a
+        x, a, c = _block_apply(cast_weights(p, dtype), x, blk, cfg,
+                               collect_cache, cache_len)
+        aux = add(aux, a)
         return c
 
     for p, blk in zip(params["prelude"], cfg.prelude):
         caches["prelude"].append(block(p, blk))
 
-    body: List[List[Any]] = [[] for _ in cfg.pattern]
-    for i in range(cfg.n_periods):
+    def period(x_, aux_, i):
         for j, blk in enumerate(cfg.pattern):
-            body[j].append(block(_period(params["body"][j], i), blk))
-    if collect_cache and cfg.n_periods > 0:
-        caches["body"] = [_stack(cs) for cs in body]
+            p = _period(params["body"][j], i)
+            if remat == "save_block_out":
+                # the norms cast here; the halves cast their own weights
+                p = {k: v if k in ("mixer", "ffn") else cast_weights(v, dtype)
+                     for k, v in p.items()}
+                x_, a, _ = _block_apply(p, x_, blk, cfg, half=_saving_halves(dtype))
+            else:
+                x_, a, _ = _block_apply(cast_weights(p, dtype), x_, blk, cfg)
+            aux_ = add(aux_, a)
+        return x_, aux_
+
+    body: List[List[Any]] = [[] for _ in cfg.pattern]
+    if collect_cache:
+        for i in range(cfg.n_periods):
+            for j, blk in enumerate(cfg.pattern):
+                body[j].append(block(_period(params["body"][j], i), blk))
+        if cfg.n_periods > 0:
+            caches["body"] = [_stack(cs) for cs in body]
+    else:
+        period_fn = _remat(period, "none" if remat == "save_block_out" else remat)
+        for i in range(cfg.n_periods):
+            x, aux = period_fn(x, aux, i)
 
     for p, blk in zip(params["postlude"], cfg.postlude):
         caches["postlude"].append(block(p, blk))
 
-    x = _norm_apply(params["final_norm"], x, cfg)
+    x = _norm_apply(cast_weights(params["final_norm"], dtype), x, cfg)
     if collect_cache:
         return x, aux, caches
     return x, aux

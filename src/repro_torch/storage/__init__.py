@@ -1,8 +1,9 @@
 """Storage substrate: tiers (DRAM/PMEM/simulated SSD/S3), HDFS-analog block
-store and Ignite-analog state cache.  (Checkpointing waits for the
-training slice of the port.)"""
+store, Ignite-analog state cache, and the training job's asynchronous
+checkpoints into the persistent tier."""
 
 from repro_torch.storage.blockstore import BlockStore, DataNode
+from repro_torch.storage.checkpoint import CheckpointInfo, CheckpointManager
 from repro_torch.storage.faults import FaultInjectingTier, InjectedIOError, TornWriteError
 from repro_torch.storage.hierarchy import PlacementPolicy, TieredStore, TierLevel
 from repro_torch.storage.kvcache import StateCache
@@ -22,6 +23,8 @@ from repro_torch.storage.tiers import (
 
 __all__ = [
     "BlockStore",
+    "CheckpointInfo",
+    "CheckpointManager",
     "DataNode",
     "FaultInjectingTier",
     "InjectedIOError",

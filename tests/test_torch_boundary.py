@@ -2,7 +2,7 @@
 
 A subprocess with ``jax`` and ``repro`` blocked imports every module of
 ``repro_torch`` and loads a reference blob whose NamedTuple names a
-``repro.…`` class; an AST scan of the port and of ``chip_smoke.py``
+``repro.…`` class (it resolves to the port's counterpart); an AST scan of the port and of ``chip_smoke.py``
 finds no such import.
 """
 
@@ -44,7 +44,9 @@ for name in names:
 from repro_torch.storage import serde
 
 value = serde.loads(sys.stdin.buffer.read())
-assert type(value) is tuple and value == (1, 2, 3), value
+from repro_torch.optim.adamw import OptState
+
+assert type(value) is OptState and tuple(value) == (1, 2, 3), value
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not leaked, leaked
 print(len(names))
@@ -74,7 +76,7 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    [ROOT / "chip_smoke.py", ROOT / "chip_flash_tiles.py",
+    [ROOT / "chip_smoke.py", ROOT / "chip_flash_tiles.py", ROOT / "chip_train_lr.py",
      *(ROOT / "src" / "repro_torch").rglob("*.py")]
 ), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_banned_import_in_source(path):
