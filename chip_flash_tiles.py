@@ -40,10 +40,10 @@ VARIANTS = (
     ("3 stages", [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
      128),
     ("1 consumer warpgroup", [
-        ("return tc_launch<T, 128, 2>(a, maps, stream);",
-         "return tc_launch<T, 128, 1>(a, maps, stream);"),
-        ("if (block_q != (dh == 256 ? 64 : 128)",
-         "if (block_q != (dh == 64 ? 128 : 64)"),
+        ("return tc_launch<T, 128, 128, 2>(a, maps, device, stream);",
+         "return tc_launch<T, 128, 128, 1>(a, maps, device, stream);"),
+        ("block_q != (dqk == 256 ? 64 : 128)",
+         "block_q != (dqk == 256 || dqk == 128 ? 64 : 128)"),
     ], 64),
 )
 
@@ -138,8 +138,9 @@ def main() -> int:
             if old not in text:
                 raise RuntimeError(f"{name}: the source no longer has {old!r}")
             text = text.replace(old, new)
+        # the copy includes the kernels' shared headers from the package
         lib_path, regs, spilled = build(text, f"variant{i}", _build._nvcc(),
-                                        _build.NVCC_FLAGS)
+                                        (*_build.NVCC_FLAGS, "-I", str(_build.CSRC)))
         fn = ctypes.CDLL(str(lib_path)).flash_attention_launch
         fn.argtypes = [ctypes.c_void_p] * 7
         fn.restype = ctypes.c_int

@@ -145,10 +145,12 @@ another sm_90a card).  It builds the port's CUDA kernels from
    for f32), every case run twice for the same bits: the training shape
    (B=1, T=4096, H=16, Kv=2, dh 128, causal, bf16), dh 64 and 256 over
    one kv head, rep 1 not causal, gemma2-9b's softcap 50 and window 4096
-   over 4160 tokens, T=1000, f32, and f16 with a window; times the
-   backward at the training shape (event and device ms) beside SDPA's
-   forward and backward, the plain version and its bound, and the
-   forward at T=4096; then ``loss.backward()`` of qwen2.5-3b at full
+   over 4160 tokens, T=1000, f32, f16 with a window, and 1000 queries
+   over 1536 keys not causal with a softcap (TMA's rows past Tq); bf16
+   and f16 at dh 64 and 128 take the tensor-core route, dh 256 and f32
+   the CUDA-core one; times the backward at the training shape (event
+   and device ms) beside SDPA's forward and backward, the plain version
+   and its bounds, and the forward at T=4096; then ``loss.backward()`` of qwen2.5-3b at full
    width cut to 2 layers (one sequence of 1024, f32, remat "full")
    through the kernels and through the plain versions, each parameter's
    gradient within relative L2 1e-3; then trains qwen2.5-3b at full width
@@ -183,7 +185,8 @@ another sm_90a card).  It builds the port's CUDA kernels from
    their own kernel.
 
 The build prints ptxas's registers, shared memory and spills for every
-kernel, and fails if a flash, decode or SSD kernel spills.  The serving
+kernel, and fails if a flash forward, decode or SSD kernel, or one of
+the flash backward's tensor-core kernels, spills.  The serving
 phases' profiles also read one prefill's device time and the flash and
 SSD kernels' shares of it, and a decode step's launches and decode
 kernels.
@@ -1093,7 +1096,7 @@ def profile_window(fn, reps: int = REPS):
 def device_profile(fn, reps: int = REPS, op_keys=LAUNCH_KEYS):
     """Device time of one call of ``fn`` in ms, the device operations one
     call starts (kernel launches, or the host calls in ``op_keys``), the
-    names of the device records it ran and what the window lost
+    device ms a call of each kernel name it ran and what the window lost
     (:func:`traced`): one profiler window over ``reps`` calls, without the host time
     that an event pair around each call also holds.  The trace can miss
     some kernel records of a window (seen for the SSD kernel: 7 of 15), so
@@ -1105,7 +1108,8 @@ def device_profile(fn, reps: int = REPS, op_keys=LAUNCH_KEYS):
     check(ops > 0, "the profiler saw no device operation launched")
     records = sum(e.count for e in kernels if "memset" not in e.key.lower())
     missed = max(1.0, launches / records) if records else 1.0
-    return total * missed / reps / 1e3, ops / reps, {e.key for e in kernels}, lost
+    by_name = {e.key: e.self_device_time_total / reps / 1e3 for e in kernels}
+    return total * missed / reps / 1e3, ops / reps, by_name, lost
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -2524,12 +2528,13 @@ class BwdRecord:
 def bwd_case(rec: BwdRecord, case: str, q, k, v, do, **kw) -> None:
     """The forward kernel's lse and the backward kernel's dq, dk, dv
     against the plain versions in f32 on the same inputs, each call made
-    twice: the same bits both times."""
+    twice: the same bits both times; then the backward event-timed."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
 
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     o2, lse2 = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    route = fb._plan(q, k, v, o, do)
     got = fb.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     again = fb.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     check(torch.equal(o, o2) and torch.equal(lse, lse2)
@@ -2553,8 +2558,10 @@ def bwd_case(rec: BwdRecord, case: str, q, k, v, do, **kw) -> None:
     rec.max_rel_l2 = max(rec.max_rel_l2, *rels.values())
     rec.max_abs_err = max(rec.max_abs_err, *abss.values())
     rec.checks += 1
-    emit("flash_bwd_case", case=case, shape=list(q.shape), kv_heads=k.shape[2],
-         dtype=str(q.dtype), rel_l2=rels, max_abs_err=abss, lse_max_abs_err=lse_err,
+    ms = time_ms(lambda: fb.flash_attention_bwd(q, k, v, o, do, lse, **kw), reps=5,
+                 warmup=1)
+    emit("flash_bwd_case", case=case, shape=list(q.shape), keys=k.shape[1],
+         kv_heads=k.shape[2], dtype=str(q.dtype), route=route, ms=ms, rel_l2=rels, max_abs_err=abss, lse_max_abs_err=lse_err,
          tol=BWD_TOL[q.dtype], bit_identical_rerun=True, ok=True,
          **{k_: v_ for k_, v_ in kw.items() if v_ is not None})
 
@@ -2564,8 +2571,8 @@ def phase_flash_backward(dev, seed: int, rec: BwdRecord):
     g = torch.Generator(device=dev).manual_seed(seed + 20)
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def inputs(B, T, H, Kv, dh, dtype):
-        q, k, v = flash_inputs(g, dev, B, T, H, Kv, dh, dtype)
+    def inputs(B, T, H, Kv, dh, dtype, Tk=None):
+        q, k, v = flash_inputs(g, dev, B, T, H, Kv, dh, dtype, Tk=Tk)
         return q, k, v, _randn(g, (B, T, H, dh), dtype, dev)
 
     train = inputs(1, TRAIN_SEQ, 16, 2, 128, bf16)
@@ -2581,6 +2588,10 @@ def phase_flash_backward(dev, seed: int, rec: BwdRecord):
     bwd_case(rec, "f32_route", *inputs(1, 1024, 16, 2, 128, f32), causal=True)
     bwd_case(rec, "f16_ragged", *inputs(2, 333, 8, 2, 64, torch.float16), causal=True,
              window=100)
+    # fewer queries than keys, not causal: the q tiles' rows past Tq come
+    # in as TMA's zeros; the softcap on the tensor-core route
+    bwd_case(rec, "tq_lt_tk_full", *inputs(1, 1000, 16, 2, 128, bf16, Tk=1536),
+             causal=False, softcap=30.0)
     return train
 
 
@@ -2703,10 +2714,11 @@ class _NoPlain:
 
 GEMM_KEYS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 FLASH_FWD_KEYS = ("flash_wgmma_kernel", "flash_f32_kernel")
-#: the backward's kernels live in the namespace ``fa_bwd`` (its four
-#: names alone would also match PyTorch's ``at::native::reduce_kernel``)
+#: the backward's kernels live in the namespace ``fa_bwd`` (their names
+#: alone would also match PyTorch's ``at::native::reduce_kernel``)
 FLASH_BWD_KEYS = ("fa_bwd::",)
-FLASH_BWD_KERNELS_PER_CALL = 4  # delta, dk/dv, dq, the group's reduce
+#: on either route: delta, dk/dv, dq, the group's reduce
+FLASH_BWD_KERNELS_PER_CALL = 4
 
 
 def _split_device_ms(events) -> dict:
@@ -2825,11 +2837,14 @@ def phase_training(dev, seed: int) -> dict:
 
 
 def measure_flash_bwd(q, k, v, do, kw) -> dict:
-    """The backward kernel at the training shape: event-timed ms (with the
-    wrapper's host time) and device ms, beside the plain version, SDPA's
-    forward and backward (``enable_gqa``), and the bound: 5 products of
-    2·dh operations over each causal (row, key) pair at the bf16 peak,
-    against q, k, v, o, do and lse read once and dq, dk, dv written once."""
+    """The backward kernel at the training shape: its route, event-timed
+    ms (with the wrapper's host time) and device ms (in all and by
+    kernel), beside the plain
+    version, SDPA's forward and backward (``enable_gqa``), and the bound:
+    5 products of 2·dh operations over each causal (row, key) pair at the
+    bf16 peak, against q, k, v, o, do and lse read once and dq, dk, dv
+    written once; ``bound_as_run_ms`` counts the 7 products the kernel
+    runs (its dq pass recomputes Q·Kᵀ and dO·Vᵀ)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2871,11 +2886,13 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
     return {
         "shape": {"B": B, "T": T, "H": H, "Kv": k.shape[2], "dh": dh,
                   "causal": kw["causal"], "dtype": str(q.dtype)},
-        "kernel_route": "cuda_cores_f32",
+        "kernel_route": fb._plan(q, k, v, o, do),
+        "bound_as_run_ms": max(ops_ms * 7 / 5, bytes_ms),
         "kernel_ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "fwd_bwd_ms": fwd_bwd_ms, "library_ms": library_ms,
         "library_device_ms": library_device, "library_fwd_ms": library_fwd_ms,
         "launches_per_call": per_call, "kernels_seen": sorted(names),
+        "device_ms_by_kernel": names,
         "window_lost": lost, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "flops": flops, "bytes": nbytes,
@@ -3045,8 +3062,10 @@ def main(argv=None) -> int:
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
          build_s=build_s, sources=list(_build.SOURCES))
     spills = ptxas_report(_build.build_logs)
+    # the backward's CUDA-core route (f32, dh 256) is not held to it
     tc_spills = {fn: n for (src, fn), n in spills.items()
-                 if src in ("flash_attention", "decode_attention", "ssd_scan")
+                 if (src in ("flash_attention", "decode_attention", "ssd_scan")
+                     or (src == "flash_attention_bwd" and "wgmma" in fn))
                  and n}
     check(not tc_spills, f"ptxas spills in the tensor-core kernels: {tc_spills}")
     phase_first_launch_threads(dev, args.seed)
@@ -3163,7 +3182,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     tq, tk, tv, tdo = phase_flash_backward(dev, args.seed, bwd_rec)
     bwd_shape = measure_flash_bwd(tq, tk, tv, tdo, {"causal": True})
-    emit("flash_bwd_train_shape", **bwd_shape)
+    emit("flash_bwd_train_shape", card=card, **bwd_shape)
+    check(bwd_shape["kernel_route"] == "wgmma",
+          f"the training shape's backward took route {bwd_shape['kernel_route']}")
     flash_train_shape = measure_flash(tq, tk, tv, {"causal": True})
     emit("flash_train_path_shape", **flash_train_shape)
     del tq, tk, tv, tdo
@@ -3234,6 +3255,7 @@ def main(argv=None) -> int:
                bwd_rec.checks, bwd_shape, bwd_shape["shape"]),
          "kernel_route": bwd_shape["kernel_route"],
          "device_ms": bwd_shape["device_ms"],
+         "bound_as_run_ms": bwd_shape["bound_as_run_ms"],
          "library_device_ms": bwd_shape["library_device_ms"],
          "library": "scaled_dot_product_attention forward + backward",
          "library_fwd_ms": bwd_shape["library_fwd_ms"],

@@ -2,8 +2,10 @@
 // in flash_attention.cu from q (B, Tq, H, D), k and v (B, Tk, Kv, D), the
 // forward's output o and its per-row log-sum-exp `lse` (f32, (B, H, Tq)),
 // and the output's gradient do, for causal or full attention with GQA, an
-// optional softcap and sliding window.  Head dims D in {64, 128, 256}
-// (square; MLA's (192, 128) is not built).  bf16, f16 and f32.
+// optional softcap and sliding window, any Tq and Tk.  Head dims D in {64,
+// 128, 256}, square: the tensor-core kernels are templates on the pair
+// (DQK, DV), as the forward's are, but MLA's (192, 128) is not built yet.
+// bf16, f16 and f32.
 //
 // Replaces the TPU side's jax.vjp of the XLA twin of the Pallas forward
 // (repro/models/layers.py, chunked_attention): the reference has no Pallas
@@ -19,33 +21,72 @@
 // with query head h reading kv head h / (H / Kv); dk and dv of a kv head
 // sum over its H / Kv query heads.
 //
-// Four launches a call, all on f32 CUDA-core FMAs out of shared memory
-// (a first kernel, right before fast; tensor cores are later work):
-//   1. delta_kernel: D = rowsum(do * o), one warp a row.
-//   2. dkdv_kernel: one block per (kv tile, batch, query head) keeps its
-//      tile's dk and dv in registers and walks the q tiles that see the
-//      tile in order; it writes them, in f32, to a per-query-head slot.
-//      (A block per kv head that also walked the H / Kv query heads would
-//      leave most of the card idle at rep 8: 2 kv heads x 64 tiles.)
-//   3. dq_kernel: one block per (q tile, batch, head) keeps dq in
-//      registers and walks the kv tiles the q tile sees, in order.
+// What bounds it: 5 products of 2 * D operations per (row, key) pair seen
+// (Q.K^T, dO.V^T, P^T.dO, dS^T.Q, dS.K) against reading q, k, v, o, do once
+// and writing dq, dk, dv: at training shapes the tensor cores' rate (the
+// qwen2.5-3b step's B=1, T=4096, H=16, D=128, causal: 171.8 GFLOP, 0.174 ms
+// at the bf16 peak, against 0.023 ms for its 76 MB).  Both routes run 7:
+// the dq pass recomputes Q.K^T and dO.V^T rather than keep P or dS in
+// memory (0.243 ms as run).
+//
+// Four launches a call, on one of two routes (the wrapper's plan names
+// it, and the launch refuses a plan that disagrees with its own rule):
+//   1. delta_kernel: D = rowsum(do * o) and lse * log2(e), one warp a row,
+//      into f32 (B, H, Tp) buffers padded to Tp = Tq rounded up to 128
+//      (pad rows: D = 0, lse = +inf, so their weights are 0).
+//   2. dk/dv per (kv tile, batch, query head), in f32, into a per-query-
+//      head slot: one block per kv tile (128 keys on the wgmma route)
+//      keeps the tile's dk and dv in registers and walks the q tiles that
+//      see it in order, the heaviest blocks (the first keys, under a
+//      causal mask) first.  Per-query-head partials fill the card at the
+//      training shape (32 kv tiles x 16 heads = 512 blocks); a block per
+//      kv head walking its query heads would make 64 blocks for 132 SMs.
+//   3. dq per (q tile, batch, head): the block keeps dq in registers and
+//      walks the kv tiles the q tile sees, the last q tiles first.
 //   4. reduce_kernel: dk, dv = the sum of the H / Kv per-head slots, in
 //      head order, rounded to the input type.
 // No atomics and no split whose order varies: the same inputs give the
 // same bytes, which a training run resumed from a checkpoint relies on.
 //
-// Tiles: 64 keys x 64 query rows for D 64 and 128, 32 x 32 for D 256
-// (shared memory: K, V, Q and do tiles of D + 1 floats a row, the +1 pad
-// spreading column walks over the 32 banks; P and dy tiles).  256
-// threads; causal and window blocks skip the tiles they cannot see, the
-// heaviest blocks first.
-//
-// What bounds it: 5 products of 2 * D operations per (row, key) pair seen
-// (QK^T, dO V^T, P^T dO, dy^T Q, dy K), 7 as run (dq_kernel recomputes QK^T
-// and dO V^T), against reading q, k, v, o, do once and writing dq, dk, dv:
-// at training shapes the operations.  On CUDA cores at f32 the kernel is
-// far above the tensor cores' bound (PERF.md has its times).
+// * "wgmma" (bf16 / f16, D 64 and 128): kernels 2 and 3 run on the tensor
+//   cores, fed by TMA, with the forward's building blocks (hopper.h).  A
+//   block is two consumer warpgroups of 64 resident rows each and one
+//   producer warpgroup (setmaxnreg 24 / 240) whose first thread loads the
+//   resident tiles once and streams 64-row tiles through a two-stage ring
+//   (128-byte swizzle; one mbarrier per stage for its loads, one that
+//   every consumer thread releases).  TMA reads rows past Tq or Tk as
+//   zeros; a padded row's lse of +inf gives it P = 0.
+//   - dk/dv (`dkdv_wgmma_kernel`): K and V resident, Q and dO streamed
+//     with their rows' lse and D (a bulk copy each).  Per q tile,
+//     S^T = K.Q^T and dP^T = V.dO^T are SS products with both operands
+//     K-major as they lie in memory; P^T = exp2(S^T scale log2e - lse
+//     log2e) (tanh first under a softcap; the causal and window masks
+//     only on a tile that crosses them); dS^T = P^T (dP^T - D) (times 1 -
+//     tanh^2 under a softcap); then dV += P^T.dO and dK += dS^T.Q are RS
+//     products: P^T and dS^T rounded to the input type as A fragments
+//     from registers, dO and Q read MN-major ("transposed"), so nothing is
+//     copied transposed.  At D 128 dk and dv take 128 f32 registers a
+//     consumer thread, S^T and dP^T 32 each.
+//   - dq (`dq_wgmma_kernel`): Q and dO resident with their rows' lse and
+//     D in registers, K and V streamed; S = Q.K^T and dP = dO.V^T as SS
+//     products, dS in registers, dQ += dS.K an RS product with K MN-major.
+//   - Each warpgroup skips the tiles no row of it sees (it still releases
+//     them); the branches around wgmma are warpgroup-uniform.
+//   - Against the bound: every product runs on the tensor cores from
+//     operands as they lie in memory, P and dS never leave registers, and
+//     the two consumer warpgroups of a block take turns on the tensor
+//     cores while the other computes P and dS.  At the training shape the
+//     four launches take about 1.8x the as-run bound on an H100 SXM at
+//     700 W (PERF.md has the times by kernel).
+// * "cuda_cores" (f32 at every D, and D 256): kernels 2 and 3 on f32
+//   CUDA-core FMAs out of shared memory (wgmma has no f32 inputs; D 256's
+//   dk and dv would take 256 registers a thread).  Tiles: 64 keys x 64
+//   query rows for D 64 and 128, 32 x 32 for D 256 (K, V, Q and do tiles
+//   of D + 1 floats a row, the +1 pad spreading column walks over the 32
+//   banks; P and dy tiles); 256 threads; causal and window blocks skip the
+//   tiles they cannot see, the heaviest blocks first.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -54,11 +95,13 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.h"
 #include "per_device.h"
 
 namespace fa_bwd {
 
-constexpr int kThreads = 256;  // 8 warps; a 16 x 16 grid of threads
+constexpr int kThreads = 256;  // CUDA-core kernels: 8 warps, a 16 x 16 grid
+constexpr int kRowPad = 128;   // the delta / lse2 buffers' row padding
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -97,18 +140,22 @@ struct Args {
   const void* o;
   const void* g;      // do, the output's gradient
   const float* lse;   // (B, H, Tq)
-  float* delta;       // (B, H, Tq) scratch: rowsum(do * o)
+  float* delta;       // (B, H, Tp) scratch: rowsum(do * o), 0 past Tq
+  float* lse2;        // (B, H, Tp) scratch: lse * log2(e), +inf past Tq
   float* dk_part;     // (B, H, Tk, D) scratch: dk per query head
-  float* dv_part;     // (B, H, Tk, D) scratch: dv per query head
+  float* dv_part;     // (B, H, Tk, Dv) scratch: dv per query head
   void* dq;           // (B, Tq, H, D), contiguous
   void* dk;           // (B, Tk, Kv, D), contiguous
-  void* dv;           // (B, Tk, Kv, D), contiguous
+  void* dv;           // (B, Tk, Kv, Dv), contiguous
   int64_t q_sb, q_st, q_sh;  // element strides: batch, token, head
   int64_t k_sb, k_st, k_sh;
   int64_t v_sb, v_st, v_sh;
   int64_t o_sb, o_st, o_sh;
   int64_t g_sb, g_st, g_sh;
-  int B, Tq, Tk, H, Kv, D;
+  int B, Tq, Tk, H, Kv;
+  int D;   // head dim of q and k
+  int Dv;  // head dim of v, o and do
+  int Tp;  // Tq rounded up to kRowPad
   float scale;
   float softcap;  // <= 0: off
   int causal;
@@ -122,26 +169,32 @@ __device__ __forceinline__ bool sees(const Args& a, int row, int key) {
   return live;
 }
 
-// -- 1. D = rowsum(do * o) -----------------------------------------------------
+// -- 1. D = rowsum(do * o), lse * log2(e) ----------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) delta_kernel(const Args a) {
   const int64_t row = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= static_cast<int64_t>(a.B) * a.Tq * a.H) return;
-  const int h = static_cast<int>(row % a.H);
-  const int t = static_cast<int>((row / a.H) % a.Tq);
-  const int b = static_cast<int>(row / (static_cast<int64_t>(a.H) * a.Tq));
-  const T* o = static_cast<const T*>(a.o) + b * a.o_sb + t * a.o_st + h * a.o_sh;
-  const T* g = static_cast<const T*>(a.g) + b * a.g_sb + t * a.g_st + h * a.g_sh;
+  if (row >= static_cast<int64_t>(a.B) * a.H * a.Tp) return;
+  const int t = static_cast<int>(row % a.Tp);  // warp-uniform
+  const int64_t bh = row / a.Tp;
+  const int h = static_cast<int>(bh % a.H);
+  const int b = static_cast<int>(bh / a.H);
   float s = 0.f;
-  for (int d = lane; d < a.D; d += 32) s = fmaf(to_f(o[d]), to_f(g[d]), s);
+  if (t < a.Tq) {
+    const T* o = static_cast<const T*>(a.o) + b * a.o_sb + t * a.o_st + h * a.o_sh;
+    const T* g = static_cast<const T*>(a.g) + b * a.g_sb + t * a.g_st + h * a.g_sh;
+    for (int d = lane; d < a.Dv; d += 32) s = fmaf(to_f(o[d]), to_f(g[d]), s);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) a.delta[(static_cast<int64_t>(b) * a.H + h) * a.Tq + t] = s;
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  }
+  if (lane == 0) {
+    a.delta[row] = s;
+    a.lse2[row] = t < a.Tq ? a.lse[bh * a.Tq + t] * kLog2e : INFINITY;
+  }
 }
 
-// -- shared tiles ---------------------------------------------------------------
+// -- the CUDA-core route: shared tiles ----------------------------------------
 
 // Shared memory of the dkdv and dq kernels, in floats: K and V tiles (BK
 // rows), Q and do tiles (BQ rows), each D + 1 floats a row; P and dy tiles
@@ -236,7 +289,7 @@ __device__ __forceinline__ void scores(const Args& a, float* sm, int q0, int k0)
   }
 }
 
-// -- 2. dk, dv per (kv tile, batch, query head) ------------------------------------
+// -- the CUDA-core route: dk, dv per (kv tile, batch, query head) -------------
 
 template <typename T, int D, int BK, int BQ>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
@@ -256,7 +309,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   const float* lse = a.lse + static_cast<int64_t>(bh) * a.Tq;
-  const float* delta = a.delta + static_cast<int64_t>(bh) * a.Tq;
+  const float* delta = a.delta + static_cast<int64_t>(bh) * a.Tp;
 
   load_tile<T, D, BK, L::RS>(sm + L::K, k, a.k_st, k0, a.Tk);
   load_tile<T, D, BK, L::RS>(sm + L::V, v, a.v_st, k0, a.Tk);
@@ -325,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
   }
 }
 
-// -- 3. dq per (q tile, batch, head) -------------------------------------------
+// -- the CUDA-core route: dq per (q tile, batch, head) ------------------------
 
 template <typename T, int D, int BK, int BQ>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
@@ -353,7 +406,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   for (int r = threadIdx.x; r < BQ; r += kThreads) {
     const bool in = q0 + r < a.Tq;
     sm[L::LSE + r] = in ? a.lse[static_cast<int64_t>(bh) * a.Tq + q0 + r] : INFINITY;
-    sm[L::DL + r] = in ? a.delta[static_cast<int64_t>(bh) * a.Tq + q0 + r] : 0.f;
+    sm[L::DL + r] = in ? a.delta[static_cast<int64_t>(bh) * a.Tp + q0 + r] : 0.f;
   }
 
   // the kv tiles with a key that a row of [q0, q0 + BQ) sees
@@ -402,27 +455,468 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   }
 }
 
-// -- 4. dk, dv = the sum over a kv head's query heads ------------------------------
+// -- both routes: dk, dv = the sum over a kv head's query heads ---------------
 
+// Element idx of a (B, Tk, Kv, W) output: the sum of its H / Kv query
+// heads' f32 slots of `part` ((B, H, Tk, W)), in head order (the same sum
+// every call), rounded to T.
+template <typename T>
+__device__ __forceinline__ void reduce_one(const Args& a, const float* part, T* out,
+                                           int64_t idx, int W) {
+  const int d = static_cast<int>(idx % W);
+  const int kvh = static_cast<int>((idx / W) % a.Kv);
+  const int t = static_cast<int>((idx / (static_cast<int64_t>(W) * a.Kv)) % a.Tk);
+  const int b = static_cast<int>(idx / (static_cast<int64_t>(W) * a.Kv * a.Tk));
+  const int rep = a.H / a.Kv;
+  float sum = 0.f;
+  for (int r = 0; r < rep; ++r)
+    sum += part[((static_cast<int64_t>(b) * a.H + kvh * rep + r) * a.Tk + t) * W + d];
+  out[idx] = from_f<T>(sum);
+}
+
+// dk, then dv: one thread an element.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) reduce_kernel(const Args a) {
-  const int64_t n = static_cast<int64_t>(a.B) * a.Tk * a.Kv * a.D;
+  const int64_t nk = static_cast<int64_t>(a.B) * a.Tk * a.Kv * a.D;
+  const int64_t nv = static_cast<int64_t>(a.B) * a.Tk * a.Kv * a.Dv;
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= n) return;
-  const int d = static_cast<int>(idx % a.D);
-  const int kvh = static_cast<int>((idx / a.D) % a.Kv);
-  const int t = static_cast<int>((idx / (static_cast<int64_t>(a.D) * a.Kv)) % a.Tk);
-  const int b = static_cast<int>(idx / (static_cast<int64_t>(a.D) * a.Kv * a.Tk));
-  const int rep = a.H / a.Kv;
-  float sk = 0.f, sv = 0.f;
-  for (int r = 0; r < rep; ++r) {  // in head order: the same sum every call
-    const int64_t at =
-        ((static_cast<int64_t>(b) * a.H + kvh * rep + r) * a.Tk + t) * a.D + d;
-    sk += a.dk_part[at];
-    sv += a.dv_part[at];
+  if (idx < nk)
+    reduce_one<T>(a, a.dk_part, static_cast<T*>(a.dk), idx, a.D);
+  else if (idx < nk + nv)
+    reduce_one<T>(a, a.dv_part, static_cast<T*>(a.dv), idx - nk, a.Dv);
+}
+
+// -- the wgmma route: tiles --------------------------------------------------
+
+constexpr int kNC = 2;      // consumer warpgroups a block
+constexpr int kStages = 2;  // the streamed tiles' ring depth
+
+// Shared memory of a tensor-core block, templated on the head dims of q/k
+// (DQK) and v/do (DV): two resident tiles of 128 rows (dk/dv: K and V;
+// dq: Q and dO), the rings of two streamed tiles of 64 rows (dk/dv: Q and
+// dO; dq: K and V), each stage's 64 rows of lse2 and delta (read by dk/dv
+// only), then the mbarriers (resident tiles loaded; per stage "full" and
+// "empty").  In both kernels tensor 0 of a pair has DQK columns and
+// tensor 1 DV; each tile is stored as column chunks of (rows x 128 bytes).
+template <int DQK, int DV>
+struct TcLayout {
+  static constexpr int BR = 64 * kNC;  // resident rows: 64 a consumer
+  static constexpr int THREADS = (kNC + 1) * 128;  // + the producer
+  static constexpr int HALF_BYTES = 64 * (DQK + DV) * 2;  // 64 rows of both
+  static constexpr int ST0_BYTES = 64 * DQK * 2;          // one streamed tile
+  static constexpr int ST1_BYTES = 64 * DV * 2;
+  static constexpr int RES0 = 0;
+  static constexpr int RES1 = RES0 + BR * DQK * 2;
+  static constexpr int ST0 = RES1 + BR * DV * 2;
+  static constexpr int ST1 = ST0 + kStages * ST0_BYTES;
+  static constexpr int ROWS = ST1 + kStages * ST1_BYTES;
+  static constexpr int ROW_BYTES = 2 * 64 * 4;  // lse2 then delta
+  static constexpr int BAR = ROWS + kStages * ROW_BYTES;
+  // + slack to align the dynamic base to the 1024-byte swizzle atom
+  static constexpr int SMEM = BAR + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// A tensor-core block's mbarriers, initialised by its first thread.
+struct Bars {
+  uint32_t res_full, full, empty;  // full and empty: + 8 * stage
+};
+
+template <typename L>
+__device__ __forceinline__ Bars init_bars(uint32_t base) {
+  const Bars bars{base + L::BAR, base + L::BAR + 8, base + L::BAR + 8 + 8 * kStages};
+  if (threadIdx.x == 0) {
+    mbar_init(bars.res_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars.full + 8 * s, 1);
+      mbar_init(bars.empty + 8 * s, kNC * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  static_cast<T*>(a.dk)[idx] = from_f<T>(sk);
-  static_cast<T*>(a.dv)[idx] = from_f<T>(sv);
+  __syncthreads();  // the last block-wide barrier: the roles part here
+  return bars;
+}
+
+// Rows [r0, r0 + 64) of one head of a tensor of D columns into a chunked
+// tile whose chunks hold `chunk_rows` rows, completing on `bar`.
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, int chunk_rows,
+                                          const CUtensorMap* map, uint32_t bar,
+                                          int head, int r0, int b) {
+  for (int c = 0; c < D / kChunk; ++c)
+    tma_load(dst + c * chunk_rows * kRowBytes, map, bar, c * kChunk, head, r0, b);
+}
+
+// The producer thread's resident load: rows [r0, r0 + 64 * halves) of
+// tensors 0 and 1 (one head) into the resident tiles, on res_full.
+template <typename L, int DQK, int DV>
+__device__ __forceinline__ void load_resident(uint32_t base, const Bars& bars,
+                                              const CUtensorMap* m0,
+                                              const CUtensorMap* m1, int head,
+                                              int r0, int halves, int b) {
+  mbar_expect_tx(bars.res_full, halves * L::HALF_BYTES);
+  for (int half = 0; half < halves; ++half) {
+    const uint32_t at = half * 64 * kRowBytes;
+    load_rows<DQK>(base + L::RES0 + at, L::BR, m0, bars.res_full, head,
+                   r0 + 64 * half, b);
+    load_rows<DV>(base + L::RES1 + at, L::BR, m1, bars.res_full, head,
+                  r0 + 64 * half, b);
+  }
+}
+
+// The producer thread's streamed load of tile `it` (rows r0 .. r0 + 64 of
+// tensors 0 and 1) into its stage, after the stage's last use is released.
+template <typename L, int DQK, int DV>
+__device__ __forceinline__ void load_stream(uint32_t base, const Bars& bars, int it,
+                                            const CUtensorMap* m0,
+                                            const CUtensorMap* m1, int head,
+                                            int r0, int b, int extra_bytes) {
+  const int s = it % kStages;
+  if (it >= kStages) mbar_wait(bars.empty + 8 * s, ((it / kStages) - 1) & 1);
+  const uint32_t bar = bars.full + 8 * s;
+  mbar_expect_tx(bar, L::HALF_BYTES + extra_bytes);
+  load_rows<DQK>(base + L::ST0 + s * L::ST0_BYTES, 64, m0, bar, head, r0, b);
+  load_rows<DV>(base + L::ST1 + s * L::ST1_BYTES, 64, m1, bar, head, r0, b);
+}
+
+// s = A0.B0^T over DQK columns and dp = A1.B1^T over DV (64 x 64 each,
+// f32): A rows of a resident tile (this warpgroup's 64 of 128), B a
+// streamed tile of 64 rows, both K-major.
+template <typename T, int DQK, int DV>
+__device__ __forceinline__ void issue_scores(float (&s)[32], float (&dp)[32],
+                                             uint32_t a0, uint32_t a1, uint32_t b0,
+                                             uint32_t b1) {
+  constexpr int BR = TcLayout<DQK, DV>::BR;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < DQK / 16; ++kk)
+    wgmma_ss<T>(s, kmajor_desc(a0, BR, kk), kmajor_desc(b0, 64, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < DV / 16; ++kk)
+    wgmma_ss<T>(dp, kmajor_desc(a1, BR, kk), kmajor_desc(b1, 64, kk), kk > 0);
+  wg_commit();
+}
+
+// acc[j] += A . B for the 64 columns of chunk j of N: A the packed 64 x 64
+// fragments, B a streamed tile of 64 rows and N columns read MN-major.
+template <typename T, int N>
+__device__ __forceinline__ void issue_rs(float (&acc)[N / kChunk][32],
+                                         const uint32_t (&a)[4][4], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < N / kChunk; ++j) wgmma_rs<T>(acc[j], a[kk], mnmajor_desc(b, kk, j));
+}
+
+// P and dS in place of the scores s and dp: p = exp2(y log2e - lse2),
+// ds = p (dp - delta) (times 1 - tanh^2 under a softcap).  Element i's
+// lse2 and delta come from `row_of(i)`.  Each variant is a loop under a
+// uniform branch, so that no tile pays for tanh unless it needs it.
+template <typename RowOf>
+__device__ __forceinline__ void grads(float (&s)[32], float (&dp)[32], bool capped,
+                                      float sl, float cap_in, float cap_out,
+                                      RowOf row_of) {
+  if (capped) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float lse2, del;
+      row_of(i, &lse2, &del);
+      const float t = tanhf(s[i] * cap_in);
+      const float p = ex2(fmaf(t, cap_out, -lse2));
+      s[i] = p;
+      dp[i] = p * (dp[i] - del) * (1.f - t * t);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float lse2, del;
+      row_of(i, &lse2, &del);
+      const float p = ex2(fmaf(s[i], sl, -lse2));
+      s[i] = p;
+      dp[i] = p * (dp[i] - del);
+    }
+  }
+}
+
+// The accumulator of keys key0 and key1 (64 x N, f32) times `mul` into
+// rows of N floats of `out`, keys past Tk skipped.
+template <int N>
+__device__ __forceinline__ void store_keys(float* out, const float (&acc)[N / kChunk][32],
+                                           int key0, int key1, int col, int Tk,
+                                           float mul) {
+#pragma unroll
+  for (int j = 0; j < N / kChunk; ++j) {
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const int c = kChunk * j + 8 * g + col;
+      if (key0 < Tk)
+        *reinterpret_cast<float2*>(out + static_cast<int64_t>(key0) * N + c) =
+            make_float2(acc[j][4 * g] * mul, acc[j][4 * g + 1] * mul);
+      if (key1 < Tk)
+        *reinterpret_cast<float2*>(out + static_cast<int64_t>(key1) * N + c) =
+            make_float2(acc[j][4 * g + 2] * mul, acc[j][4 * g + 3] * mul);
+    }
+  }
+}
+
+// -- the wgmma route: dk, dv per (128-key tile, batch, query head) ------------
+
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(TcLayout<DQK, DV>::THREADS, 1)
+    dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap gmap, const Args a) {
+  using L = TcLayout<DQK, DV>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const float* rows_smem = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::ROWS);
+
+  const int BH = a.B * a.H;
+  const int kt = static_cast<int>(blockIdx.x) / BH;  // under a causal mask the
+  const int bh = static_cast<int>(blockIdx.x) % BH;  // first keys see the most rows
+  const int b = bh / a.H, h = bh % a.H;
+  const int kvh = h / (a.H / a.Kv);
+  const int k0 = kt * L::BR;
+  // the 64-row q tiles with a row that may see a key of [k0, k0 + 128)
+  const int n_qt = (a.Tq + 63) / 64;
+  const int qt_begin = a.causal ? min(n_qt, k0 / 64) : 0;
+  int qt_end = n_qt;
+  if (a.window > 0) qt_end = min(n_qt, (k0 + L::BR - 2 + a.window) / 64 + 1);
+  const int n_it = max(0, qt_end - qt_begin);
+  const bool two = k0 + 64 < a.Tk;  // the second warpgroup has keys
+
+  const Bars bars = init_bars<L>(base);
+  const int wg = warpgroup();
+  if (wg == kNC) {
+    producer_regs<kNC>();
+    if (threadIdx.x == kNC * 128) {
+      load_resident<L, DQK, DV>(base, bars, &kmap, &vmap, kvh, k0, two ? 2 : 1, b);
+      const float* lse2 = a.lse2 + static_cast<int64_t>(bh) * a.Tp;
+      const float* delta = a.delta + static_cast<int64_t>(bh) * a.Tp;
+      for (int it = 0; it < n_it; ++it) {
+        const int q0 = (qt_begin + it) * 64;
+        load_stream<L, DQK, DV>(base, bars, it, &qmap, &gmap, h, q0, b, L::ROW_BYTES);
+        const uint32_t rows = base + L::ROWS + (it % kStages) * L::ROW_BYTES;
+        const uint32_t bar = bars.full + 8 * (it % kStages);
+        bulk_load(rows, lse2 + q0, 64 * 4, bar);
+        bulk_load(rows + 64 * 4, delta + q0, 64 * 4, bar);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup `wg` owns keys [ka, ka + 64); in the accumulator
+  // layout a thread holds keys key0 and key0 + 8, and q rows 8 g + col +
+  // {0, 1} of each streamed tile's 8-row group g
+  consumer_regs<kNC>();
+  const int ka = k0 + 64 * wg;
+  const bool keys = ka < a.Tk;  // warpgroup-uniform
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int key0 = ka + 16 * warp + lane / 4;
+  const int key1 = key0 + 8;
+  const int col = 2 * (lane % 4);
+  const bool capped = a.softcap > 0.f;
+  const float sl = a.scale * kLog2e;
+  const float cap_in = a.scale / a.softcap;
+  const float cap_out = a.softcap * kLog2e;
+  const uint32_t k_wg = base + L::RES0 + wg * 64 * kRowBytes;
+  const uint32_t v_wg = base + L::RES1 + wg * 64 * kRowBytes;
+
+  float dk[DQK / kChunk][32], dv[DV / kChunk][32];
+#pragma unroll
+  for (int j = 0; j < DQK / kChunk; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[j][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < DV / kChunk; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dv[j][i] = 0.f;
+  float s[32], dp[32];
+  uint32_t pa[4][4], da[4][4];
+
+  mbar_wait(bars.res_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    const int q0 = (qt_begin + it) * 64;
+    mbar_wait(bars.full + 8 * st, (it / kStages) & 1);
+    const bool dead = !keys || (a.causal && q0 + 63 < ka) ||
+                      (a.window > 0 && q0 - (ka + 63) >= a.window);
+    if (!dead) {
+      const uint32_t qs = base + L::ST0 + st * L::ST0_BYTES;
+      const uint32_t gs = base + L::ST1 + st * L::ST1_BYTES;
+      issue_scores<T, DQK, DV>(s, dp, k_wg, v_wg, qs, gs);
+      wg_wait<0>();
+      // element i: key (i & 2 ? key1 : key0), q row q0 + 8 (i / 4) + col + (i & 1)
+      const float* lse_s = rows_smem + st * (L::ROW_BYTES / 4);
+      const float* del_s = lse_s + 64;
+      grads(s, dp, capped, sl, cap_in, cap_out, [&](int i, float* l, float* d_) {
+        const int c = 8 * (i / 4) + col + (i & 1);
+        *l = lse_s[c];
+        *d_ = del_s[c];
+      });
+      const bool edge = (a.causal && ka + 63 > q0) ||
+                        (a.window > 0 && q0 + 63 - ka >= a.window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = (i & 2) ? key1 : key0;
+          const int row = q0 + 8 * (i / 4) + col + (i & 1);
+          bool live = true;
+          if (a.causal) live = row >= key;
+          if (a.window > 0) live = live && row - key < a.window;
+          if (!live) s[i] = dp[i] = 0.f;
+        }
+      }
+      float unused0, unused1;
+      pack_a<T>(s, pa, &unused0, &unused1);
+      pack_a<T>(dp, da, &unused0, &unused1);
+      wg_fence();
+      issue_rs<T, DV>(dv, pa, gs);
+      issue_rs<T, DQK>(dk, da, qs);
+      wg_commit();
+      wg_wait<0>();
+    }
+    mbar_arrive(bars.empty + 8 * st);
+  }
+  if (!keys) return;
+
+  // this query head's f32 slots: dk (times scale) and dv of the tile's keys
+  float* dkp = a.dk_part + static_cast<int64_t>(bh) * a.Tk * DQK;
+  float* dvp = a.dv_part + static_cast<int64_t>(bh) * a.Tk * DV;
+  store_keys<DQK>(dkp, dk, key0, key1, col, a.Tk, a.scale);
+  store_keys<DV>(dvp, dv, key0, key1, col, a.Tk, 1.f);
+}
+
+// -- the wgmma route: dq per (128-row q tile, batch, head) --------------------
+
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(TcLayout<DQK, DV>::THREADS, 1)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap gmap, const Args a) {
+  using L = TcLayout<DQK, DV>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+
+  const int BH = a.B * a.H;
+  const int n_qb = (a.Tq + L::BR - 1) / L::BR;
+  // causal: the last q tiles see the most kv tiles, so they run first
+  const int qb = a.causal ? n_qb - 1 - static_cast<int>(blockIdx.x) / BH
+                          : static_cast<int>(blockIdx.x) / BH;
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int b = bh / a.H, h = bh % a.H;
+  const int kvh = h / (a.H / a.Kv);
+  const int q0 = qb * L::BR;
+  // the 64-key tiles with a key that a row of [q0, q0 + 128) may see
+  const int n_kt = (a.Tk + 63) / 64;
+  const int kt_end = a.causal ? min(n_kt, (q0 + L::BR - 1) / 64 + 1) : n_kt;
+  const int kt_begin = a.window > 0 ? max(0, q0 - a.window + 1) / 64 : 0;
+  const int n_it = max(0, kt_end - kt_begin);
+  const bool two = q0 + 64 < a.Tq;  // the second warpgroup has rows
+
+  const Bars bars = init_bars<L>(base);
+  const int wg = warpgroup();
+  if (wg == kNC) {
+    producer_regs<kNC>();
+    if (threadIdx.x == kNC * 128) {
+      load_resident<L, DQK, DV>(base, bars, &qmap, &gmap, h, q0, two ? 2 : 1, b);
+      for (int it = 0; it < n_it; ++it)
+        load_stream<L, DQK, DV>(base, bars, it, &kmap, &vmap, kvh,
+                                (kt_begin + it) * 64, b, 0);
+    }
+    return;
+  }
+
+  // consumer warpgroup `wg` owns q rows [qa, qa + 64): a thread holds rows
+  // row0 and row0 + 8, and keys 8 g + col + {0, 1} of each 8-key group g
+  consumer_regs<kNC>();
+  const int qa = q0 + 64 * wg;
+  const bool rows = qa < a.Tq;  // warpgroup-uniform
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int row0 = qa + 16 * warp + lane / 4;
+  const int row1 = row0 + 8;
+  const int col = 2 * (lane % 4);
+  const bool capped = a.softcap > 0.f;
+  const float sl = a.scale * kLog2e;
+  const float cap_in = a.scale / a.softcap;
+  const float cap_out = a.softcap * kLog2e;
+  const uint32_t q_wg = base + L::RES0 + wg * 64 * kRowBytes;
+  const uint32_t g_wg = base + L::RES1 + wg * 64 * kRowBytes;
+  // the rows' lse2 and delta (padded: every row of the block has them)
+  const int64_t at = static_cast<int64_t>(bh) * a.Tp;
+  const float lse0 = a.lse2[at + row0], lse1 = a.lse2[at + row1];
+  const float del0 = a.delta[at + row0], del1 = a.delta[at + row1];
+
+  float dq[DQK / kChunk][32];
+#pragma unroll
+  for (int j = 0; j < DQK / kChunk; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[j][i] = 0.f;
+  float s[32], dp[32];
+  uint32_t da[4][4];
+
+  mbar_wait(bars.res_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    const int k0 = (kt_begin + it) * 64;
+    mbar_wait(bars.full + 8 * st, (it / kStages) & 1);
+    const bool dead = !rows || (a.causal && k0 > qa + 63) ||
+                      (a.window > 0 && qa - (k0 + 63) >= a.window);
+    if (!dead) {
+      const uint32_t ks = base + L::ST0 + st * L::ST0_BYTES;
+      const uint32_t vs = base + L::ST1 + st * L::ST1_BYTES;
+      issue_scores<T, DQK, DV>(s, dp, q_wg, g_wg, ks, vs);
+      wg_wait<0>();
+      // element i: row (i & 2 ? row1 : row0), key k0 + 8 (i / 4) + col + (i & 1)
+      grads(s, dp, capped, sl, cap_in, cap_out, [&](int i, float* l, float* d_) {
+        *l = (i & 2) ? lse1 : lse0;
+        *d_ = (i & 2) ? del1 : del0;
+      });
+      const bool edge = k0 + 64 > a.Tk || (a.causal && k0 + 63 > qa) ||
+                        (a.window > 0 && qa + 63 - k0 >= a.window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int row = (i & 2) ? row1 : row0;
+          const int key = k0 + 8 * (i / 4) + col + (i & 1);
+          bool live = key < a.Tk;
+          if (a.causal) live = live && row >= key;
+          if (a.window > 0) live = live && row - key < a.window;
+          if (!live) dp[i] = 0.f;
+        }
+      }
+      float unused0, unused1;
+      pack_a<T>(dp, da, &unused0, &unused1);
+      wg_fence();
+      issue_rs<T, DQK>(dq, da, ks);
+      wg_commit();
+      wg_wait<0>();
+    }
+    mbar_arrive(bars.empty + 8 * st);
+  }
+  if (!rows) return;
+
+  T* out = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int j = 0; j < DQK / kChunk; ++j) {
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const int c = kChunk * j + 8 * g + col;
+      float r0, r1;
+      if (row0 < a.Tq)
+        *reinterpret_cast<uint32_t*>(
+            out + ((static_cast<int64_t>(b) * a.Tq + row0) * a.H + h) * DQK + c) =
+            pack2<T>(dq[j][4 * g] * a.scale, dq[j][4 * g + 1] * a.scale, &r0, &r1);
+      if (row1 < a.Tq)
+        *reinterpret_cast<uint32_t*>(
+            out + ((static_cast<int64_t>(b) * a.Tq + row1) * a.H + h) * DQK + c) =
+            pack2<T>(dq[j][4 * g + 2] * a.scale, dq[j][4 * g + 3] * a.scale, &r0, &r1);
+    }
+  }
 }
 
 // -- host side -------------------------------------------------------------------
@@ -437,8 +931,22 @@ cudaError_t configure(Kernel kernel, int bytes, int device, PerDevice& done) {
 
 int blocks(int64_t threads) { return static_cast<int>((threads + kThreads - 1) / kThreads); }
 
+template <typename T>
+cudaError_t launch_delta(const Args& a, cudaStream_t stream) {
+  delta_kernel<T><<<blocks(static_cast<int64_t>(a.B) * a.H * a.Tp * 32), kThreads, 0,
+                    stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_reduce(const Args& a, cudaStream_t stream) {
+  reduce_kernel<T><<<blocks(static_cast<int64_t>(a.B) * a.Tk * a.Kv * (a.D + a.Dv)),
+                     kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, int BK, int BQ>
-cudaError_t launch_all(const Args& a, int device, cudaStream_t stream) {
+cudaError_t cc_launch(const Args& a, int device, cudaStream_t stream) {
   using L = Smem<D, BK, BQ>;
   static PerDevice dkdv_done, dq_done;  // the attributes, per kernel and device
   auto dkdv = dkdv_kernel<T, D, BK, BQ>;
@@ -448,29 +956,69 @@ cudaError_t launch_all(const Args& a, int device, cudaStream_t stream) {
   err = configure(dq, L::BYTES, device, dq_done);
   if (err != cudaSuccess) return err;
   const int BH = a.B * a.H;
-  delta_kernel<T><<<blocks(static_cast<int64_t>(BH) * a.Tq * 32), kThreads, 0, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_delta<T>(a, stream)) != cudaSuccess) return err;
   dkdv<<<((a.Tk + BK - 1) / BK) * BH, kThreads, L::BYTES, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   dq<<<((a.Tq + BQ - 1) / BQ) * BH, kThreads, L::BYTES, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  reduce_kernel<T><<<blocks(static_cast<int64_t>(a.B) * a.Tk * a.Kv * a.D), kThreads,
-                     0, stream>>>(a);
-  return cudaGetLastError();
+  return launch_reduce<T>(a, stream);
 }
 
 template <typename T>
-cudaError_t dispatch(const Args& a, int device, cudaStream_t stream) {
+cudaError_t cc_dispatch(const Args& a, int device, cudaStream_t stream) {
+  if (a.Dv != a.D) return cudaErrorInvalidValue;
   switch (a.D) {
     case 64:
-      return launch_all<T, 64, 64, 64>(a, device, stream);
+      return cc_launch<T, 64, 64, 64>(a, device, stream);
     case 128:
-      return launch_all<T, 128, 64, 64>(a, device, stream);
+      return cc_launch<T, 128, 64, 64>(a, device, stream);
     case 256:
-      return launch_all<T, 256, 32, 32>(a, device, stream);
+      return cc_launch<T, 256, 32, 32>(a, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <typename T, int DQK, int DV>
+cudaError_t tc_launch(const Args& a, const CUtensorMap (&m)[4], int device,
+                      cudaStream_t stream) {
+  using L = TcLayout<DQK, DV>;
+  static PerDevice dkdv_done, dq_done;  // the attributes, per kernel and device
+  auto dkdv = dkdv_wgmma_kernel<T, DQK, DV>;
+  auto dq = dq_wgmma_kernel<T, DQK, DV>;
+  cudaError_t err = configure(dkdv, L::SMEM, device, dkdv_done);
+  if (err != cudaSuccess) return err;
+  err = configure(dq, L::SMEM, device, dq_done);
+  if (err != cudaSuccess) return err;
+  const int BH = a.B * a.H;
+  if ((err = launch_delta<T>(a, stream)) != cudaSuccess) return err;
+  dkdv<<<((a.Tk + L::BR - 1) / L::BR) * BH, L::THREADS, L::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dq<<<((a.Tq + L::BR - 1) / L::BR) * BH, L::THREADS, L::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_reduce<T>(a, stream);
+}
+
+// The head dims the tensor-core route is built for: (64, 64), (128, 128).
+bool tc_built(int dqk, int dv) { return dqk == dv && (dqk == 64 || dqk == 128); }
+
+// Tensor maps of q, k, v and do (TMA: 16-byte aligned bases and strides,
+// which the wrapper's plan checks), then the kernels of the head dims.
+template <typename T>
+cudaError_t tc_dispatch(const Args& a, CUtensorMapDataType type, int device,
+                        cudaStream_t stream) {
+  const cudaError_t bound = bind_context(device);
+  if (bound != cudaSuccess) return bound;
+  CUtensorMap m[4];
+  if (!encode(&m[0], type, a.q, a.D, a.H, a.Tq, a.B, a.q_sh, a.q_st, a.q_sb) ||
+      !encode(&m[1], type, a.k, a.D, a.Kv, a.Tk, a.B, a.k_sh, a.k_st, a.k_sb) ||
+      !encode(&m[2], type, a.v, a.Dv, a.Kv, a.Tk, a.B, a.v_sh, a.v_st, a.v_sb) ||
+      !encode(&m[3], type, a.g, a.Dv, a.H, a.Tq, a.B, a.g_sh, a.g_st, a.g_sb))
+    return cudaErrorInvalidValue;
+  return a.D == 64 ? tc_launch<T, 64, 64>(a, m, device, stream)
+                   : tc_launch<T, 128, 128>(a, m, device, stream);
 }
 
 }  // namespace fa_bwd
@@ -486,44 +1034,59 @@ struct Params {
   int64_t o_sb, o_st, o_sh;
   int64_t g_sb, g_st, g_sh;  // of do
   int32_t dtype;  // 0 float32, 1 bfloat16, 2 float16
-  int32_t B, Tq, Tk, H, Kv, D;
+  int32_t B, Tq, Tk, H, Kv;
+  int32_t D;   // of q and k
+  int32_t Dv;  // of v, o and do
   int32_t causal;
   int32_t window;  // <= 0: none
+  int32_t route;   // 0 cuda_cores, 1 wgmma: the wrapper's plan
   float scale;
   float softcap;  // <= 0: off
   int32_t device;
 };
-static_assert(sizeof(Params) == 168 && offsetof(Params, dtype) == 120 &&
-                  offsetof(Params, scale) == 156 && offsetof(Params, device) == 164,
+static_assert(sizeof(Params) == 176 && offsetof(Params, dtype) == 120 &&
+                  offsetof(Params, route) == 160 && offsetof(Params, scale) == 164 &&
+                  offsetof(Params, device) == 172,
               "Params must match the wrapper's ctypes structure");
 
-// dq (B, Tq, H, D), dk and dv (B, Tk, Kv, D), contiguous in the input type,
-// from q, k, v, o, do (p->dtype, the head dim contiguous) and lse (f32, (B,
-// H, Tq) contiguous), on `stream`, without synchronising.  `delta` (B, H,
-// Tq) and `dk_part`, `dv_part` (B, H, Tk, D) are f32 scratch.  Returns a
-// cudaError_t (cudaErrorInvalidValue for an unsupported dtype or D).
+// dq (B, Tq, H, D), dk (B, Tk, Kv, D) and dv (B, Tk, Kv, Dv), contiguous in
+// the input type, from q, k (head dim D), v, o, do (Dv) of p->dtype, the
+// head dims contiguous, and lse (f32, (B, H, Tq) contiguous), on `stream`,
+// without synchronising.  `delta` and `lse2` (B, H, Tq rounded up to 128)
+// and `dk_part` (B, H, Tk, D), `dv_part` (B, H, Tk, Dv) are f32 scratch.
+// The route is "wgmma" for bf16 and f16 at (D, Dv) = (64, 64) or (128,
+// 128), else "cuda_cores" (square D only).  Returns a cudaError_t
+// (cudaErrorInvalidValue for an unsupported dtype or head dims, a route
+// other than this rule's, or a layout TMA refuses).
 extern "C" int flash_attention_bwd_launch(const Params* p, const void* q,
                                           const void* k, const void* v,
                                           const void* o, const void* g,
-                                          const float* lse, float* delta,
+                                          const float* lse, float* delta, float* lse2,
                                           float* dk_part, float* dv_part, void* dq,
                                           void* dk, void* dv, cudaStream_t stream) {
   if (p->B <= 0 || p->Tq <= 0 || p->Tk <= 0) return cudaSuccess;
   if (p->Kv <= 0 || p->H % p->Kv != 0 || p->device < 0 || p->device >= kMaxDevices)
     return cudaErrorInvalidValue;
-  const Args a{q,       k,       v,       o,       g,        lse,        delta,
-               dk_part, dv_part, dq,      dk,      dv,       p->q_sb,    p->q_st,
-               p->q_sh, p->k_sb, p->k_st, p->k_sh, p->v_sb,  p->v_st,    p->v_sh,
-               p->o_sb, p->o_st, p->o_sh, p->g_sb, p->g_st,  p->g_sh,    p->B,
-               p->Tq,   p->Tk,   p->H,    p->Kv,   p->D,     p->scale,   p->softcap,
-               p->causal, p->window};
+  const bool tc = p->dtype != 0 && tc_built(p->D, p->Dv);
+  if (p->route != (tc ? 1 : 0)) return cudaErrorInvalidValue;
+  const int Tp = (p->Tq + kRowPad - 1) / kRowPad * kRowPad;
+  const Args a{q,       k,       v,       o,       g,        lse,      delta,
+               lse2,    dk_part, dv_part, dq,      dk,       dv,       p->q_sb,
+               p->q_st, p->q_sh, p->k_sb, p->k_st, p->k_sh,  p->v_sb,  p->v_st,
+               p->v_sh, p->o_sb, p->o_st, p->o_sh, p->g_sb,  p->g_st,  p->g_sh,
+               p->B,    p->Tq,   p->Tk,   p->H,    p->Kv,    p->D,     p->Dv,
+               Tp,      p->scale, p->softcap, p->causal, p->window};
   switch (p->dtype) {
     case 0:
-      return dispatch<float>(a, p->device, stream);
+      return cc_dispatch<float>(a, p->device, stream);
     case 1:
-      return dispatch<__nv_bfloat16>(a, p->device, stream);
+      return tc ? tc_dispatch<__nv_bfloat16>(a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                             p->device, stream)
+                : cc_dispatch<__nv_bfloat16>(a, p->device, stream);
     case 2:
-      return dispatch<__half>(a, p->device, stream);
+      return tc ? tc_dispatch<__half>(a, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, p->device,
+                                      stream)
+                : cc_dispatch<__half>(a, p->device, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -14,12 +14,21 @@ head ``h`` reads kv head ``h // (H // Kv)``; dk and dv sum over the
 group), head dims 64, 128 and 256 (square), bf16, f16 and f32, any Tq.
 Anything else raises, MLA's (192, 128) included.
 
-The kernel is deterministic (no atomics, every sum in a fixed order), so
-a training run resumed from a checkpoint replays the same losses.  It is
-four launches a call (``rowsum(do·o)``; dk and dv per kv tile and query
-head; dq per q tile; the sum over each kv head's query heads) on f32
-CUDA-core FMAs: right first, fast later.  ``launches`` counts calls that
-launched it (one a call).
+:func:`_plan` picks the route, in pure Python:
+
+* ``"wgmma"`` for bf16 and f16 at head dims 64 and 128: the products on
+  the tensor cores, fed by TMA.  TMA binds the layout of q, k, v, o and
+  do: each base 16-byte aligned, the batch, token and head strides
+  multiples of 16 bytes, the head dim contiguous; anything else raises
+  ``ValueError``.
+* ``"cuda_cores"`` for f32 and head dim 256: the same algorithm on f32
+  CUDA-core FMAs (``wgmma`` has no f32 inputs).
+
+Either route is four launches a call (``rowsum(do·o)``; dk and dv per
+kv tile and query head; dq per q tile; the sum over each kv head's query
+heads) and deterministic (no atomics, every sum in a fixed order), so a
+training run resumed from a checkpoint replays the same losses.
+``launches`` counts calls that launched it (one a call).
 
 :func:`flash_attention_bwd_torch` is the plain version, the explicit
 formulas in f32: the CPU path and the yardstick on the card.
@@ -41,6 +50,7 @@ from repro_torch.kernels._build import _raw_stream
 from repro_torch.kernels.flash_attention import (
     DTYPE_CODES,
     HEAD_DIMS,
+    TMA_ALIGN,
     flash_attention,
     live_mask,
 )
@@ -50,6 +60,11 @@ __all__ = ["FlashAttention", "flash_attention_bwd", "flash_attention_bwd_torch",
 
 #: calls that launched the kernel so far (the plain CPU version does not count).
 launches = 0
+#: (q/k, v) head dims of the tensor-core route (bf16 and f16); the rest,
+#: and f32, run on CUDA cores.
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128))
+ROUTE_CODES = {"cuda_cores": 0, "wgmma": 1}
+ROW_PAD = 128  #: the kernel's per-row scratch (rowsum(do·o), lse) is padded to it
 _count_lock = threading.Lock()
 _entry = None
 
@@ -62,7 +77,8 @@ class _Params(ctypes.Structure):
             "q_sb", "q_st", "q_sh", "k_sb", "k_st", "k_sh", "v_sb", "v_st",
             "v_sh", "o_sb", "o_st", "o_sh", "g_sb", "g_st", "g_sh")]
         + [(n, ctypes.c_int32) for n in (
-            "dtype", "B", "Tq", "Tk", "H", "Kv", "D", "causal", "window")]
+            "dtype", "B", "Tq", "Tk", "H", "Kv", "D", "Dv", "causal",
+            "window", "route")]
         + [("scale", ctypes.c_float), ("softcap", ctypes.c_float),
            ("device", ctypes.c_int32)]
     )
@@ -73,7 +89,7 @@ def _launcher():
     if _entry is None:
         lib = _build.load("flash_attention_bwd")
         fn = lib.flash_attention_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 14
+        fn.argtypes = [ctypes.c_void_p] * 15
         fn.restype = ctypes.c_int
         err = lib.flash_attention_bwd_error
         err.argtypes = [ctypes.c_int]
@@ -151,7 +167,35 @@ def _check(q, k, v, o, do, lse) -> None:
         raise ValueError("the head dim of q, k, v, o and do must be contiguous")
 
 
+def _plan(q, k, v, o, do) -> str:
+    """The route of a call: ``"wgmma"`` for bf16 and f16 at head dims
+    :data:`WGMMA_HEAD_DIMS`, else ``"cuda_cores"``; raises ``ValueError`` on
+    bases or strides the tensor-core route's TMA loads refuse.  Reads only
+    shapes, strides, the dtype and the base addresses."""
+    if q.dtype == torch.float32 or (q.shape[3], v.shape[3]) not in WGMMA_HEAD_DIMS:
+        return "cuda_cores"
+    tensors = (q, k, v, o, do)  # head dims contiguous: `_check`
+    # 16-byte aligned bases and strides (8 elements of 2 bytes; one OR
+    # tests them all, since 8 is a power of two)
+    bases = 0
+    strides = 0
+    for t in tensors:
+        bases |= t.data_ptr()
+        for st in t.stride()[:3]:
+            strides |= st
+    if bases % TMA_ALIGN:
+        raise ValueError(f"q, k, v, o and do need {TMA_ALIGN}-byte aligned base "
+                         "addresses (TMA)")
+    if strides * q.element_size() % TMA_ALIGN:
+        raise ValueError(
+            f"the strides of q, k, v, o and do "
+            f"{[t.stride() for t in tensors]} must be multiples of "
+            f"{TMA_ALIGN} bytes (TMA)")
+    return "wgmma"
+
+
 class _Call(NamedTuple):
+    route: str
     params: _Params  # kept alive: the kernel reads it through `address`
     address: int
 
@@ -174,14 +218,15 @@ def _prepare(q, k, v, o, do, lse, causal, scale, softcap, window) -> _Call:
     _check_kernel(q, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    route = _plan(q, k, v, o, do)
     B, Tq, H, D = q.shape
     params = _Params(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *do.stride()[:3], DTYPE_CODES[q.dtype], B, Tq, k.shape[1], H,
-        k.shape[2], D, int(causal), window if window is not None else 0,
-        scale if scale is not None else 1.0 / math.sqrt(D),
+        k.shape[2], D, v.shape[3], int(causal), window if window is not None else 0,
+        ROUTE_CODES[route], scale if scale is not None else 1.0 / math.sqrt(D),
         softcap if softcap is not None else 0.0, q.get_device())
-    return _Call(params, ctypes.addressof(params))
+    return _Call(route, params, ctypes.addressof(params))
 
 
 def flash_attention_bwd(
@@ -219,6 +264,10 @@ def flash_attention_bwd(
         if len(_calls) >= _CALLS_MAX:
             _calls.clear()
         _calls[key] = call
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr())
+    if call.route == "wgmma" and (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]
+                                  | ptrs[4]) % TMA_ALIGN:
+        _plan(q, k, v, o, do)  # raises on the misaligned base
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -227,15 +276,14 @@ def flash_attention_bwd(
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     f32 = dict(dtype=torch.float32, device=q.device)
-    delta = torch.empty((B, H, Tq), **f32)
+    rows = torch.empty((2, B, H, -(-Tq // ROW_PAD) * ROW_PAD), **f32)  # delta, lse2
     dk_part = torch.empty((B, H, Tk, D), **f32)
-    dv_part = torch.empty((B, H, Tk, D), **f32)
+    dv_part = torch.empty((B, H, Tk, v.shape[3]), **f32)
     fn, err_str = _entry or _launcher()
     index = q.get_device()
-    args = (call.address, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk_part.data_ptr(), dv_part.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr())
+    args = (call.address, *ptrs, lse.data_ptr(), rows[0].data_ptr(),
+            rows[1].data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     if index == torch.cuda.current_device():
         err = fn(*args, _raw_stream(index))
     else:

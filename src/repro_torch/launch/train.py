@@ -8,7 +8,9 @@ as a Marvel-style stateful application:
     snapshots to the PMEM tier (files) every ``--checkpoint-every`` steps,
   * ``--fail-at N`` injects a crash at step N: every tensor of the device
     state is dropped, and the loop restores from the last durable
-    checkpoint and resumes: the paper's §4.3 fault-tolerance story,
+    checkpoint and resumes: the paper's §4.3 fault-tolerance story
+    (with ``--compress-grads`` the error-feedback residual is state too,
+    checkpointed under ``"ef"`` beside the reference's two keys),
   * the data pipeline is deterministic in (seed, step), and the step is
     deterministic on the card (the attention backward kernel has no
     atomics), so the resumed run replays the losses it would have had.
@@ -76,11 +78,36 @@ def restore_state(ckpt: CheckpointManager, cfg, device, step: Optional[int] = No
     durable one) on ``device``: the leaves the reference's launcher writes,
     ``{"params": leaves, "opt": leaves}``, so either package's
     checkpoints restore."""
+    params, opt, _ = _restore(ckpt, cfg, device, step)
+    return params, opt
+
+
+def _restore(ckpt: CheckpointManager, cfg, device, step: Optional[int] = None):
+    """(params, opt, ef): :func:`restore_state` plus the error-feedback
+    residual of a compressed run, stored under ``"ef"`` beside the
+    reference's two keys (None when the checkpoint has none)."""
     state = ckpt.restore(step)
     like_p, like_o = _skeleton(cfg)
     params = tree_unflatten(like_p, [to_tensor(x, device) for x in state["params"]])
     opt = tree_unflatten(like_o, [to_tensor(x, device) for x in state["opt"]])
-    return params, opt
+    ef = None
+    if "ef" in state:
+        from repro_torch.optim.compression import EFState
+        ef = EFState(residual=tree_unflatten(
+            like_p, [to_tensor(x, device) for x in state["ef"]]))
+    return params, opt, ef
+
+
+def _residual(ef, params, compress_grads: bool):
+    """The residual a run carries: none when it does not compress, else the
+    checkpoint's, or zeros when the checkpoint came from an uncompressed
+    run (or there is none)."""
+    if not compress_grads:
+        return None
+    if ef is None:
+        from repro_torch.optim.compression import ef_init
+        ef = ef_init(params)
+    return ef
 
 
 def _drop_device_state() -> None:
@@ -114,17 +141,15 @@ def train(
     step_fn = make_train_step(cfg, shape, opt_cfg, compress_grads=compress_grads,
                               device=device)
     start = ckpt.latest_step()
+    ef = None
     if start is not None:
-        params, opt = restore_state(ckpt, cfg, device)
+        params, opt, ef = _restore(ckpt, cfg, device)
         log(f"resumed from durable checkpoint @ step {start}")
     elif params is None:
         params, opt = init_state(cfg, device, seed)
     else:
         opt = adamw_init(params)
-    ef = None
-    if compress_grads:
-        from repro_torch.optim.compression import ef_init
-        ef = ef_init(params)
+    ef = _residual(ef, params, compress_grads)
     pipe = PipelineConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
                           global_batch=shape.global_batch)
     history: List[Dict[str, float]] = []
@@ -145,12 +170,14 @@ def train(
         if step % 5 == 0 or step == steps:
             log(f"step {step:5d}  loss {loss:.4f}  gnorm {gnorm:.3f}")
         if step % checkpoint_every == 0:
-            saves.append(ckpt.save(step, {"params": tree_leaves(params),
-                                          "opt": tree_leaves(opt)}))
+            state = {"params": tree_leaves(params), "opt": tree_leaves(opt)}
+            if ef is not None:  # the residual is state: a replay needs it
+                state["ef"] = tree_leaves(ef.residual)
+            saves.append(ckpt.save(step, state))
         if fail_at is not None and step == fail_at and not failed:
             failed = True
             log(f"!! injected crash at step {step}: dropping all state")
-            params = opt = metrics = out = None
+            params = opt = ef = metrics = out = None
             _drop_device_state()
             t0 = time.perf_counter()
             ckpt.wait()
@@ -158,7 +185,8 @@ def train(
             if restore_step is None:
                 raise SystemExit("no durable checkpoint: job lost (the "
                                  "stock-serverless failure the paper fixes)")
-            params, opt = restore_state(ckpt, cfg, device)
+            params, opt, ef = _restore(ckpt, cfg, device)
+            ef = _residual(ef, params, compress_grads)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             restores.append({"step": restore_step,

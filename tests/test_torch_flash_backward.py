@@ -8,8 +8,11 @@ a plain PyTorch version of its backward kernel
 log-sum-exp) and the autograd Function ``ops.flash_attention`` takes
 under grad.  Both must give the reference's dq, dk and dv on the same
 seeded f32 inputs: relative L2 error <= 1e-4 per gradient (f32 sums in
-another order).  The autograd guards of the kernels without a backward
-are checked on ``meta`` tensors, which stand in for the card.
+another order).  The autograd guards of the kernels without a backward,
+and the backward's route plan and TMA layout rules, are checked on
+``meta`` tensors, which stand in for the card.  The tensor-core route's
+rounding (Pᵀ and dSᵀ to bf16 before their products) is emulated on the
+CPU and held to ``chip_smoke.py``'s bf16 limit, 2e-2 (it reads 2.4e-3).
 """
 
 import jax
@@ -122,6 +125,110 @@ def test_backward_kernel_takes_square_head_dims_only():
 
 def _meta(*shape, grad=True):
     return torch.empty(*shape, device="meta").requires_grad_(grad)
+
+
+def _bwd_meta(dtype, D, B=1, T=64, H=8, Kv=2):
+    """q, k, v, o, do, lse of one backward call, on ``meta``."""
+    def t(*shape):
+        return torch.empty(*shape, device="meta", dtype=dtype)
+    return (t(B, T, H, D), t(B, T, Kv, D), t(B, T, Kv, D), t(B, T, H, D),
+            t(B, T, H, D), torch.empty(B, H, T, device="meta"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_backward_route_plan(dtype, D):
+    """bf16 and f16 at head dims 64 and 128 take the tensor cores; f32 and
+    head dim 256 the CUDA-core route.  The plan is pure Python: it reads
+    shapes, strides, the dtype and base addresses only."""
+    q, k, v, o, do, lse = _bwd_meta(dtype, D)
+    want = "wgmma" if dtype != torch.float32 and D in (64, 128) else "cuda_cores"
+    assert fb._plan(q, k, v, o, do) == want
+    assert fb._prepare(q, k, v, o, do, lse, True, None, None, None).route == want
+
+
+def _misaligned_base(t):
+    """``t``'s shape and strides, one element past an aligned base."""
+    flat = torch.empty(t.numel() + 1, device="meta", dtype=t.dtype)
+    return flat[1:].as_strided(t.shape, t.stride())
+
+
+def _misaligned_token_stride(t):
+    """``t``'s shape, its token rows 4 elements (8 bytes) apart too far."""
+    B, T, H, D = t.shape
+    big = torch.empty(B, T, H * D + 4, device="meta", dtype=t.dtype)
+    return big.as_strided(t.shape, (T * (H * D + 4), H * D + 4, D, 1))
+
+
+@pytest.mark.parametrize("which", range(5))
+@pytest.mark.parametrize("fault", ["base", "stride"])
+def test_backward_tma_layout_rules(which, fault):
+    """Each of q, k, v, o and do must have a 16-byte aligned base and
+    strides (TMA): the tensor-core route raises, the CUDA-core route (f32)
+    takes the same layout."""
+    bad = _misaligned_base if fault == "base" else _misaligned_token_stride
+    for dtype, raises in ((torch.bfloat16, True), (torch.float32, False)):
+        args = list(_bwd_meta(dtype, 128))
+        args[which] = bad(args[which])
+        if raises:
+            with pytest.raises(ValueError, match="TMA"):
+                fb._prepare(*args, True, None, None, None)
+        else:
+            assert fb._prepare(*args, True, None, None, None).route == "cuda_cores"
+
+
+def test_backward_refuses_non_square_head_dims_on_the_card():
+    q, k, v, o, do, lse = _bwd_meta(torch.bfloat16, 192)
+    v, o, do = (torch.empty(*t.shape[:3], 128, device="meta", dtype=t.dtype)
+                for t in (v, o, do))
+    with pytest.raises(ValueError, match="square"):
+        fb._prepare(q, k, v, o, do, lse, True, None, None, None)
+
+
+def _tensor_core_backward(q, k, v, o, do, lse, causal):
+    """The tensor-core route's arithmetic on the CPU: f32 products of the
+    bf16 inputs, with Pᵀ and dSᵀ rounded to bf16 before the products that
+    take them as A fragments (dV = Pᵀ·dO, dK = dSᵀ·Q, dQ = dS·K), and the
+    outputs rounded to bf16."""
+    B, T, H, D = q.shape
+    Kv = k.shape[2]
+    rep = H // Kv
+    scale = 1.0 / np.sqrt(D)
+    qf = q.float().reshape(B, T, Kv, rep, D)
+    gf = do.float().reshape(B, T, Kv, rep, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkrd,bckd->bkrqc", qf, kf) * scale
+    live = fa.live_mask(T, k.shape[1], causal, None, q.device)
+    p = torch.where(live, torch.exp(s - lse.reshape(B, Kv, rep, T, 1)), 0.0)
+    dp = torch.einsum("bqkrd,bckd->bkrqc", gf, vf)
+    delta = (gf * o.float().reshape(B, T, Kv, rep, D)).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (dp - delta[..., None])
+    p16, ds16 = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dv = torch.einsum("bkrqc,bqkrd->bckd", p16, gf)
+    dk = torch.einsum("bkrqc,bqkrd->bckd", ds16, qf) * scale
+    dq = torch.einsum("bkrqc,bckd->bqkrd", ds16, kf) * scale
+    return tuple(x.to(torch.bfloat16) for x in (dq.reshape(B, T, H, D), dk, dv))
+
+
+def test_tensor_core_rounding_holds_the_chip_tolerance():
+    """Rounding Pᵀ and dSᵀ to bf16, as the tensor-core route does, keeps
+    dq, dk and dv within ``chip_smoke.py``'s BWD_TOL[bfloat16] = 2e-2
+    (relative L2) of the f32 plain version at dh 128, T=256, GQA rep 8."""
+    rng = np.random.default_rng(21)
+    B, T, H, Kv, D = 1, 256, 8, 1, 128
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(torch.bfloat16)
+                   for s in ((B, T, H, D), (B, T, Kv, D), (B, T, Kv, D), (B, T, H, D)))
+    o, lse = fa.flash_attention_torch(q.float(), k.float(), v.float(),
+                                      return_lse=True)
+    o = o.to(torch.bfloat16)
+    got = _tensor_core_backward(q, k, v, o, do, lse, True)
+    want = fb.flash_attention_bwd_torch(q.float(), k.float(), v.float(), o.float(),
+                                        do.float(), lse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = _rel(g.float().numpy(), w.numpy())
+        assert err <= 2e-2, (name, err)
+        assert err > 0, name  # the rounding is really there
 
 
 def test_kernels_without_backward_refuse_grad_on_the_card():

@@ -382,6 +382,51 @@ def test_restart_replays_the_same_losses(tmp_path):
     assert [s.step for s in runs[1]["saves"]] == [4, 8]
 
 
+def _train_run(cfg, jcfg, ckpt_dir, steps, fail_at=None, compress=False):
+    params, _ = _port_state(cfg, _jparams_f32(jcfg))
+    ckpt = CheckpointManager(PmemTier(str(ckpt_dir)), "t", keep=2)
+    try:
+        return train(cfg, SHAPE, AdamWConfig(lr=3e-3, weight_decay=0.0), ckpt,
+                     steps=steps, checkpoint_every=4, fail_at=fail_at,
+                     compress_grads=compress, device="cpu", params=params,
+                     log=lambda s: None)
+    finally:
+        ckpt.close()
+
+
+def test_compressed_restart_replays_the_same_losses(tmp_path):
+    """With int8 gradient compression the error-feedback residual is state:
+    it is checkpointed under "ef" and restored at the crash, so the replay
+    of steps 5-8 equals the uninterrupted run's losses."""
+    jcfg, cfg = _cfgs("qwen2.5-3b")
+    runs = [_train_run(cfg, jcfg, tmp_path / name, 8, fail_at, compress=True)
+            for name, fail_at in (("clean", None), ("crash", 6))]
+    clean, crash = ([(h["step"], h["loss"]) for h in r["history"]] for r in runs)
+    assert [s for s, _ in crash] == [1, 2, 3, 4, 5, 6, 5, 6, 7, 8]
+    assert crash[:6] + crash[8:] == clean
+    assert crash[6:8] == clean[4:6]
+    assert runs[1]["restores"][0]["step"] == 4
+    ckpt = CheckpointManager(PmemTier(str(tmp_path / "crash")), "t", keep=2)
+    try:
+        state = ckpt.restore(8)
+    finally:
+        ckpt.close()
+    assert sorted(state) == ["ef", "opt", "params"]
+    assert len(state["ef"]) == len(state["params"])
+    assert any(np.abs(np.asarray(r)).max() > 0 for r in state["ef"])
+
+
+def test_compressed_run_resumes_its_residual_at_start(tmp_path):
+    """A compressed run stopped after step 4's checkpoint and started again
+    reads the residual from it: steps 5-8 equal an uninterrupted run's."""
+    jcfg, cfg = _cfgs("qwen2.5-3b")
+    clean = _train_run(cfg, jcfg, tmp_path / "clean", 8, compress=True)
+    _train_run(cfg, jcfg, tmp_path / "split", 4, compress=True)
+    resumed = _train_run(cfg, jcfg, tmp_path / "split", 8, compress=True)
+    want = [(h["step"], h["loss"]) for h in clean["history"]][4:]
+    assert [(h["step"], h["loss"]) for h in resumed["history"]] == want
+
+
 def test_reference_checkpoint_restores_in_the_port(tmp_path):
     jcfg, cfg = _cfgs("qwen2.5-3b")
     jp = _jparams_f32(jcfg)
