@@ -167,7 +167,30 @@ another sm_90a card).  It builds the port's CUDA kernels from
    and a crash at step 3: the replayed losses must equal the
    uninterrupted run's (checkpoint bytes, staging, drain and restore
    times printed);
-15. prints a ``kernels`` JSON line: each kernel's launches on its path
+15. training the recurrent mixers: holds the SSD chunk's backward kernel
+   (``csrc/ssd_scan_bwd.cu``) against its plain version (relative L2 of
+   dx, ddt, ddA_cs, dB, dC <= 1e-4, f32; every case run twice for the
+   same bits, every gradient finite): mamba2-2.7b's training shape (BC
+   16, Q 256, H 80, P 64, N 128, one B/C group), a ragged Q of 100,
+   per-head B/C at H 8, P = N = 16, and a strong decay (dt 0.7, A -1,
+   Q 256) whose upper-triangle exp overflows; times it at the training
+   shape (event and device ms, by kernel) beside the plain version and
+   its bound, and the forward there; then ``loss.backward()`` of
+   mamba2-2.7b at full width cut to 2 layers (seq 1024, f32, remat
+   "full") through both SSD kernels and through their plain versions,
+   every gradient within relative L2 1e-3 and the launches exactly 2 a
+   layer forward and 1 backward; then trains mamba2-2.7b at full width
+   (64 layers, 4 x 4096 tokens a step in 4 microbatches, remat "full",
+   bf16 compute, AdamW lr 3e-4, Mamba-2's published dt and A) for 4
+   steps and recurrentgemma-9b at full width cut to one period (5
+   blocks) for 3, each as phase 14 trains qwen2.5-3b: finite losses and
+   grad norms, the last loss below the first, ``ssd_chunk`` launched 512
+   times a step forward and its backward 256 (recurrentgemma: flash 8 and
+   4), no plain version reached, one profiled step's device ms split
+   into GEMMs, the flash and SSD kernels and the rest; and times the
+   flash backward (route ``cuda_cores``) and forward at recurrentgemma's
+   local training shape (16 heads of 256 over one, window 2048, T 4096);
+16. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
@@ -177,16 +200,20 @@ another sm_90a card).  It builds the port's CUDA kernels from
    the histogram, flash and decode; flash and decode also carry their
    launches on phase 8's path and on phases 11-13's, and their times at
    those paths' shapes: flash at recurrentgemma's local and deepseek's
-   MLA prefill, dbrx's and the training shape, decode at recurrentgemma's
+   MLA prefill, dbrx's and the training shapes, decode at recurrentgemma's
    ring and dbrx's), since an event-timed ``ms`` includes
    the wrapper's host time.  The ``flash_attention_bwd`` row counts its
    launches on the training path and carries SDPA's forward and backward
-   as its library time.  Decode and SSD must make one launch a call, of
-   their own kernel.
+   as its library time, and recurrentgemma's training launches and shape;
+   the ``ssd_chunk`` row its mamba2-2.7b training launches and shape, and
+   the ``ssd_chunk_bwd`` row its launches there, its checks and time.
+   Decode and the SSD forward must make one launch a call, of their own
+   kernel, the SSD backward three.
 
 The build prints ptxas's registers, shared memory and spills for every
-kernel, and fails if a flash forward, decode or SSD kernel, or one of
-the flash backward's tensor-core kernels, spills.  The serving
+kernel, and fails if a flash forward, decode or SSD forward kernel, or
+one of the flash backward's tensor-core kernels, spills (the SSD
+backward's CUDA-core kernels are printed, not held to it).  The serving
 phases' profiles also read one prefill's device time and the flash and
 SSD kernels' shares of it, and a decode step's launches and decode
 kernels.
@@ -1034,11 +1061,14 @@ WINDOW_PAD_S = 0.25
 EDGE_KERNELS = 256
 
 
-def traced(fn):
+def traced(fn, host: bool = True):
     """The profiler's events (``key_averages``) of ``fn()`` over the host
-    and the card, ``fn`` synchronised before the window closes, and what
-    the window lost: its launch-to-kernel lag (:func:`launch_lag_us`) and
-    the edge kernels whose records it did not return.
+    (unless ``host`` is False: then the card's records alone, which a
+    window of a hundred thousand launches needs, since the host's operator
+    events cost minutes to gather) and the card, ``fn`` synchronised
+    before the window closes, and what the window lost: its
+    launch-to-kernel lag (:func:`launch_lag_us`) and the edge kernels
+    whose records it did not return.
 
     In full runs the trace held back the records of a window's last
     kernels, 12 to 22 of them by the middle of a run (counted against the
@@ -1056,7 +1086,8 @@ def traced(fn):
             torch.cuda._sleep(1)
 
     prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+        *([torch.profiler.ProfilerActivity.CPU] if host else []),
+        torch.profiler.ProfilerActivity.CUDA])
     with prof:
         time.sleep(WINDOW_PAD_S)
         edge()
@@ -1123,8 +1154,9 @@ def measure_flash(q, k, v, kw) -> dict:
     alone from the profiler), and the bound: the larger of the operations
     (causal and window pairs counted, q.k over dh and p.v over dv) over the
     bf16 peak and the bytes over the memory rate.  SDPA is timed where it
-    computes the same function: a window that masks nothing, and head dims
-    it takes (``library_ms`` None where it refuses them)."""
+    computes the same function: no softcap, a window that masks given as
+    an explicit mask, and head dims it takes (``library_ms`` None where it
+    refuses them)."""
     from repro_torch.kernels import flash_attention as fa
 
     B, T, H, dh = q.shape
@@ -1133,10 +1165,13 @@ def measure_flash(q, k, v, kw) -> dict:
     window = kw.get("window")
     flash = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = (fa.live_mask(T, Tk, causal, window, q.device)
+            if window is not None and window < max(T, Tk) else None)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=causal, enable_gqa=True, scale=kw.get("scale"))
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True, scale=kw.get("scale"))
     library_ms = library_device = None
-    if kw.get("softcap") is None and (window is None or window >= max(T, Tk)):
+    if kw.get("softcap") is None:
         try:
             sdpa()
         except RuntimeError as exc:  # a yardstick only: record the refusal
@@ -2508,6 +2543,13 @@ CRASH_STEPS, CRASH_EVERY, CRASH_AT = 4, 2, 3
 #: of dq, dk, dv; the bf16/f16 limit is the forward's
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+SSD_BWD_TOL = 1e-4  # relative L2 per gradient: f32 CUDA-core FMAs against the plain version
+#: a 4096-token mamba2-2.7b microbatch: BC = 4096 / 256 chunks, Q, H, P, N
+SSD_TRAIN_SHAPE = (16, 256, 80, 64, 128)
+SSM_TRAIN_STEPS = 4
+RG_TRAIN_PERIODS = 1  # recurrentgemma-9b's 12 (R, R, L) periods cut to 1: 5 blocks
+RG_TRAIN_STEPS = 3
+SSD_BWD_KERNELS_PER_CALL = 3  # cb_kernel, head_kernel, group_kernel
 
 
 def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2617,24 +2659,56 @@ class _PlainFlash(torch.autograd.Function):
                 None, None, None, None)
 
 
-def phase_grad_check(dev, seed: int) -> dict:
-    """``loss.backward()`` of qwen2.5-3b at full width cut to 2 layers, one
-    sequence of 1024, f32, remat "full": through the kernels, then through
-    the plain versions of both (``_PlainFlash`` in place of the
-    wrapper); every parameter's gradient held to relative L2 GRAD_TOL."""
-    from repro_torch.configs import get_config
-    from repro_torch.data import PipelineConfig, make_batch
+def _kernel_pair(cfg):
+    """The modules of the forward and backward kernels that ``cfg``'s
+    gradient path runs, and the names the ``kernels`` line gives them:
+    the SSD chunk for Mamba-2, flash attention otherwise (RG-LRU's scan is
+    torch ops)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ssd_scan, ssd_scan_bwd
+
+    if cfg.ssm is not None:
+        return (ssd_scan, ssd_scan_bwd), ("ssd_chunk", "ssd_chunk_bwd")
+    return (fa, fb), ("flash_attention", "flash_attention_bwd")
+
+
+def _path_layers(cfg, mixers) -> tuple:
+    """Layers of ``cfg`` whose mixer is in ``mixers``: (in the body, whose
+    periods remat recomputes; in the prelude and postlude)."""
+    body = cfg.n_periods * sum(b.mixer in mixers for b in cfg.pattern)
+    rest = sum(b.mixer in mixers for b in (*cfg.prelude, *cfg.postlude))
+    return body, rest
+
+
+def _draw_train_params(cfg, seed: int, dev):
+    """f32 weights for a training phase: Mamba-2's published dt, A and
+    output scale (:func:`draw_ssm_params`), the attention projections at
+    their true fan-in otherwise (:func:`draw_params`)."""
+    draw = draw_ssm_params if cfg.ssm is not None else draw_params
+    params = draw(cfg, seed, dev)
+    _to_f32_in_place(params, dev)
+    return params
+
+
+def phase_grad_check(dev, seed: int, model: str = TRAIN_MODEL) -> dict:
+    """``loss.backward()`` of ``model`` at full width cut to 2 layers, one
+    sequence of 1024, f32, remat "full": through the kernels, then through
+    the plain versions of both (``_PlainFlash`` or ``_PlainSSD`` in place
+    of the wrapper); every parameter's gradient held to relative L2
+    GRAD_TOL, and the launches to 2 forward (the forward and remat's
+    recompute) and 1 backward a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, make_batch
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import autograd_leaves
     from repro_torch.models import forward
     from repro_torch.models.layers import chunked_ce_loss
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = replace(get_config(TRAIN_MODEL), n_periods=GRAD_LAYERS)
-    params = draw_params(cfg, seed, dev)
-    _to_f32_in_place(params, dev)
+    cfg = replace(get_config(model), n_periods=GRAD_LAYERS)
+    params = _draw_train_params(cfg, seed, dev)
+    (fwd, bwd), names = _kernel_pair(cfg)
     batch = make_batch(PipelineConfig(vocab=cfg.vocab, seq_len=GRAD_SEQ,
                                       global_batch=1), 0)
     tokens = torch.from_numpy(batch["tokens"]).to(dev)
@@ -2649,30 +2723,35 @@ def phase_grad_check(dev, seed: int) -> dict:
         torch.cuda.synchronize()
         return float(loss.detach()), tree_leaves(buf)
 
-    fa.launches = fb.launches = 0
+    fwd.launches = bwd.launches = 0
     loss_k, grads_k = grads()
-    launches = {"flash_attention": fa.launches, "flash_attention_bwd": fb.launches}
-    check(launches == {"flash_attention": 2 * GRAD_LAYERS,
-                       "flash_attention_bwd": GRAD_LAYERS},
-          f"gradient check: launches {launches} for {GRAD_LAYERS} layers under "
-          "remat full")
-    kernel_fn = ops.flash_attention
-    ops.flash_attention = lambda q, k, v, causal=True, scale=None, softcap=None, \
-        window=None: _PlainFlash.apply(q, k, v, causal, scale, softcap, window)
+    launches = {names[0]: fwd.launches, names[1]: bwd.launches}
+    want = {names[0]: 2 * GRAD_LAYERS, names[1]: GRAD_LAYERS}
+    check(launches == want, f"gradient check: launches {launches} for "
+          f"{GRAD_LAYERS} layers under remat full, want {want}")
+    if cfg.ssm is not None:
+        op, plain = "ssd_chunk", _PlainSSD.apply
+    else:
+        op = "flash_attention"
+
+        def plain(q, k, v, causal=True, scale=None, softcap=None, window=None):
+            return _PlainFlash.apply(q, k, v, causal, scale, softcap, window)
+    kernel_fn = getattr(ops, op)
+    setattr(ops, op, plain)
     try:
         loss_p, grads_p = grads()
     finally:
-        ops.flash_attention = kernel_fn
-    check(fa.launches == 2 * GRAD_LAYERS and fb.launches == GRAD_LAYERS,
+        setattr(ops, op, kernel_fn)
+    check({names[0]: fwd.launches, names[1]: bwd.launches} == want,
           "the plain pass launched a kernel")
     rels = [_rel_l2(a, b) for a, b in zip(grads_k, grads_p)]
     worst = max(rels)
     check(all(math.isfinite(r) for r in rels) and worst <= GRAD_TOL,
           f"gradient check: worst relative L2 {worst} > {GRAD_TOL}")
-    out = {"layers": GRAD_LAYERS, "seq": GRAD_SEQ, "dtype": "float32",
-           "loss_kernels": loss_k, "loss_plain": loss_p, "leaves": len(rels),
-           "worst_rel_l2": worst, "median_rel_l2": statistics.median(rels),
-           "tol": GRAD_TOL, **launches}
+    out = {"model": cfg.name, "layers": GRAD_LAYERS, "seq": GRAD_SEQ,
+           "dtype": "float32", "loss_kernels": loss_k, "loss_plain": loss_p,
+           "leaves": len(rels), "worst_rel_l2": worst,
+           "median_rel_l2": statistics.median(rels), "tol": GRAD_TOL, **launches}
     emit("train_grad_check", **out)
     del params, grads_k, grads_p
     free_card()
@@ -2690,63 +2769,84 @@ def _host_memory() -> dict:
 
 
 class _NoPlain:
-    """Within it, a call of either kernel's plain version fails: on the
-    card every gradient path must run the kernels."""
+    """Within it, a call of a kernel's plain version (flash attention's and
+    the SSD chunk's, forward and backward) fails: on the card every
+    gradient path must run the kernels."""
+
+    PLAIN = (("flash_attention", "flash_attention_torch"),
+             ("flash_attention_bwd", "flash_attention_bwd_torch"),
+             ("ssd_scan", "ssd_chunk_torch"),
+             ("ssd_scan_bwd", "ssd_chunk_bwd_torch"))
 
     def __enter__(self):
-        from repro_torch.kernels import flash_attention as fa
-        from repro_torch.kernels import flash_attention_bwd as fb
+        import importlib
 
         def refuse(*a, **k):
-            raise SmokeError("a plain attention version ran on the training path")
+            raise SmokeError("a kernel's plain version ran on the training path")
 
-        self.saved = (fa.flash_attention_torch, fb.flash_attention_bwd_torch)
-        fa.flash_attention_torch = fb.flash_attention_bwd_torch = refuse
+        self.saved = []
+        for module, name in self.PLAIN:
+            mod = importlib.import_module(f"repro_torch.kernels.{module}")
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, refuse)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import flash_attention as fa
-        from repro_torch.kernels import flash_attention_bwd as fb
-
-        fa.flash_attention_torch, fb.flash_attention_bwd_torch = self.saved
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
         return False
 
 
 GEMM_KEYS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
-FLASH_FWD_KEYS = ("flash_wgmma_kernel", "flash_f32_kernel")
-#: the backward's kernels live in the namespace ``fa_bwd`` (their names
-#: alone would also match PyTorch's ``at::native::reduce_kernel``)
-FLASH_BWD_KEYS = ("fa_bwd::",)
-#: on either route: delta, dk/dv, dq, the group's reduce
-FLASH_BWD_KERNELS_PER_CALL = 4
+#: device-kernel classes of a profiled step, by name: the kernels' own
+#: names (the backward kernels live in the namespaces ``fa_bwd`` and
+#: ``ssd_bwd``: their bare names would also match PyTorch's
+#: ``at::native::reduce_kernel``) and the kernels each launch makes
+KERNEL_CLASSES = (
+    ("flash_fwd", ("flash_wgmma_kernel", "flash_f32_kernel"), 1),
+    ("flash_bwd", ("fa_bwd::",), 4),  # delta, dk/dv, dq, the group's reduce
+    ("ssd_fwd", ("ssd_chunk_kernel",), 1),
+    ("ssd_bwd", ("ssd_bwd::",), SSD_BWD_KERNELS_PER_CALL),
+)
 
 
 def _split_device_ms(events) -> dict:
     """Device ms of a profiled window by kernel class: GEMMs, the flash
-    forward and backward kernels, everything else."""
-    split = {"gemm": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0, "other": 0.0}
+    forward and backward kernels, the SSD chunk's forward and backward,
+    everything else (and its largest kernels by name)."""
+    split = {"gemm": 0.0, **{c: 0.0 for c, _, _ in KERNEL_CLASSES}, "other": 0.0}
     counts = dict.fromkeys(split, 0)
+    others = []
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = e.key.lower()
-        cls = ("flash_fwd" if any(k in e.key for k in FLASH_FWD_KEYS) else
-               "flash_bwd" if any(k in e.key for k in FLASH_BWD_KEYS) else
-               "gemm" if any(k in name for k in GEMM_KEYS) else "other")
+        cls = next((c for c, keys, _ in KERNEL_CLASSES
+                    if any(k in e.key for k in keys)), None)
+        if cls is None:
+            name = e.key.lower()
+            cls = "gemm" if any(k in name for k in GEMM_KEYS) else "other"
         split[cls] += e.self_device_time_total / 1e3
         counts[cls] += e.count
-    return {"ms": split, "kernels": counts, "total_ms": sum(split.values())}
+        if cls == "other":
+            others.append((e.self_device_time_total / 1e3, e.count, e.key[:90]))
+    top = [{"ms": ms, "count": n, "name": name}
+           for ms, n, name in sorted(others, reverse=True)[:8]]
+    return {"ms": split, "kernels": counts, "total_ms": sum(split.values()),
+            "top_other": top}
 
 
-def phase_training(dev, seed: int) -> dict:
-    """qwen2.5-3b at full width, all 36 layers: TRAIN_STEPS AdamW steps of
-    TRAIN_BATCH sequences of TRAIN_SEQ tokens in TRAIN_MICROBATCHES
-    microbatches, remat "full", f32 masters, bf16 compute, through
-    ``make_train_step``.  Returns the kernels' launches on the path."""
+def phase_training(dev, seed: int, model: str = TRAIN_MODEL,
+                   steps: int = TRAIN_STEPS, n_periods=None) -> dict:
+    """``model`` at full width (its body cut to ``n_periods`` periods when
+    given): ``steps`` AdamW steps of TRAIN_BATCH sequences of TRAIN_SEQ
+    tokens in TRAIN_MICROBATCHES microbatches, remat "full", f32 masters,
+    bf16 compute, through ``make_train_step``, inside :class:`_NoPlain`.
+    Gates: finite losses and grad norms, the last loss below the first,
+    the path's forward kernel launched twice a body layer and once a
+    prelude or postlude layer each microbatch (remat recomputes the
+    body), its backward kernel once a layer.  Returns the launches."""
     from repro_torch.configs import get_config
     from repro_torch.data import PipelineConfig, make_batch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.launch import make_train_step
     from repro_torch.models import ShapeConfig
     from repro_torch.models.layers import chunked_ce_loss
@@ -2754,11 +2854,16 @@ def phase_training(dev, seed: int) -> dict:
     from repro_torch.tree import tree_leaves, tree_map
 
     t0 = time.perf_counter()
-    cfg = get_config(TRAIN_MODEL)
-    params = draw_params(cfg, seed, dev)
-    _to_f32_in_place(params, dev)
+    cfg = get_config(model)
+    if n_periods is not None:
+        cfg = replace(cfg, n_periods=n_periods)
+    params = _draw_train_params(cfg, seed, dev)
     opt = adamw_init(params)
     n_params = sum(p.numel() for p in tree_leaves(params))
+    (fwd, bwd), names = _kernel_pair(cfg)
+    body, rest = _path_layers(cfg, ("ssm",) if cfg.ssm is not None
+                              else ("attn", "local"))
+    want = ((2 * body + rest) * TRAIN_MICROBATCHES, (body + rest) * TRAIN_MICROBATCHES)
     shape = ShapeConfig(name="train_4k_cut", kind="train", seq_len=TRAIN_SEQ,
                         global_batch=TRAIN_BATCH, microbatches=TRAIN_MICROBATCHES,
                         q_chunk=512, kv_chunk=1024, loss_chunk=512, remat="full")
@@ -2769,48 +2874,52 @@ def phase_training(dev, seed: int) -> dict:
     emit("train_setup", model=cfg.name, layers=cfg.n_layers, params=n_params,
          state_bytes=12 * n_params, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
          microbatches=TRAIN_MICROBATCHES, remat=shape.remat, lr=TRAIN_LR,
-         setup_s=time.perf_counter() - t0,
+         steps=steps, setup_s=time.perf_counter() - t0,
          allocated_bytes=torch.cuda.memory_allocated())
     torch.cuda.reset_peak_memory_stats()
-    losses, norms, per_step = [], [], []
+    losses, norms, per_step, step_ms = [], [], [], []
     with _NoPlain():
-        fa.launches = fb.launches = 0  # the training path starts here
-        for step in range(TRAIN_STEPS):
-            before = (fa.launches, fb.launches)
+        fwd.launches = bwd.launches = 0  # the training path starts here
+        for step in range(steps):
+            before = (fwd.launches, bwd.launches)
             t = time.perf_counter()
             params, opt, m = step_fn(params, opt, make_batch(pipe, step))
             loss, gnorm = float(m["loss"]), float(m["grad_norm"])
             dt = time.perf_counter() - t
             losses.append(loss)
             norms.append(gnorm)
-            per_step.append((fa.launches - before[0], fb.launches - before[1]))
-            emit("train_step", step=step + 1, loss=loss, grad_norm=gnorm,
-                 step_ms=dt * 1e3, tokens=int(m["tokens"]),
+            step_ms.append(dt * 1e3)
+            per_step.append((fwd.launches - before[0], bwd.launches - before[1]))
+            emit("train_step", model=cfg.name, step=step + 1, loss=loss,
+                 grad_norm=gnorm, step_ms=dt * 1e3, tokens=int(m["tokens"]),
                  tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / dt,
-                 flash_launches=per_step[-1][0], flash_bwd_launches=per_step[-1][1])
-        launches = {"flash_attention": fa.launches, "flash_attention_bwd": fb.launches}
-    peak = torch.cuda.max_memory_allocated()
-    check(all(math.isfinite(x) for x in losses + norms),
-          f"training: non-finite loss or grad norm {losses} {norms}")
-    check(losses[-1] < losses[0], f"training: last loss {losses[-1]} not below "
-          f"the first {losses[0]}")
-    want = (2 * cfg.n_layers * TRAIN_MICROBATCHES, cfg.n_layers * TRAIN_MICROBATCHES)
-    check(all(s == want for s in per_step),
-          f"training: launches a step {per_step}, want {want} (forward and "
-          "remat recompute; backward)")
-    # one more step under the profiler: device ms by kernel class, each
-    # flash class's kernel records held to the wrappers' launches
-    before = (fa.launches, fb.launches)
-    events, lost = traced(lambda: step_fn(params, opt, make_batch(pipe, TRAIN_STEPS)))
-    traced_launches = (fa.launches - before[0], fb.launches - before[1])
+                 **{f"{names[0]}_launches": per_step[-1][0],
+                    f"{names[1]}_launches": per_step[-1][1]})
+        launches = {names[0]: fwd.launches, names[1]: bwd.launches}
+        peak = torch.cuda.max_memory_allocated()
+        check(all(math.isfinite(x) for x in losses + norms),
+              f"training {cfg.name}: non-finite loss or grad norm {losses} {norms}")
+        check(losses[-1] < losses[0], f"training {cfg.name}: last loss "
+              f"{losses[-1]} not below the first {losses[0]}")
+        check(all(s == want for s in per_step),
+              f"training {cfg.name}: launches a step {per_step}, want {want} "
+              "(forward and remat recompute; backward)")
+        # one more step under the profiler: device ms by kernel class, each
+        # kernel class's records held to the wrappers' launches
+        before = (fwd.launches, bwd.launches)
+        events, lost = traced(lambda: step_fn(params, opt, make_batch(pipe, steps)),
+                              host=False)
+        traced_launches = (fwd.launches - before[0], bwd.launches - before[1])
     split = _split_device_ms(events)
+    per_call = {c: n for c, _, n in KERNEL_CLASSES}
+    fwd_cls, bwd_cls = (("ssd_fwd", "ssd_bwd") if cfg.ssm is not None
+                        else ("flash_fwd", "flash_bwd"))
     check(traced_launches == per_step[0]
-          and split["kernels"]["flash_fwd"] == traced_launches[0]
-          and split["kernels"]["flash_bwd"]
-          == FLASH_BWD_KERNELS_PER_CALL * traced_launches[1],
-          f"the profiled step's flash kernel records {split['kernels']} do not "
+          and split["kernels"][fwd_cls] == traced_launches[0] * per_call[fwd_cls]
+          and split["kernels"][bwd_cls] == traced_launches[1] * per_call[bwd_cls],
+          f"the profiled step's kernel records {split['kernels']} do not "
           f"match its launches {traced_launches} (forward; backward, "
-          f"{FLASH_BWD_KERNELS_PER_CALL} kernels each)")
+          f"{per_call[bwd_cls]} kernels each)")
     # AdamW over the whole state, and the loss of one microbatch, alone
     grads = tree_map(torch.zeros_like, params)
     adamw_ms = time_ms(lambda: adamw_update(params, grads, opt,
@@ -2821,11 +2930,14 @@ def phase_training(dev, seed: int) -> dict:
                     device=dev, dtype=torch.bfloat16, requires_grad=True)
     unembed = params["unembed"].to(torch.bfloat16).requires_grad_()
     labels = torch.from_numpy(make_batch(pipe, 0)["labels"][:1]).to(dev)
-    loss_ms = time_ms(lambda: chunked_ce_loss(h, unembed, labels, t_chunk=512)[0]
+    loss_ms = time_ms(lambda: chunked_ce_loss(h, unembed, labels, t_chunk=512,
+                                              logit_softcap=cfg.final_softcap)[0]
                       .backward(), reps=3, warmup=1)
-    out = {"losses": losses, "grad_norms": norms, "launches": launches,
-           "launches_per_step": {"flash_attention": per_step[0][0],
-                                 "flash_attention_bwd": per_step[0][1]},
+    out = {"model": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3) for ms in step_ms],
+           "launches": launches,
+           "launches_per_step": {names[0]: per_step[0][0], names[1]: per_step[0][1]},
            "launches_each_step": per_step,
            "peak_allocated_bytes": peak, "profiled_step": split,
            "profile_lost": lost, "adamw_ms": adamw_ms,
@@ -2840,11 +2952,11 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
     """The backward kernel at the training shape: its route, event-timed
     ms (with the wrapper's host time) and device ms (in all and by
     kernel), beside the plain
-    version, SDPA's forward and backward (``enable_gqa``), and the bound:
-    5 products of 2·dh operations over each causal (row, key) pair at the
-    bf16 peak, against q, k, v, o, do and lse read once and dq, dk, dv
-    written once; ``bound_as_run_ms`` counts the 7 products the kernel
-    runs (its dq pass recomputes Q·Kᵀ and dO·Vᵀ)."""
+    version, SDPA's forward and backward (``enable_gqa``; a window that
+    masks as an explicit mask), and the bound: 5 products of 2·dh operations over each (row, key) pair the
+    mask keeps at the bf16 peak, against q, k, v, o, do and lse read once
+    and dq, dk, dv written once; ``bound_as_run_ms`` counts the 7 products
+    the kernel runs (its dq pass recomputes Q·Kᵀ and dO·Vᵀ)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2862,10 +2974,17 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
 
+    window = kw.get("window")
+    mask = (fa.live_mask(T, T, kw["causal"], window, q.device)
+            if window is not None and window < T else None)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=kw["causal"] and mask is None,
+            enable_gqa=True)
+
     def sdpa():
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=kw["causal"],
-                                             enable_gqa=True)
-        return torch.autograd.grad(out, (qt, kt, vt), dot)
+        return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
 
     library_ms = library_device = library_fwd_ms = None
     try:
@@ -2875,9 +2994,9 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
     else:
         library_ms, library_device = time_ms(sdpa), device_ms(sdpa)
         with torch.no_grad():
-            library_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=kw["causal"], enable_gqa=True))
-    pairs = T * (T + 1) // 2 if kw["causal"] else T * T
+            library_fwd_ms = time_ms(sdpa_fwd)
+    pairs = (sum(i + 1 - max(0, i - window + 1) for i in range(T)) if window
+             else T * (T + 1) // 2 if kw["causal"] else T * T)
     flops = 5 * 2 * dh * pairs * B * H
     # q, o, do read and dq written; k, v read and dk, dv written; lse read
     nbytes = q.element_size() * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
@@ -2885,7 +3004,7 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
     bytes_ms = bytes_bound_ms(nbytes)
     return {
         "shape": {"B": B, "T": T, "H": H, "Kv": k.shape[2], "dh": dh,
-                  "causal": kw["causal"], "dtype": str(q.dtype)},
+                  "causal": kw["causal"], "window": window, "dtype": str(q.dtype)},
         "kernel_route": fb._plan(q, k, v, o, do),
         "bound_as_run_ms": max(ops_ms * 7 / 5, bytes_ms),
         "kernel_ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
@@ -2967,6 +3086,145 @@ def phase_crash_restore(dev, seed: int, workdir: Path) -> dict:
            "run_s": {k: v["s"] for k, v in runs.items()}}
     emit("crash_restore", **out)
     return out
+
+
+# -- training the recurrent mixers: the SSD backward, Mamba-2, RG-LRU --------
+
+class SSDBwdRecord:
+    """Checks of the SSD backward kernel: its largest relative L2 and
+    absolute errors against the plain version, and the cases checked."""
+
+    def __init__(self) -> None:
+        self.max_rel_l2 = 0.0
+        self.max_abs_err = 0.0
+        self.checks = 0
+
+
+def ssd_bwd_inputs(g, dev, BC, Q, H, P, N, G=1, strong=False):
+    """x, dt, dA_cs, B and C by group (BC, Q, G, N), dy, dS; dA_cs the
+    within-chunk cumulative sum of dt * A with A in [-0.5, -0.05] per
+    head, or with ``strong`` dt 0.7 and A -1 (mamba2-2.7b's own init)."""
+    x = torch.randn(BC, Q, H, P, generator=g, device=dev)
+    dt = torch.rand(BC, Q, H, generator=g, device=dev)
+    A = -(torch.rand(H, generator=g, device=dev) * 0.45 + 0.05)
+    if strong:
+        dt.fill_(0.7)
+        A.fill_(-1.0)
+    dA = torch.cumsum(dt * A, 1)
+    Bm = torch.randn(BC, Q, G, N, generator=g, device=dev)
+    Cm = torch.randn(BC, Q, G, N, generator=g, device=dev)
+    dy = torch.randn(BC, Q, H, P, generator=g, device=dev)
+    dS = torch.randn(BC, H, P, N, generator=g, device=dev)
+    return x, dt, dA, Bm, Cm, dy, dS
+
+
+def ssd_bwd_case(rec: SSDBwdRecord, case: str, args) -> None:
+    """The backward kernel against its plain version on ``args``, per
+    gradient by relative L2, each call made twice for the same bits."""
+    from repro_torch.kernels import ssd_scan_bwd as sb
+
+    got = sb.ssd_chunk_bwd(*args)
+    again = sb.ssd_chunk_bwd(*args)
+    want = sb.ssd_chunk_bwd_torch(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"ssd_chunk_bwd {case}: two calls on the same inputs differ")
+    rels, abss = {}, {}
+    for name, g_, w in zip(("dx", "ddt", "ddA_cs", "dB", "dC"), got, want):
+        check(g_.shape == w.shape and g_.dtype == torch.float32
+              and bool(torch.isfinite(g_).all()),
+              f"ssd_chunk_bwd {case}: {name} {g_.dtype} {tuple(g_.shape)}, "
+              "or non-finite")
+        rels[name] = _rel_l2(g_, w)
+        abss[name] = float((g_ - w).abs().max()) if w.numel() else 0.0
+        check(rels[name] <= SSD_BWD_TOL,
+              f"ssd_chunk_bwd {case}: {name} relative L2 {rels[name]}")
+    rec.max_rel_l2 = max(rec.max_rel_l2, *rels.values())
+    rec.max_abs_err = max(rec.max_abs_err, *abss.values())
+    rec.checks += 1
+    x, Bm = args[0], args[3]
+    emit("ssd_bwd_case", case=case, shape=list(x.shape), groups=Bm.shape[2],
+         N=Bm.shape[3], rel_l2=rels, max_abs_err=abss, tol=SSD_BWD_TOL,
+         bit_identical_rerun=True, finite=True, ok=True)
+
+
+def phase_ssd_backward(dev, seed: int, rec: SSDBwdRecord):
+    """The SSD backward kernel against its plain version on the card;
+    returns the training shape's inputs."""
+    g = torch.Generator(device=dev).manual_seed(seed + 22)
+    train = ssd_bwd_inputs(g, dev, *SSD_TRAIN_SHAPE)
+    ssd_bwd_case(rec, "train_shape", train)
+    ssd_bwd_case(rec, "ragged_Q100", ssd_bwd_inputs(g, dev, 4, 100, 80, 64, 128))
+    ssd_bwd_case(rec, "per_head_BC_H8", ssd_bwd_inputs(g, dev, 4, 256, 8, 64, 128, G=8))
+    ssd_bwd_case(rec, "P16_N16", ssd_bwd_inputs(g, dev, 4, 200, 8, 16, 16))
+    # dt 0.7, A -1 over 256 rows: above the diagonal exp would overflow
+    strong = ssd_bwd_inputs(g, dev, 2, 256, 8, 64, 128, strong=True)
+    da = strong[2]
+    check(bool(torch.isinf(torch.exp(da[:, :, None] - da[:, None])).any()),
+          "the strong-decay case does not overflow exp")
+    ssd_bwd_case(rec, "strong_decay", strong)
+    return train
+
+
+def measure_ssd_bwd(x, dt, dA_cs, Bm, Cm, dy, dS) -> dict:
+    """The backward kernel at the training shape: event-timed ms (with the
+    wrapper's host time), device ms (in all and by kernel), the plain
+    version's ms (not a yardstick) and the bound: the larger of the bytes
+    (every input read once, every gradient written once) over the memory
+    rate and the operations (per head dW, W^T.Y, B.dS^T and x.dS; per
+    group C.B^T, dC and dB's dG^T.C) over the TF32 peak.  No single
+    PyTorch call computes it."""
+    from repro_torch.kernels import ssd_scan_bwd as sb
+
+    BC, Q, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    args = (x, dt, dA_cs, Bm, Cm, dy, dS)
+    bwd = lambda: sb.ssd_chunk_bwd(*args)  # noqa: E731
+    kernel_ms = time_ms(bwd)
+    dev_ms, per_call, names, lost = device_profile(bwd)
+    check(per_call == SSD_BWD_KERNELS_PER_CALL
+          and all("ssd_bwd::" in n for n in names),
+          f"ssd_chunk_bwd made {per_call} launches a call, of {names}")
+    plain_ms = time_ms(lambda: sb.ssd_chunk_bwd_torch(*args), reps=3, warmup=1)
+    pairs = Q * (Q + 1) // 2
+    flops = BC * (H * (2 * 2 * pairs * P + 2 * 2 * Q * P * N) + G * 3 * 2 * pairs * N)
+    # x, dy, dx; dS; dt, dA_cs, ddt, ddA_cs; B, C, dB, dC
+    nbytes = 4 * (3 * x.numel() + dS.numel() + 4 * dt.numel() + 4 * Bm.numel())
+    ops_ms = flops / TF32_FLOPS * 1e3
+    bytes_ms = bytes_bound_ms(nbytes)
+    return {
+        "shape": {"BC": BC, "Q": Q, "H": H, "P": P, "N": N, "G": G,
+                  "dtype": "float32"},
+        "kernel_route": "f32 FMAs on CUDA cores, 3 launches (C.B^T; per head; "
+                        "per group)",
+        "kernel_ms": kernel_ms, "device_ms": dev_ms, "device_ms_by_kernel": names,
+        "launches_per_call": per_call, "window_lost": lost, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+class _PlainSSD(torch.autograd.Function):
+    """The SSD chunk step through the plain versions of both kernels, for
+    the whole-model gradient check (B and C by group)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, dA_cs, Bm, Cm):
+        from repro_torch.kernels import ssd_scan
+        from repro_torch.kernels.ssd_scan_bwd import head_view
+
+        ctx.save_for_backward(x, dt, dA_cs, Bm, Cm)
+        H = x.shape[2]
+        return ssd_scan.ssd_chunk_torch(x, dt, dA_cs, head_view(Bm, H),
+                                        head_view(Cm, H))
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        from repro_torch.kernels import ssd_scan_bwd as sb
+
+        return sb.ssd_chunk_bwd_torch(*ctx.saved_tensors, dy, dS)
 
 
 def dbrx_path_shapes(dev, seed: int, cfg, prompt_len: int, steps: int) -> tuple:
@@ -3135,7 +3393,12 @@ def main(argv=None) -> int:
             SSM_CONVS, SSM_STEPS, SSM_LOSSLESS_STEPS, Path(workdir),
         )
     emit("phase_done", name="ssm_serving", s=time.perf_counter() - t0)
-    ssd_shape = measure_ssd(*ssd_last[0])
+    from repro_torch.kernels.ssd_scan_bwd import head_view
+
+    x, dt, da, Bg, Cg = ssd_last[0]  # ops.ssd_chunk takes B and C by group
+    ssd_shape = measure_ssd(x, dt, da, head_view(Bg, x.shape[2]),
+                            head_view(Cg, x.shape[2]))
+    del x, dt, da, Bg, Cg
     emit("ssd_path_shape", **ssd_shape)
     del ssd_last
     free_card()
@@ -3199,11 +3462,49 @@ def main(argv=None) -> int:
     emit("phase_done", name="training", s=time.perf_counter() - t0)
     train_launches = train_out["launches"]
 
+    # training the recurrent mixers: the SSD backward kernel, mamba2-2.7b's
+    # whole-model gradients and full-width steps, recurrentgemma-9b's steps
+    ssd_bwd_rec = SSDBwdRecord()
+    t0 = time.perf_counter()
+    sx, sdt, sda, sB, sC, sdy, sdS = phase_ssd_backward(dev, args.seed, ssd_bwd_rec)
+    ssd_bwd_shape = measure_ssd_bwd(sx, sdt, sda, sB, sC, sdy, sdS)
+    emit("ssd_bwd_train_shape", card=card, **ssd_bwd_shape)
+    H = sx.shape[2]
+    ssd_train_shape = measure_ssd(sx, sdt, sda, head_view(sB, H), head_view(sC, H))
+    emit("ssd_train_path_shape", **ssd_train_shape)
+    del sx, sdt, sda, sB, sC, sdy, sdS
+    free_card()
+    emit("phase_done", name="ssd_backward", s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_grad_check(dev, args.seed, SSM_MODEL)
+    ssm_train = phase_training(dev, args.seed, SSM_MODEL, SSM_TRAIN_STEPS)
+    emit("phase_done", name="mamba2_training", s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rg_cfg = get_config(RG_MODEL)
+    rg_train = phase_training(dev, args.seed, RG_MODEL, RG_TRAIN_STEPS,
+                              n_periods=RG_TRAIN_PERIODS)
+    # the flash kernels at its local attention's training shape: 16 heads
+    # of 256 over one kv head, window 2048 over 4096 tokens, bf16
+    g = torch.Generator(device=dev).manual_seed(args.seed + 23)
+    rkw = {"causal": True, "window": rg_cfg.pattern[-1].window}
+    rq, rk, rv = flash_inputs(g, dev, 1, TRAIN_SEQ, rg_cfg.n_heads, rg_cfg.n_kv_heads,
+                              rg_cfg.head_dim, torch.bfloat16)
+    rdo = _randn(g, rq.shape, torch.bfloat16, dev)
+    rg_bwd_shape = measure_flash_bwd(rq, rk, rv, rdo, rkw)
+    emit("flash_bwd_rg_train_shape", card=card, **rg_bwd_shape)
+    check(rg_bwd_shape["kernel_route"] == "cuda_cores",
+          f"recurrentgemma's backward took route {rg_bwd_shape['kernel_route']}")
+    rg_fwd_shape = measure_flash(rq, rk, rv, rkw)
+    emit("flash_rg_train_path_shape", **rg_fwd_shape)
+    del rq, rk, rv, rdo
+    free_card()
+    emit("phase_done", name="recurrentgemma_training", s=time.perf_counter() - t0)
+
     def path_row(m, launches):
         return {"shape": m["shape"], "launches": launches, "ms": m["kernel_ms"],
                 "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
                 "library_ms": m["library_ms"],
-                "library_device_ms": m["library_device_ms"],
+                "library_device_ms": m.get("library_device_ms"),
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"]}
 
     def row(name, source, replaces, n, record_err, checks, m, extra):
@@ -3247,8 +3548,13 @@ def main(argv=None) -> int:
              "dbrx-132b_2_layers": path_row(
                  dbrx_flash, moe_launches["flash_attention"]),
              "qwen2.5-3b_train_4k": path_row(
-                 flash_train_shape, train_launches["flash_attention"])},
-         "training_launches": train_launches["flash_attention"]},
+                 flash_train_shape, train_launches["flash_attention"]),
+             "recurrentgemma-9b_train_4k": path_row(
+                 rg_fwd_shape, rg_train["launches"]["flash_attention"])},
+         "training_launches": train_launches["flash_attention"],
+         "training_launches_recurrentgemma-9b": rg_train["launches"]["flash_attention"],
+         "launches_per_step_recurrentgemma-9b":
+             rg_train["launches_per_step"]["flash_attention"]},
         {**row("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
                "jax.vjp of src/repro/models/layers.py:112 chunked_attention",
                train_launches["flash_attention_bwd"], bwd_rec.max_abs_err,
@@ -3261,7 +3567,14 @@ def main(argv=None) -> int:
          "library_fwd_ms": bwd_shape["library_fwd_ms"],
          "fwd_bwd_ms": bwd_shape["fwd_bwd_ms"],
          "max_rel_l2": bwd_rec.max_rel_l2,
-         "launches_per_step": train_out["launches_per_step"]["flash_attention_bwd"]},
+         "launches_per_step": train_out["launches_per_step"]["flash_attention_bwd"],
+         "training_launches_recurrentgemma-9b":
+             rg_train["launches"]["flash_attention_bwd"],
+         "launches_per_step_recurrentgemma-9b":
+             rg_train["launches_per_step"]["flash_attention_bwd"],
+         "path_shapes": {"recurrentgemma-9b_train_4k": {
+             **path_row(rg_bwd_shape, rg_train["launches"]["flash_attention_bwd"]),
+             "kernel_route": rg_bwd_shape["kernel_route"]}}},
         {**row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                "src/repro/kernels/decode_attention.py:127",
                serve_launches["decode_attention"], decode_rec.max_abs_err,
@@ -3283,7 +3596,20 @@ def main(argv=None) -> int:
                ssd_rec.max_abs_err, ssd_rec.checks, ssd_shape,
                ssd_shape["shape"]),
          "kernel_route": ssd_shape["kernel_route"],
-         "device_ms": ssd_shape["device_ms"]},
+         "device_ms": ssd_shape["device_ms"],
+         "training_launches": ssm_train["launches"]["ssd_chunk"],
+         "launches_per_step": ssm_train["launches_per_step"]["ssd_chunk"],
+         "path_shapes": {"mamba2-2.7b_train_4k": path_row(
+             ssd_train_shape, ssm_train["launches"]["ssd_chunk"])}},
+        {**row("ssd_chunk_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
+               "jax.vjp of src/repro/models/ssm.py:64 _ssd_chunked",
+               ssm_train["launches"]["ssd_chunk_bwd"], ssd_bwd_rec.max_abs_err,
+               ssd_bwd_rec.checks, ssd_bwd_shape, ssd_bwd_shape["shape"]),
+         "kernel_route": ssd_bwd_shape["kernel_route"],
+         "device_ms": ssd_bwd_shape["device_ms"],
+         "device_ms_by_kernel": ssd_bwd_shape["device_ms_by_kernel"],
+         "max_rel_l2": ssd_bwd_rec.max_rel_l2,
+         "launches_per_step": ssm_train["launches_per_step"]["ssd_chunk_bwd"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

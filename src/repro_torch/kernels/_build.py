@@ -31,7 +31,7 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parents[1] / "build" / "repro_torch"
 SOURCES = ("bucket_histogram", "flash_attention", "flash_attention_bwd",
-           "decode_attention", "ssd_scan")
+           "decode_attention", "ssd_scan", "ssd_scan_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

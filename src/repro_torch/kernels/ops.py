@@ -8,7 +8,9 @@ reference's wrappers, the attention entry points take GQA as it comes
 (k/v with ``Kv`` heads) and read the caches in place, and the SSD entry
 point reads B/C through their strides (a head stride of 0 for a shared
 group): no repeated, transposed or broadcast copy.  It has no
-``head_block``: that is a TPU tiling choice.
+``head_block``: that is a TPU tiling choice.  Flash attention and the SSD
+chunk have backward kernels and differentiate under autograd; decode and
+the histogram raise there (``_build.forward_only``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from repro_torch.kernels.decode_attention import decode_attention as _decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention_bwd import FlashAttention
 from repro_torch.kernels.ssd_scan import ssd_chunk_fwd
+from repro_torch.kernels.ssd_scan_bwd import SSDChunk, head_view
 
 __all__ = [
     "flash_attention",
@@ -68,13 +71,20 @@ def ssd_chunk(
     x: torch.Tensor,  # (BC, Q, H, P)
     dt: torch.Tensor,  # (BC, Q, H)
     dA_cs: torch.Tensor,  # (BC, Q, H)
-    Bm: torch.Tensor,  # (BC, Q, H, N)
+    Bm: torch.Tensor,  # (BC, Q, G, N), G dividing H; G = H is per head
     Cm: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD within-chunk output and chunk states -> (y_diag (BC, Q, H, P),
-    states (BC, H, P, N)), f32."""
-    forward_only("ssd_chunk", x, dt, dA_cs, Bm, Cm)
-    return ssd_chunk_fwd(x, dt, dA_cs, Bm, Cm)
+    states (BC, H, P, N)), f32.  B and C come by group (head ``h`` reads
+    group ``h // (H // G)``); differentiable through the backward kernel
+    when an input requires grad."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, dA_cs, Bm, Cm)):
+        return SSDChunk.apply(x, dt, dA_cs, Bm, Cm)
+    if x.dim() != 4:
+        raise ValueError(f"want x (BC, Q, H, P), got {tuple(x.shape)}")
+    H = x.shape[2]
+    return ssd_chunk_fwd(x, dt, dA_cs, head_view(Bm, H), head_view(Cm, H))
 
 
 def shuffle_histogram(

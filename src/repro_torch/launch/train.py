@@ -16,12 +16,16 @@ as a Marvel-style stateful application:
     atomics), so the resumed run replays the losses it would have had.
 
 Only configurations whose mixers all have a backward on the card train
-there: the dense-attention ones (Mamba-2, RG-LRU, MLA and MoE wait for
-theirs).  The reference's mesh flags wait for the port's sharding.
+there: the dense-attention ones, Mamba-2 (the SSD chunk's backward
+kernel) and RG-LRU (a scan of torch ops; its local attention on the
+flash kernels).  MLA and MoE wait for theirs, and the reference's mesh
+flags wait for the port's sharding.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --steps 40 --reduced --ckpt-dir CKPT_DIR [--fail-at 25] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+      --full --seq 4096 --batch 4 --microbatches 4 --steps 4 --ckpt-dir CKPT_DIR
 """
 
 from __future__ import annotations

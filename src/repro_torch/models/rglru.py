@@ -87,16 +87,15 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Hillis–Steele over the pairs (a, b), which compose as ``(a_l, b_l) then
     (a_r, b_r) = (a_l a_r, a_r b_l + b_r)``: after the step of shift ``s``
     position ``t`` holds the composition of positions ``t-2s+1 .. t``.
-    ``ceil(log2 T)`` steps of a few elementwise launches each, on copies,
-    so the caller's tensors are not written."""
-    a, b = a.clone(), b.clone()
+    ``ceil(log2 T)`` steps of a few elementwise launches each.  Each step
+    builds new ``a`` and ``b`` and writes nothing in place: autograd keeps
+    views of every step's tensors for the backward pass."""
     T = a.shape[1]
     s = 1
     while s < T:
-        # the right side is evaluated in full before the assignment writes
-        b[:, s:] = b[:, s:] + a[:, s:] * b[:, :-s]
+        b = torch.cat((b[:, :s], b[:, s:] + a[:, s:] * b[:, :-s]), 1)
         if 2 * s < T:  # the last step needs no composed a
-            a[:, s:] = a[:, s:] * a[:, :-s]
+            a = torch.cat((a[:, :s], a[:, s:] * a[:, :-s]), 1)
         s *= 2
     return b
 

@@ -6,8 +6,12 @@ attention-like term and each chunk's state) runs on the SSD kernel through
 :func:`repro_torch.kernels.ops.ssd_chunk`; the inter-chunk recurrence is a
 Python loop over the chunks (the reference's ``lax.scan``) and the
 off-diagonal term a torch einsum, as the reference leaves both outside its
-Pallas kernel.  The single B/C group is handed to the kernel as an
-``expand`` view over the heads, not the reference's broadcast copy.
+Pallas kernel.  B and C go to the kernel by group, and the single group
+reaches it as an ``expand`` view over the heads, not the reference's
+broadcast copy.  Under autograd the chunk step differentiates through its
+backward kernel (``kernels/ssd_scan_bwd.py``), which sums each group's
+gradient over its heads; ``dA_cs = cumsum(dt * A)`` and the inter-chunk
+recurrence stay torch ops, which autograd differentiates.
 
 Decode state is ``(B, H, P, N)`` f32, constant in sequence length.
 :func:`ssm_decode` writes the new conv window and state into the cache it
@@ -23,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssd_scan_bwd import head_view
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device
@@ -65,12 +70,9 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
-    """``pad`` zero rows after the sequence axis (1).  A ``(B, L, H, N)``
-    view whose head axis has stride 0 stays one: one row is padded and
-    expanded again, so no per-head copy is made."""
-    if t.dim() == 4 and t.stride(2) == 0:
-        row = F.pad(t[:, :, :1], (0, 0, 0, 0, 0, pad))
-        return row.expand(-1, -1, t.shape[2], -1)
+    """``pad`` zero rows after the sequence axis (1).  B and C are padded
+    by group, before ``ops.ssd_chunk`` makes their head view, so a single
+    group still reaches the kernel through a head stride of 0."""
     return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
 
 
@@ -78,14 +80,14 @@ def _ssd_chunked(
     x: torch.Tensor,  # (B, L, H, P)
     dt: torch.Tensor,  # (B, L, H) f32, post-softplus
     A: torch.Tensor,  # (H,) f32, negative
-    Bm: torch.Tensor,  # (B, L, H, N), a head stride of 0 allowed
-    Cm: torch.Tensor,  # (B, L, H, N)
+    Bm: torch.Tensor,  # (B, L, G, N) by group, G dividing H (G = H: per head)
+    Cm: torch.Tensor,  # (B, L, G, N)
     chunk: int,
     h0: Optional[torch.Tensor] = None,  # (B, H, P, N) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan. Returns (y (B, L, H, P), final state (B, H, P, N))."""
     B_, L, H, P = x.shape
-    N = Bm.shape[-1]
+    G, N = Bm.shape[-2], Bm.shape[-1]
     Q = min(chunk, L)
     L_orig = L
     pad = (-L) % Q
@@ -97,8 +99,8 @@ def _ssd_chunked(
     nc = L // Q
     xc = x.reshape(B_ * nc, Q, H, P)
     dtc = dt.reshape(B_ * nc, Q, H)
-    Bc = Bm.reshape(B_ * nc, Q, H, N)
-    Cc = Cm.reshape(B_ * nc, Q, H, N)
+    Bc = Bm.reshape(B_ * nc, Q, G, N)
+    Cc = Cm.reshape(B_ * nc, Q, G, N)
 
     dA_cs = torch.cumsum(dtc * A, dim=1)  # within-chunk cumulative, negative
     y_diag, S = ops.ssd_chunk(xc, dtc, dA_cs, Bc, Cc)
@@ -119,7 +121,8 @@ def _ssd_chunked(
 
     # Off-diagonal term: y_off[i] = C_i . (exp(dA_cs[i]) h_enter)
     y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp",
-                         Cc.reshape(B_, nc, Q, H, N), h_enter, torch.exp(dA_cs))
+                         head_view(Cc, H).reshape(B_, nc, Q, H, N), h_enter,
+                         torch.exp(dA_cs))
     y = (y_diag + y_off).reshape(B_, L, H, P)[:, :L_orig]
     return y, h
 
@@ -186,8 +189,9 @@ def ssm_apply(
     u = _causal_conv(u_pre, p["conv_w"], p["conv_b"])
     xs, Bp, Cp = _split_conv(u, cfg)
     xh = xs.reshape(B_, T, H, P)
-    Bm = _group_heads(Bp, cfg)
-    Cm = _group_heads(Cp, cfg)
+    G, N = s.n_groups, s.d_state
+    Bm = Bp.float().reshape(B_, T, G, N)
+    Cm = Cp.float().reshape(B_, T, G, N)
     dt = F.softplus(dt_raw + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, h_final = _ssd_chunked(xh.float(), dt, A, Bm, Cm, s.chunk)

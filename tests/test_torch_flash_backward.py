@@ -236,9 +236,11 @@ def test_kernels_without_backward_refuse_grad_on_the_card():
     lengths = torch.ones(1, dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="no backward"):
         ops.decode_attention(q, kc, vc, lengths)
-    x, dt = _meta(1, 4, 2, 8), _meta(1, 4, 2)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.ssd_chunk(x, dt, dt, _meta(1, 4, 2, 8), _meta(1, 4, 2, 8))
+    # the SSD chunk has a backward kernel now: under autograd it takes its
+    # Function, which refuses a device it has no kernel for
+    x, dt = _meta(1, 4, 2, 16), _meta(1, 4, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.ssd_chunk(x, dt, dt, _meta(1, 4, 1, 16), _meta(1, 4, 1, 16))
     with pytest.raises(RuntimeError, match="no backward"):
         ops.shuffle_histogram(_meta(8), 4)
     # the guard itself: only grad mode, requires_grad and a non-CPU device

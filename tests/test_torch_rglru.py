@@ -131,3 +131,57 @@ def test_lam_stays_f32_under_a_weight_dtype(layer):
     assert conv["body"][0]["mixer"]["wa"].dtype == torch.float16
     assert conv["body"][0]["mixer"]["lam"].numpy().tobytes() == \
         jp["body"][0]["mixer"]["lam"].tobytes()
+
+
+def _jax_scan(a, b):
+    """The reference's prefill scan (``repro/models/rglru.py::rglru_apply``):
+    ``jax.lax.associative_scan`` over the pairs (a, b)."""
+    def combine(left, right):
+        a_l, b_l = left
+        a_r, b_r = right
+        return a_l * a_r, a_r * b_l + b_r
+
+    return jax.lax.associative_scan(combine, (a, b), axis=1)[1]
+
+
+@pytest.mark.parametrize("T", [1, 2, 7, 64, 100])
+def test_linear_scan_gradients_match_jax_vjp(T):
+    """``backward()`` through the scan against ``jax.vjp`` of the
+    reference's associative scan, on the same seeded a, b and cotangent.
+    f32; the two scans sum in different orders: relative L2 <= 1e-5."""
+    rng = np.random.default_rng(100 + T)
+    a = rng.uniform(0.5, 1.0, (2, T, 6)).astype(np.float32)
+    b = rng.standard_normal((2, T, 6)).astype(np.float32)
+    g = rng.standard_normal((2, T, 6)).astype(np.float32)
+    ta, tb = (torch.from_numpy(v).requires_grad_() for v in (a, b))
+    h = rglru._linear_scan(ta, tb)
+    h.backward(torch.from_numpy(g))
+    jh, vjp = jax.vjp(_jax_scan, jnp.asarray(a), jnp.asarray(b))
+    ja, jb = vjp(jnp.asarray(g))
+    if T == 1:  # h = b: a takes no part, and its gradient is 0
+        assert ta.grad is None and not np.asarray(ja).any()
+        ta.grad = torch.zeros_like(ta)
+    for got, want in ((h.detach(), jh), (ta.grad, ja), (tb.grad, jb)):
+        want = np.asarray(want, np.float64)
+        err = np.linalg.norm(got.numpy() - want) / max(np.linalg.norm(want), 1e-30)
+        assert err <= 1e-5, err
+
+
+def test_rglru_apply_gradients_match_jax_vjp(layer):
+    """The whole layer under ``backward()`` (the scan, gates, conv and
+    projections) against ``jax.vjp`` of the reference's ``rglru_apply``:
+    the input's and every weight's gradient within 1e-4 relative L2."""
+    jcfg, cfg, jp, p = layer
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 37, cfg.d_model)).astype(np.float32)
+    g = rng.standard_normal((2, 37, cfg.d_model)).astype(np.float32)
+    tp = {k: v.clone().requires_grad_() for k, v in p.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    rglru.rglru_apply(tp, tx, cfg).backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda q, v: jrglru.rglru_apply(q, v, jcfg), jp, jnp.asarray(x))
+    jgp, jgx = vjp(jnp.asarray(g))
+    pairs = [(tx.grad, jgx)] + [(tp[k].grad, jgp[k]) for k in jp]
+    for got, want in pairs:
+        want = np.asarray(want, np.float64)
+        err = np.linalg.norm(got.numpy() - want) / max(np.linalg.norm(want), 1e-30)
+        assert err <= TOL, err

@@ -70,7 +70,12 @@ JSHAPE = JShapeConfig(**dataclasses.asdict(SHAPE))
 #: scaled by sqrt(d), softcaps) amplifies f32 rounding: at this seed the
 #: reference's own f32 gradients lie 1.1e-4 from its f64 ones, the port's
 #: 0.9e-4, and the two 1.5e-4 apart; qwen2.5-3b's lie within 1e-4.
-TOL_GRAD = {"qwen2.5-3b": 1e-4, "gemma2-9b": 2e-4}
+#: recurrentgemma-9b's first RG-LRU layer does the same: its ``wa`` and
+#: ``lam`` gradients lie 1.3e-4 and 1.4e-4 from the reference's f64 ones
+#: in both packages, and 1.89e-4 apart (the worst leaf, the same at 1, 3
+#: and 8 threads); mamba2-2.7b's lie within 1.4e-6.
+TOL_GRAD = {"qwen2.5-3b": 1e-4, "gemma2-9b": 2e-4, "mamba2-2.7b": 2e-4,
+            "recurrentgemma-9b": 2e-4}
 
 
 def _cfgs(arch, window=None):
@@ -100,7 +105,9 @@ def _rel(a, b):
 
 # -- whole-model gradients ----------------------------------------------------
 
-@pytest.mark.parametrize("arch,window", [("qwen2.5-3b", None), ("gemma2-9b", 16)])
+@pytest.mark.parametrize("arch,window", [("qwen2.5-3b", None), ("gemma2-9b", 16),
+                                         ("mamba2-2.7b", None),
+                                         ("recurrentgemma-9b", 16)])
 def test_model_gradients_match_jax_value_and_grad(arch, window):
     jcfg, cfg = _cfgs(arch, window)
     jp = _jparams_f32(jcfg)
@@ -144,8 +151,13 @@ def _grads_under(policy, cfg, tp, batch):
 
 
 @pytest.mark.parametrize("policy", ["full", "dots", "save_block_out"])
-def test_remat_policies_give_the_gradients_of_none(policy):
-    jcfg, cfg = _cfgs("gemma2-9b", 16)  # post-block norms: every branch
+@pytest.mark.parametrize("arch,window", [
+    ("gemma2-9b", 16),  # post-block norms: every branch
+    ("mamba2-2.7b", None),  # the SSD chunk's autograd Function under remat
+    ("recurrentgemma-9b", 16),  # the RG-LRU scan and local attention
+])
+def test_remat_policies_give_the_gradients_of_none(policy, arch, window):
+    jcfg, cfg = _cfgs(arch, window)
     tp = from_jax_params(jax.tree_util.tree_map(np.asarray, _jparams_f32(jcfg)),
                          cfg, "cpu")
     batch = make_batch(PipelineConfig(vocab=cfg.vocab, seq_len=SEQ,
@@ -457,3 +469,21 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path):
     back = JCheckpointManager(JPmemTier(str(tmp_path / "back")), "p").restore()
     for a, b in zip(back["params"] + back["opt"], want):
         np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def test_launcher_trains_a_reduced_mamba2(tmp_path, capsys):
+    """``python -m repro_torch.launch.train --arch mamba2-2.7b`` on the CPU
+    (a reduced model, the SSD chunk's autograd Function on its plain
+    versions): 15 steps, the loss logged every 5 falls, and the run
+    checkpoints."""
+    from repro_torch.launch.train import main
+
+    main(["--arch", "mamba2-2.7b", "--steps", "15", "--batch", "4", "--seq", "32",
+          "--device", "cpu", "--checkpoint-every", "15",
+          "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    losses = [float(line.split("loss")[1].split()[0])
+              for line in out.splitlines() if line.startswith("step")]
+    assert len(losses) == 3 and np.isfinite(losses).all(), out
+    assert losses[0] > losses[1] > losses[2], losses
+    assert "done: 15 steps" in out
