@@ -145,11 +145,12 @@ another sm_90a card).  It builds the port's CUDA kernels from
    for f32), every case run twice for the same bits: the training shape
    (B=1, T=4096, H=16, Kv=2, dh 128, causal, bf16), dh 64 and 256 over
    one kv head, rep 1 not causal, gemma2-9b's softcap 50 and window 4096
-   over 4160 tokens, T=1000, f32, f16 with a window, and 1000 queries
-   over 1536 keys not causal with a softcap (TMA's rows past Tq); bf16
-   and f16 at dh 64 and 128 take the tensor-core route, dh 256 and f32
-   the CUDA-core one; times the backward at the training shape (event
-   and device ms) beside SDPA's forward and backward, the plain version
+   over 4160 tokens, T=1000, f32, f16 with a window at dh 64 and at dh
+   256 over 333 tokens, and 1000 queries over 1536 keys not causal with
+   a softcap (TMA's rows past Tq); bf16 and f16 take the tensor-core
+   route at every head dim, f32 the CUDA-core one; times the backward
+   at the training shape (event and device ms) beside SDPA's forward and
+   backward, the plain version
    and its bounds, and the forward at T=4096; then ``loss.backward()`` of qwen2.5-3b at full
    width cut to 2 layers (one sequence of 1024, f32, remat "full")
    through the kernels and through the plain versions, each parameter's
@@ -188,8 +189,9 @@ another sm_90a card).  It builds the port's CUDA kernels from
    times a step forward and its backward 256 (recurrentgemma: flash 8 and
    4), no plain version reached, one profiled step's device ms split
    into GEMMs, the flash and SSD kernels and the rest; and times the
-   flash backward (route ``cuda_cores``) and forward at recurrentgemma's
-   local training shape (16 heads of 256 over one, window 2048, T 4096);
+   flash backward (route ``wgmma``, its device ms below SDPA's forward
+   and backward) and forward at recurrentgemma's local training shape
+   (16 heads of 256 over one, window 2048, T 4096);
 16. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
@@ -211,9 +213,9 @@ another sm_90a card).  It builds the port's CUDA kernels from
    kernel, the SSD backward three.
 
 The build prints ptxas's registers, shared memory and spills for every
-kernel, and fails if a flash forward, decode or SSD forward kernel, or
-one of the flash backward's tensor-core kernels, spills (the SSD
-backward's CUDA-core kernels are printed, not held to it).  The serving
+kernel, and fails if a flash forward, decode, SSD forward or SSD backward
+kernel, or one of the flash backward's tensor-core kernels, spills (the
+flash backward's f32 CUDA-core kernels are printed, not held to it).  The serving
 phases' profiles also read one prefill's device time and the flash and
 SSD kernels' shares of it, and a decode step's launches and decode
 kernels.
@@ -2543,13 +2545,13 @@ CRASH_STEPS, CRASH_EVERY, CRASH_AT = 4, 2, 3
 #: of dq, dk, dv; the bf16/f16 limit is the forward's
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
-SSD_BWD_TOL = 1e-4  # relative L2 per gradient: f32 CUDA-core FMAs against the plain version
+SSD_BWD_TOL = 1e-4  # relative L2 per gradient: 3xTF32 products against the plain version
 #: a 4096-token mamba2-2.7b microbatch: BC = 4096 / 256 chunks, Q, H, P, N
 SSD_TRAIN_SHAPE = (16, 256, 80, 64, 128)
 SSM_TRAIN_STEPS = 4
 RG_TRAIN_PERIODS = 1  # recurrentgemma-9b's 12 (R, R, L) periods cut to 1: 5 blocks
 RG_TRAIN_STEPS = 3
-SSD_BWD_KERNELS_PER_CALL = 3  # cb_kernel, head_kernel, group_kernel
+SSD_BWD_KERNELS_PER_CALL = 3  # pair_kernel, head_kernel, group_kernel
 
 
 def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2630,6 +2632,10 @@ def phase_flash_backward(dev, seed: int, rec: BwdRecord):
     bwd_case(rec, "f32_route", *inputs(1, 1024, 16, 2, 128, f32), causal=True)
     bwd_case(rec, "f16_ragged", *inputs(2, 333, 8, 2, 64, torch.float16), causal=True,
              window=100)
+    # the split kernels at dh 256 in f16, ragged (the last 64-row tiles
+    # part empty), with a window that cuts the walks short
+    bwd_case(rec, "f16_dh256_ragged_window", *inputs(2, 333, 8, 2, 256, torch.float16),
+             causal=True, window=100)
     # fewer queries than keys, not causal: the q tiles' rows past Tq come
     # in as TMA's zeros; the softcap on the tensor-core route
     bwd_case(rec, "tq_lt_tk_full", *inputs(1, 1000, 16, 2, 128, bf16, Tk=1536),
@@ -3186,6 +3192,12 @@ def measure_ssd_bwd(x, dt, dA_cs, Bm, Cm, dy, dS) -> dict:
           and all("ssd_bwd::" in n for n in names),
           f"ssd_chunk_bwd made {per_call} launches a call, of {names}")
     plain_ms = time_ms(lambda: sb.ssd_chunk_bwd_torch(*args), reps=3, warmup=1)
+    # the kernel's scratch: C.B^T and dG, one (Qp, Qp) each per chunk and
+    # group, none per head
+    call = sb._prepare(*args)
+    check(call.scratch[:2] == (BC, G),
+          f"ssd_chunk_bwd scratch {call.scratch} is not per group")
+    scratch_bytes = 4 * (2 * math.prod(call.scratch) + math.prod(call.sums))
     pairs = Q * (Q + 1) // 2
     flops = BC * (H * (2 * 2 * pairs * P + 2 * 2 * Q * P * N) + G * 3 * 2 * pairs * N)
     # x, dy, dx; dS; dt, dA_cs, ddt, ddA_cs; B, C, dB, dC
@@ -3195,8 +3207,10 @@ def measure_ssd_bwd(x, dt, dA_cs, Bm, Cm, dy, dS) -> dict:
     return {
         "shape": {"BC": BC, "Q": Q, "H": H, "P": P, "N": N, "G": G,
                   "dtype": "float32"},
-        "kernel_route": "f32 FMAs on CUDA cores, 3 launches (C.B^T; per head; "
-                        "per group)",
+        "kernel_route": "3xTF32 on mma.sync, 3 launches (C.B^T and dG per "
+                        "group; per head; dB and dC per group)",
+        "scratch_shape": list(call.scratch), "sums_shape": list(call.sums),
+        "scratch_bytes": scratch_bytes,
         "kernel_ms": kernel_ms, "device_ms": dev_ms, "device_ms_by_kernel": names,
         "launches_per_call": per_call, "window_lost": lost, "plain_ms": plain_ms,
         "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
@@ -3320,10 +3334,12 @@ def main(argv=None) -> int:
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
          build_s=build_s, sources=list(_build.SOURCES))
     spills = ptxas_report(_build.build_logs)
-    # the backward's CUDA-core route (f32, dh 256) is not held to it
+    # the flash backward's CUDA-core route (f32) is not held to it
     tc_spills = {fn: n for (src, fn), n in spills.items()
-                 if (src in ("flash_attention", "decode_attention", "ssd_scan")
-                     or (src == "flash_attention_bwd" and "wgmma" in fn))
+                 if (src in ("flash_attention", "decode_attention", "ssd_scan",
+                             "ssd_scan_bwd")
+                     or (src == "flash_attention_bwd"
+                         and ("wgmma" in fn or "wide" in fn)))
                  and n}
     check(not tc_spills, f"ptxas spills in the tensor-core kernels: {tc_spills}")
     phase_first_launch_threads(dev, args.seed)
@@ -3492,8 +3508,12 @@ def main(argv=None) -> int:
     rdo = _randn(g, rq.shape, torch.bfloat16, dev)
     rg_bwd_shape = measure_flash_bwd(rq, rk, rv, rdo, rkw)
     emit("flash_bwd_rg_train_shape", card=card, **rg_bwd_shape)
-    check(rg_bwd_shape["kernel_route"] == "cuda_cores",
+    check(rg_bwd_shape["kernel_route"] == "wgmma",
           f"recurrentgemma's backward took route {rg_bwd_shape['kernel_route']}")
+    check(rg_bwd_shape["library_device_ms"] is not None
+          and rg_bwd_shape["device_ms"] < rg_bwd_shape["library_device_ms"],
+          f"recurrentgemma's backward takes {rg_bwd_shape['device_ms']} device ms, "
+          f"SDPA's forward and backward {rg_bwd_shape['library_device_ms']}")
     rg_fwd_shape = measure_flash(rq, rk, rv, rkw)
     emit("flash_rg_train_path_shape", **rg_fwd_shape)
     del rq, rk, rv, rdo

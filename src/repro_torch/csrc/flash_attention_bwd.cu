@@ -3,8 +3,9 @@
 // forward's output o and its per-row log-sum-exp `lse` (f32, (B, H, Tq)),
 // and the output's gradient do, for causal or full attention with GQA, an
 // optional softcap and sliding window, any Tq and Tk.  Head dims D in {64,
-// 128, 256}, square: the tensor-core kernels are templates on the pair
-// (DQK, DV), as the forward's are, but MLA's (192, 128) is not built yet.
+// 128, 256}, square: the tensor-core kernels at D 64 and 128 are templates
+// on the pair (DQK, DV), as the forward's are, but MLA's (192, 128) is not
+// built yet.
 // bf16, f16 and f32.
 //
 // Replaces the TPU side's jax.vjp of the XLA twin of the Pallas forward
@@ -48,7 +49,7 @@
 // No atomics and no split whose order varies: the same inputs give the
 // same bytes, which a training run resumed from a checkpoint relies on.
 //
-// * "wgmma" (bf16 / f16, D 64 and 128): kernels 2 and 3 run on the tensor
+// * "wgmma" (bf16 / f16, D 64, 128 and 256): kernels 2 and 3 run on the tensor
 //   cores, fed by TMA, with the forward's building blocks (hopper.h).  A
 //   block is two consumer warpgroups of 64 resident rows each and one
 //   producer warpgroup (setmaxnreg 24 / 240) whose first thread loads the
@@ -78,9 +79,31 @@
 //     cores while the other computes P and dS.  At the training shape the
 //     four launches take about 1.8x the as-run bound on an H100 SXM at
 //     700 W (PERF.md has the times by kernel).
-// * "cuda_cores" (f32 at every D, and D 256): kernels 2 and 3 on f32
-//   CUDA-core FMAs out of shared memory (wgmma has no f32 inputs; D 256's
-//   dk and dv would take 256 registers a thread).  Tiles: 64 keys x 64
+//   - D 256 (`dkdv_wide_kernel`, `dq_wide_kernel`): the layout above
+//     cannot hold it.  A warpgroup's dk and dv over 256 columns would take
+//     256 f32 registers a thread, and 128 resident rows of two 256-wide
+//     tiles plus two stages of two streamed ones need 256 KB of shared
+//     memory.  So a block keeps 64 resident rows (K and V 64 KB; Q and dO
+//     streamed, 128 KB) and splits the head dim between its consumer
+//     warpgroups: each owns 128 columns of dk and dv (or of dq), 128
+//     accumulator registers.  The two score products are split instead:
+//     warpgroup 0 takes S^T = K.Q^T, warpgroup 1 dP^T = V.dO^T, each over
+//     all 256 columns, at the same time.  Warpgroup 0 writes P^T to
+//     shared memory in the input type (the 128-byte-swizzled K-major
+//     layout TMA gives the other tiles) and hands P (1 - tanh^2) over in
+//     f32 through a 16 KB exchange tile; warpgroup 1 makes dS^T there and
+//     writes it beside P^T.  Both 64 x 64 tiles then feed dV += P^T.dO and
+//     dK += dS^T.Q as shared-memory operands, each warpgroup over its own
+//     columns of dO and Q (read MN-major).  Named barriers order the hand-
+//     overs (P^T and the exchange tile written; dS^T written; each tile
+//     read before it is written again).  The dq kernel is the same with Q
+//     and dO resident: S and dP split, dS through shared memory, dQ += dS.K
+//     split by columns.  Every q tile of a 64-key block's walk (and every
+//     key tile of a q block's) has a row that sees a key, so none is
+//     skipped; the causal and window masks act on the tiles that cross
+//     them.  226 KB of shared memory, one block an SM.
+// * "cuda_cores" (f32 at every D): kernels 2 and 3 on f32 CUDA-core FMAs
+//   out of shared memory (wgmma has no f32 inputs).  Tiles: 64 keys x 64
 //   query rows for D 64 and 128, 32 x 32 for D 256 (K, V, Q and do tiles
 //   of D + 1 floats a row, the +1 pad spreading column walks over the 32
 //   banks; P and dy tiles); 256 threads; causal and window blocks skip the
@@ -637,22 +660,23 @@ __device__ __forceinline__ void grads(float (&s)[32], float (&dp)[32], bool capp
   }
 }
 
-// The accumulator of keys key0 and key1 (64 x N, f32) times `mul` into
-// rows of N floats of `out`, keys past Tk skipped.
-template <int N>
-__device__ __forceinline__ void store_keys(float* out, const float (&acc)[N / kChunk][32],
+// The accumulator of keys key0 and key1 (64 x 64 CH, f32) times `mul`
+// into the first 64 CH floats of rows STRIDE floats apart of `out`, keys
+// past Tk skipped.
+template <int CH, int STRIDE>
+__device__ __forceinline__ void store_keys(float* out, const float (&acc)[CH][32],
                                            int key0, int key1, int col, int Tk,
                                            float mul) {
 #pragma unroll
-  for (int j = 0; j < N / kChunk; ++j) {
+  for (int j = 0; j < CH; ++j) {
 #pragma unroll
     for (int g = 0; g < 8; ++g) {
       const int c = kChunk * j + 8 * g + col;
       if (key0 < Tk)
-        *reinterpret_cast<float2*>(out + static_cast<int64_t>(key0) * N + c) =
+        *reinterpret_cast<float2*>(out + static_cast<int64_t>(key0) * STRIDE + c) =
             make_float2(acc[j][4 * g] * mul, acc[j][4 * g + 1] * mul);
       if (key1 < Tk)
-        *reinterpret_cast<float2*>(out + static_cast<int64_t>(key1) * N + c) =
+        *reinterpret_cast<float2*>(out + static_cast<int64_t>(key1) * STRIDE + c) =
             make_float2(acc[j][4 * g + 2] * mul, acc[j][4 * g + 3] * mul);
     }
   }
@@ -785,8 +809,8 @@ __global__ void __launch_bounds__(TcLayout<DQK, DV>::THREADS, 1)
   // this query head's f32 slots: dk (times scale) and dv of the tile's keys
   float* dkp = a.dk_part + static_cast<int64_t>(bh) * a.Tk * DQK;
   float* dvp = a.dv_part + static_cast<int64_t>(bh) * a.Tk * DV;
-  store_keys<DQK>(dkp, dk, key0, key1, col, a.Tk, a.scale);
-  store_keys<DV>(dvp, dv, key0, key1, col, a.Tk, 1.f);
+  store_keys<DQK / kChunk, DQK>(dkp, dk, key0, key1, col, a.Tk, a.scale);
+  store_keys<DV / kChunk, DV>(dvp, dv, key0, key1, col, a.Tk, 1.f);
 }
 
 // -- the wgmma route: dq per (128-row q tile, batch, head) --------------------
@@ -919,6 +943,374 @@ __global__ void __launch_bounds__(TcLayout<DQK, DV>::THREADS, 1)
   }
 }
 
+// -- the wgmma route at head dim 256: the head dim split over the consumers --
+
+constexpr int kWide = 256;  // the head dim of the split kernels
+
+// Named barriers between the two consumer warpgroups of a split block.
+enum : int {
+  kBarP = 1,      // warpgroup 0 has written P^T and the exchange tile
+  kBarDS = 2,     // warpgroup 1 has written dS^T (dq: dS)
+  kBarDone0 = 3,  // warpgroup 0 has read the last dS^T (dq: dS)
+  kBarDone1 = 4,  // warpgroup 1 has read the last P^T and exchange tile
+};
+
+// Shared memory of a split block (one layout for both kernels): two
+// resident tiles of 64 rows x 256 columns (dk/dv: K and V; dq: Q and dO),
+// the rings of two streamed tiles of 64 rows (dk/dv: Q and dO; dq: K and
+// V), two 64 x 64 operand tiles in the input type (dk/dv: P^T and dS^T;
+// dq: dS in the second), the f32 exchange tile (32 floats a consumer
+// thread: P (1 - tanh^2) of the elements it holds), each stage's 64 rows
+// of lse2 and delta (dk/dv), then the mbarriers: 226 KB of the 227.
+struct WideLayout {
+  static constexpr int THREADS = (kNC + 1) * 128;
+  static constexpr int TILE = 64 * kWide * 2;
+  static constexpr int OP_BYTES = 64 * 64 * 2;
+  static constexpr int RES0 = 0;
+  static constexpr int RES1 = RES0 + TILE;
+  static constexpr int ST0 = RES1 + TILE;
+  static constexpr int ST1 = ST0 + kStages * TILE;
+  static constexpr int OPA = ST1 + kStages * TILE;
+  static constexpr int OPB = OPA + OP_BYTES;
+  static constexpr int XCH = OPB + OP_BYTES;
+  static constexpr int ROWS = XCH + 32 * 128 * 4;
+  static constexpr int ROW_BYTES = 2 * 64 * 4;  // lse2 then delta
+  static constexpr int BAR = ROWS + kStages * ROW_BYTES;
+  static constexpr int SMEM = BAR + 8 * (1 + 2 * kStages) + 1024;
+};
+static_assert(WideLayout::SMEM <= 232448, "a split block must fit one SM");
+
+// The producer thread's streamed load of tile `it` (64 rows at r0 of both
+// tensors) into its stage, after the stage's last use is released.
+__device__ __forceinline__ void load_wide(uint32_t base, const Bars& bars, int it,
+                                          const CUtensorMap* m0,
+                                          const CUtensorMap* m1, int head, int r0,
+                                          int b, int extra_bytes) {
+  using L = WideLayout;
+  const int s = it % kStages;
+  if (it >= kStages) mbar_wait(bars.empty + 8 * s, ((it / kStages) - 1) & 1);
+  const uint32_t bar = bars.full + 8 * s;
+  mbar_expect_tx(bar, 2 * L::TILE + extra_bytes);
+  load_rows<kWide>(base + L::ST0 + s * L::TILE, 64, m0, bar, head, r0, b);
+  load_rows<kWide>(base + L::ST1 + s * L::TILE, 64, m1, bar, head, r0, b);
+}
+
+// s = A.B^T over the 256 columns (64 x 64, f32): A a resident tile, B a
+// streamed tile, both K-major; waits for it.
+template <typename T>
+__device__ __forceinline__ void wide_scores(float (&s)[32], uint32_t a, uint32_t b) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kWide / 16; ++kk)
+    wgmma_ss<T>(s, kmajor_desc(a, 64, kk), kmajor_desc(b, 64, kk), kk > 0);
+  wg_commit();
+  wg_wait<0>();
+}
+
+// acc[j] += A . B[:, 128 wg + 64 j ..] over 64 rows: A an operand tile, B
+// a streamed tile read MN-major.
+template <typename T>
+__device__ __forceinline__ void wide_half(float (&acc)[2][32], uint32_t a,
+                                          uint32_t b, int wg) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wgmma_ss_tb<T>(acc[j], kmajor_desc(a, 64, kk), mnmajor_desc(b, kk, 2 * wg + j));
+}
+
+// dk, dv per (64-key tile, batch, query head) at head dim 256.  K and V
+// resident, Q and dO streamed.  Per q tile warpgroup 0 takes S^T = K.Q^T
+// and warpgroup 1 dP^T = V.dO^T, each over all 256 columns; warpgroup 0
+// turns S^T into P^T, writes it to shared memory in the input type and
+// hands P (1 - tanh^2) over in f32; warpgroup 1 makes dS^T = that times
+// (dP^T - D) and writes it beside P^T; then each warpgroup adds P^T.dO and
+// dS^T.Q to its own 128 columns of dv and dk (128 f32 registers).
+template <typename T>
+__global__ void __launch_bounds__(WideLayout::THREADS, 1)
+    dkdv_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap gmap, const Args a) {
+  using L = WideLayout;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const float* rows_smem = reinterpret_cast<const float*>(sm + L::ROWS);
+  float* xch = reinterpret_cast<float*>(sm + L::XCH);
+
+  const int BH = a.B * a.H;
+  const int kt = static_cast<int>(blockIdx.x) / BH;  // the first keys see the
+  const int bh = static_cast<int>(blockIdx.x) % BH;  // most rows: they run first
+  const int b = bh / a.H, h = bh % a.H;
+  const int kvh = h / (a.H / a.Kv);
+  const int k0 = kt * 64;
+  // the q tiles with a row that sees a key of [k0, k0 + 64): all of them
+  // see one, so no tile of the walk is skipped
+  const int n_qt = (a.Tq + 63) / 64;
+  const int qt_begin = a.causal ? min(n_qt, k0 / 64) : 0;
+  int qt_end = n_qt;
+  if (a.window > 0) qt_end = min(n_qt, (k0 + 62 + a.window) / 64 + 1);
+  const int n_it = max(0, qt_end - qt_begin);
+
+  const Bars bars = init_bars<L>(base);
+  const int wg = warpgroup();
+  if (wg == kNC) {
+    producer_regs<kNC>();
+    if (threadIdx.x == kNC * 128) {
+      mbar_expect_tx(bars.res_full, 2 * L::TILE);
+      load_rows<kWide>(base + L::RES0, 64, &kmap, bars.res_full, kvh, k0, b);
+      load_rows<kWide>(base + L::RES1, 64, &vmap, bars.res_full, kvh, k0, b);
+      const float* lse2 = a.lse2 + static_cast<int64_t>(bh) * a.Tp;
+      const float* delta = a.delta + static_cast<int64_t>(bh) * a.Tp;
+      for (int it = 0; it < n_it; ++it) {
+        const int q0 = (qt_begin + it) * 64;
+        load_wide(base, bars, it, &qmap, &gmap, h, q0, b, L::ROW_BYTES);
+        const uint32_t rows = base + L::ROWS + (it % kStages) * L::ROW_BYTES;
+        const uint32_t bar = bars.full + 8 * (it % kStages);
+        bulk_load(rows, lse2 + q0, 64 * 4, bar);
+        bulk_load(rows + 64 * 4, delta + q0, 64 * 4, bar);
+      }
+    }
+    return;
+  }
+
+  // both warpgroups hold the same elements of a 64 x 64 product: keys key0
+  // and key0 + 8, q rows 8 g + col + {0, 1} of each 8-row group g
+  consumer_regs<kNC>();
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int wt = threadIdx.x % 128;
+  const int key0 = k0 + 16 * warp + lane / 4;
+  const int key1 = key0 + 8;
+  const int col = 2 * (lane % 4);
+  const bool capped = a.softcap > 0.f;
+  const float sl = a.scale * kLog2e;
+  const float cap_in = a.scale / a.softcap;
+  const float cap_out = a.softcap * kLog2e;
+  const uint32_t opa = base + L::OPA, opb = base + L::OPB;
+
+  float dk[2][32], dv[2][32], s[32];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[j][i] = dv[j][i] = 0.f;
+
+  mbar_wait(bars.res_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    const int q0 = (qt_begin + it) * 64;
+    mbar_wait(bars.full + 8 * st, (it / kStages) & 1);
+    const uint32_t qs = base + L::ST0 + st * L::TILE;
+    const uint32_t gs = base + L::ST1 + st * L::TILE;
+    const float* lse_s = rows_smem + st * (L::ROW_BYTES / 4);
+    const float* del_s = lse_s + 64;
+    // S^T (warpgroup 0) or dP^T (1), outside the branches below: ptxas
+    // serializes a wgmma it cannot prove warp-uniform.  Element i: key
+    // (i & 2 ? key1 : key0), q row q0 + 8 (i / 4) + col + (i & 1)
+    wide_scores<T>(s, base + (wg == 0 ? L::RES0 : L::RES1), wg == 0 ? qs : gs);
+    if (wg == 0) {
+      const bool edge = (a.causal && k0 + 63 > q0) ||
+                        (a.window > 0 && q0 + 63 - k0 >= a.window);
+      if (it > 0) pair_sync(kBarDone1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = 8 * (i / 4) + col + (i & 1);
+        float p, pc;
+        if (capped) {
+          const float t = tanhf(s[i] * cap_in);
+          p = ex2(fmaf(t, cap_out, -lse_s[c]));
+          pc = p * (1.f - t * t);
+        } else {
+          p = ex2(fmaf(s[i], sl, -lse_s[c]));
+          pc = p;
+        }
+        if (edge) {
+          const int key = (i & 2) ? key1 : key0;
+          const int row = q0 + c;
+          bool live = true;
+          if (a.causal) live = row >= key;
+          if (a.window > 0) live = live && row - key < a.window;
+          if (!live) p = pc = 0.f;
+        }
+        s[i] = p;
+        xch[i * 128 + wt] = pc;
+      }
+      store_operand<T>(sm + L::OPA, s, 16 * warp + lane / 4, col);
+      fence_async_smem();
+      pair_arrive(kBarP);
+      pair_sync(kBarDS);
+    } else {
+      pair_sync(kBarP);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = xch[i * 128 + wt] * (s[i] - del_s[8 * (i / 4) + col + (i & 1)]);
+      if (it > 0) pair_sync(kBarDone0);
+      store_operand<T>(sm + L::OPB, s, 16 * warp + lane / 4, col);
+      fence_async_smem();
+      pair_arrive(kBarDS);
+    }
+    wg_fence();
+    wide_half<T>(dv, opa, gs, wg);
+    wide_half<T>(dk, opb, qs, wg);
+    wg_commit();
+    wg_wait<0>();
+    if (it + 1 < n_it) pair_arrive(wg == 0 ? kBarDone0 : kBarDone1);
+    mbar_arrive(bars.empty + 8 * st);
+  }
+
+  // this query head's f32 slots of the warpgroup's 128 columns: dk (times
+  // scale) and dv of the tile's keys
+  const int64_t slot = static_cast<int64_t>(bh) * a.Tk * kWide + 128 * wg;
+  store_keys<2, kWide>(a.dk_part + slot, dk, key0, key1, col, a.Tk, a.scale);
+  store_keys<2, kWide>(a.dv_part + slot, dv, key0, key1, col, a.Tk, 1.f);
+}
+
+// dq per (64-row q tile, batch, head) at head dim 256.  Q and dO
+// resident, K and V streamed.  Per key tile warpgroup 0 takes S = Q.K^T
+// and hands P (1 - tanh^2) over, warpgroup 1 takes dP = dO.V^T and writes
+// dS to shared memory in the input type; then each warpgroup adds dS.K to
+// its own 128 columns of dq.
+template <typename T>
+__global__ void __launch_bounds__(WideLayout::THREADS, 1)
+    dq_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap gmap, const Args a) {
+  using L = WideLayout;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  float* xch = reinterpret_cast<float*>(sm + L::XCH);
+
+  const int BH = a.B * a.H;
+  const int n_qb = (a.Tq + 63) / 64;
+  // causal: the last q tiles see the most key tiles, so they run first
+  const int qb = a.causal ? n_qb - 1 - static_cast<int>(blockIdx.x) / BH
+                          : static_cast<int>(blockIdx.x) / BH;
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int b = bh / a.H, h = bh % a.H;
+  const int kvh = h / (a.H / a.Kv);
+  const int q0 = qb * 64;
+  // the key tiles with a key that a row of [q0, q0 + 64) sees
+  const int n_kt = (a.Tk + 63) / 64;
+  const int kt_end = a.causal ? min(n_kt, (q0 + 63) / 64 + 1) : n_kt;
+  const int kt_begin = a.window > 0 ? max(0, q0 - a.window + 1) / 64 : 0;
+  const int n_it = max(0, kt_end - kt_begin);
+
+  const Bars bars = init_bars<L>(base);
+  const int wg = warpgroup();
+  if (wg == kNC) {
+    producer_regs<kNC>();
+    if (threadIdx.x == kNC * 128) {
+      mbar_expect_tx(bars.res_full, 2 * L::TILE);
+      load_rows<kWide>(base + L::RES0, 64, &qmap, bars.res_full, h, q0, b);
+      load_rows<kWide>(base + L::RES1, 64, &gmap, bars.res_full, h, q0, b);
+      for (int it = 0; it < n_it; ++it)
+        load_wide(base, bars, it, &kmap, &vmap, kvh, (kt_begin + it) * 64, b, 0);
+    }
+    return;
+  }
+
+  // both warpgroups hold rows row0 and row0 + 8, and keys 8 g + col + {0,
+  // 1} of each 8-key group g
+  consumer_regs<kNC>();
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int wt = threadIdx.x % 128;
+  const int row0 = q0 + 16 * warp + lane / 4;
+  const int row1 = row0 + 8;
+  const int col = 2 * (lane % 4);
+  const bool capped = a.softcap > 0.f;
+  const float sl = a.scale * kLog2e;
+  const float cap_in = a.scale / a.softcap;
+  const float cap_out = a.softcap * kLog2e;
+  const uint32_t opb = base + L::OPB;
+  // the rows' lse2 and delta (padded: every row of the block has them)
+  const int64_t at = static_cast<int64_t>(bh) * a.Tp;
+  const float lse0 = a.lse2[at + row0], lse1 = a.lse2[at + row1];
+  const float del0 = a.delta[at + row0], del1 = a.delta[at + row1];
+
+  float dq[2][32], s[32];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[j][i] = 0.f;
+
+  mbar_wait(bars.res_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    const int k0 = (kt_begin + it) * 64;
+    mbar_wait(bars.full + 8 * st, (it / kStages) & 1);
+    const uint32_t ks = base + L::ST0 + st * L::TILE;
+    const uint32_t vs = base + L::ST1 + st * L::TILE;
+    // S (warpgroup 0) or dP (1); element i: row (i & 2 ? row1 : row0), key
+    // k0 + 8 (i / 4) + col + (i & 1)
+    wide_scores<T>(s, base + (wg == 0 ? L::RES0 : L::RES1), wg == 0 ? ks : vs);
+    if (wg == 0) {
+      const bool edge = k0 + 64 > a.Tk || (a.causal && k0 + 63 > q0) ||
+                        (a.window > 0 && q0 + 63 - k0 >= a.window);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float lse2 = (i & 2) ? lse1 : lse0;
+        float pc;
+        if (capped) {
+          const float t = tanhf(s[i] * cap_in);
+          pc = ex2(fmaf(t, cap_out, -lse2)) * (1.f - t * t);
+        } else {
+          pc = ex2(fmaf(s[i], sl, -lse2));
+        }
+        if (edge) {
+          const int row = (i & 2) ? row1 : row0;
+          const int key = k0 + 8 * (i / 4) + col + (i & 1);
+          bool live = key < a.Tk;
+          if (a.causal) live = live && row >= key;
+          if (a.window > 0) live = live && row - key < a.window;
+          if (!live) pc = 0.f;
+        }
+        xch[i * 128 + wt] = pc;
+      }
+      pair_arrive(kBarP);
+      pair_sync(kBarDS);  // also: warpgroup 1 has read the exchange tile
+    } else {
+      pair_sync(kBarP);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = xch[i * 128 + wt] * (s[i] - ((i & 2) ? del1 : del0));
+      if (it > 0) pair_sync(kBarDone0);
+      store_operand<T>(sm + L::OPB, s, 16 * warp + lane / 4, col);
+      fence_async_smem();
+      pair_arrive(kBarDS);
+    }
+    wg_fence();
+    wide_half<T>(dq, opb, ks, wg);
+    wg_commit();
+    wg_wait<0>();
+    if (wg == 0 && it + 1 < n_it) pair_arrive(kBarDone0);
+    mbar_arrive(bars.empty + 8 * st);
+  }
+
+  T* out = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const int c = 128 * wg + kChunk * j + 8 * g + col;
+      float r0, r1;
+      if (row0 < a.Tq)
+        *reinterpret_cast<uint32_t*>(
+            out + ((static_cast<int64_t>(b) * a.Tq + row0) * a.H + h) * kWide + c) =
+            pack2<T>(dq[j][4 * g] * a.scale, dq[j][4 * g + 1] * a.scale, &r0, &r1);
+      if (row1 < a.Tq)
+        *reinterpret_cast<uint32_t*>(
+            out + ((static_cast<int64_t>(b) * a.Tq + row1) * a.H + h) * kWide + c) =
+            pack2<T>(dq[j][4 * g + 2] * a.scale, dq[j][4 * g + 3] * a.scale, &r0, &r1);
+    }
+  }
+}
+
 // -- host side -------------------------------------------------------------------
 
 template <typename Kernel>
@@ -964,16 +1356,17 @@ cudaError_t cc_launch(const Args& a, int device, cudaStream_t stream) {
   return launch_reduce<T>(a, stream);
 }
 
-template <typename T>
+// The CUDA-core route: f32 only (bf16 and f16 run on the tensor cores at
+// every head dim they are built for).
 cudaError_t cc_dispatch(const Args& a, int device, cudaStream_t stream) {
   if (a.Dv != a.D) return cudaErrorInvalidValue;
   switch (a.D) {
     case 64:
-      return cc_launch<T, 64, 64, 64>(a, device, stream);
+      return cc_launch<float, 64, 64, 64>(a, device, stream);
     case 128:
-      return cc_launch<T, 128, 64, 64>(a, device, stream);
+      return cc_launch<float, 128, 64, 64>(a, device, stream);
     case 256:
-      return cc_launch<T, 256, 32, 32>(a, device, stream);
+      return cc_launch<float, 256, 32, 32>(a, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1001,8 +1394,33 @@ cudaError_t tc_launch(const Args& a, const CUtensorMap (&m)[4], int device,
   return launch_reduce<T>(a, stream);
 }
 
-// The head dims the tensor-core route is built for: (64, 64), (128, 128).
-bool tc_built(int dqk, int dv) { return dqk == dv && (dqk == 64 || dqk == 128); }
+template <typename T>
+cudaError_t wide_launch(const Args& a, const CUtensorMap (&m)[4], int device,
+                        cudaStream_t stream) {
+  using L = WideLayout;
+  static PerDevice dkdv_done, dq_done;  // the attributes, per kernel and device
+  auto dkdv = dkdv_wide_kernel<T>;
+  auto dq = dq_wide_kernel<T>;
+  cudaError_t err = configure(dkdv, L::SMEM, device, dkdv_done);
+  if (err != cudaSuccess) return err;
+  err = configure(dq, L::SMEM, device, dq_done);
+  if (err != cudaSuccess) return err;
+  const int BH = a.B * a.H;
+  if ((err = launch_delta<T>(a, stream)) != cudaSuccess) return err;
+  dkdv<<<((a.Tk + 63) / 64) * BH, L::THREADS, L::SMEM, stream>>>(m[0], m[1], m[2],
+                                                                  m[3], a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dq<<<((a.Tq + 63) / 64) * BH, L::THREADS, L::SMEM, stream>>>(m[0], m[1], m[2],
+                                                               m[3], a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_reduce<T>(a, stream);
+}
+
+// The head dims the tensor-core route is built for: (64, 64), (128, 128)
+// and (256, 256).
+bool tc_built(int dqk, int dv) {
+  return dqk == dv && (dqk == 64 || dqk == 128 || dqk == 256);
+}
 
 // Tensor maps of q, k, v and do (TMA: 16-byte aligned bases and strides,
 // which the wrapper's plan checks), then the kernels of the head dims.
@@ -1017,8 +1435,14 @@ cudaError_t tc_dispatch(const Args& a, CUtensorMapDataType type, int device,
       !encode(&m[2], type, a.v, a.Dv, a.Kv, a.Tk, a.B, a.v_sh, a.v_st, a.v_sb) ||
       !encode(&m[3], type, a.g, a.Dv, a.H, a.Tq, a.B, a.g_sh, a.g_st, a.g_sb))
     return cudaErrorInvalidValue;
-  return a.D == 64 ? tc_launch<T, 64, 64>(a, m, device, stream)
-                   : tc_launch<T, 128, 128>(a, m, device, stream);
+  switch (a.D) {
+    case 64:
+      return tc_launch<T, 64, 64>(a, m, device, stream);
+    case 128:
+      return tc_launch<T, 128, 128>(a, m, device, stream);
+    default:
+      return wide_launch<T>(a, m, device, stream);
+  }
 }
 
 }  // namespace fa_bwd
@@ -1054,8 +1478,8 @@ static_assert(sizeof(Params) == 176 && offsetof(Params, dtype) == 120 &&
 // head dims contiguous, and lse (f32, (B, H, Tq) contiguous), on `stream`,
 // without synchronising.  `delta` and `lse2` (B, H, Tq rounded up to 128)
 // and `dk_part` (B, H, Tk, D), `dv_part` (B, H, Tk, Dv) are f32 scratch.
-// The route is "wgmma" for bf16 and f16 at (D, Dv) = (64, 64) or (128,
-// 128), else "cuda_cores" (square D only).  Returns a cudaError_t
+// The route is "wgmma" for bf16 and f16 at (D, Dv) = (64, 64), (128, 128)
+// or (256, 256), "cuda_cores" for f32 (square D only).  Returns a cudaError_t
 // (cudaErrorInvalidValue for an unsupported dtype or head dims, a route
 // other than this rule's, or a layout TMA refuses).
 extern "C" int flash_attention_bwd_launch(const Params* p, const void* q,
@@ -1076,17 +1500,15 @@ extern "C" int flash_attention_bwd_launch(const Params* p, const void* q,
                p->v_sh, p->o_sb, p->o_st, p->o_sh, p->g_sb,  p->g_st,  p->g_sh,
                p->B,    p->Tq,   p->Tk,   p->H,    p->Kv,    p->D,     p->Dv,
                Tp,      p->scale, p->softcap, p->causal, p->window};
+  if (p->dtype == 0) return cc_dispatch(a, p->device, stream);
+  if (!tc) return cudaErrorInvalidValue;
   switch (p->dtype) {
-    case 0:
-      return cc_dispatch<float>(a, p->device, stream);
     case 1:
-      return tc ? tc_dispatch<__nv_bfloat16>(a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                                             p->device, stream)
-                : cc_dispatch<__nv_bfloat16>(a, p->device, stream);
+      return tc_dispatch<__nv_bfloat16>(a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                        p->device, stream);
     case 2:
-      return tc ? tc_dispatch<__half>(a, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, p->device,
-                                      stream)
-                : cc_dispatch<__half>(a, p->device, stream);
+      return tc_dispatch<__half>(a, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, p->device,
+                                 stream);
     default:
       return cudaErrorInvalidValue;
   }

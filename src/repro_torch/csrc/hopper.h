@@ -145,6 +145,15 @@ __device__ __forceinline__ void wg_wait() {
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                        \
       : FA_D32                                                                 \
       : "l"(da), "l"(db), "r"(accumulate))
+// d (64 x 64, f32) += A (64 x 16) . B (16 x 64), A K-major and B MN-major
+// (the "transposed" flag) in shared memory.
+#define FA_WGMMA_SS_TB(TY)                                                     \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " FA_R32       \
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"                                        \
+      : FA_D32                                                                 \
+      : "l"(da), "l"(db), "r"(1))
 // d (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64), B MN-major in
 // shared memory (the "transposed" flag).
 #define FA_WGMMA_RS(TY)                                                        \
@@ -168,6 +177,21 @@ template <>
 __device__ __forceinline__ void wgmma_ss<__half>(float (&d)[32], uint64_t da,
                                                  uint64_t db, int accumulate) {
   FA_WGMMA_SS("f16");
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[32], uint64_t da,
+                                            uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<__nv_bfloat16>(float (&d)[32],
+                                                           uint64_t da,
+                                                           uint64_t db) {
+  FA_WGMMA_SS_TB("bf16");
+}
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<__half>(float (&d)[32], uint64_t da,
+                                                    uint64_t db) {
+  FA_WGMMA_SS_TB("f16");
 }
 
 template <typename T>
@@ -233,6 +257,44 @@ __device__ __forceinline__ void pack_a(const float (&d)[32], uint32_t (&a)[4][4]
   }
   *s0 = sum0;
   *s1 = sum1;
+}
+
+// The accumulator of a 64 x 64 product, rounded to T, into a 64 x 64
+// operand tile in shared memory as TMA would have written it: row r's 64
+// columns in one 128-byte row, its 16-byte units XORed with r % 8 (the
+// 128-byte swizzle; `tile` 1024-aligned), so that kmajor_desc reads it as
+// a K-major A operand.  This thread holds rows row0 and row0 + 8 and
+// columns 8 g + col + {0, 1} (col even).
+template <typename T>
+__device__ __forceinline__ void store_operand(uint8_t* tile, const float (&d)[32],
+                                              int row0, int col) {
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row0 + 8 * half;
+      float r0, r1;
+      const uint32_t v = pack2<T>(d[4 * g + 2 * half], d[4 * g + 2 * half + 1], &r0, &r1);
+      *reinterpret_cast<uint32_t*>(tile + r * kRowBytes + ((g ^ (r & 7)) << 4) +
+                                   2 * col) = v;
+    }
+  }
+}
+
+// Plain shared-memory stores made visible to the async proxy (wgmma's and
+// TMA's reads); each writing thread fences before the barrier that
+// publishes them.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barriers 1.. over the two consumer warpgroups (256 threads): one
+// side arrives without waiting, the other waits for it.
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {

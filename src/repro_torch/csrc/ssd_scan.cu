@@ -57,6 +57,7 @@
 #include <cstdint>
 
 #include "per_device.h"
+#include "ssd_tf32.h"
 
 namespace {
 
@@ -67,7 +68,6 @@ constexpr int kMaxQ = 256;
 constexpr int kYHeads = 8;  // most heads of a y block
 constexpr int kSHeads = 4;  // most heads of a state block
 constexpr int kPB = 64;     // most x columns (p) of a block
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kCBS = kMaxQ + 4;  // row stride of the C.B^T tiles (floats)
 
 // One call's sizes, strides and plan; `Params` below adds nothing else.
@@ -93,27 +93,6 @@ struct Args {
   Shape p;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; `bytes` 0 fills zeros without reading.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // rows [row0, row0 + rows) of a (rows x width) f32 block whose rows lie
 // `sq` elements apart, into shared memory rows `ld` floats apart; rows at
 // or past `valid` fill with zeros.
@@ -127,28 +106,6 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
     cp_async16(smem_addr(dst + r * ld + c * 4),
                src + (in ? row0 + r : 0) * sq + c * 4, in ? 16 : 0);
   }
-}
-
-// x = hi + lo + (what 3xTF32 drops): hi is x cut to TF32's 10 mantissa
-// bits, lo the exact rest cut the same way
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-// 2^x (ex2.approx, relative error about 2^-22; 0 for -inf)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The tiles of an (MT * 16) x (NTL * 8) product, spread over the warps:

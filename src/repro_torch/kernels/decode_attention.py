@@ -110,9 +110,9 @@ def decode_attention_torch(
     live = (torch.arange(S, device=q.device)[None, :]
             < lengths.to(q.device)[:, None])[:, None, None, :]
     s = s.masked_fill(~live, MASK_VALUE)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * live
+    # normalised before the product, as the reference's softmax is
+    p = torch.softmax(s, dim=-1) * live
     o = torch.einsum("bkrs,bskd->bkrd", p, v_cache.float())
-    o = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return o.reshape(B, H, dh).to(q.dtype)
 
 

@@ -16,13 +16,15 @@ Anything else raises, MLA's (192, 128) included.
 
 :func:`_plan` picks the route, in pure Python:
 
-* ``"wgmma"`` for bf16 and f16 at head dims 64 and 128: the products on
-  the tensor cores, fed by TMA.  TMA binds the layout of q, k, v, o and
-  do: each base 16-byte aligned, the batch, token and head strides
+* ``"wgmma"`` for bf16 and f16 at head dims 64, 128 and 256: the
+  products on the tensor cores, fed by TMA (at 256 the head dim is split
+  between a block's two consumer warpgroups, and Pᵀ and dSᵀ pass through
+  shared memory in the input type).  TMA binds the layout of q, k, v, o
+  and do: each base 16-byte aligned, the batch, token and head strides
   multiples of 16 bytes, the head dim contiguous; anything else raises
   ``ValueError``.
-* ``"cuda_cores"`` for f32 and head dim 256: the same algorithm on f32
-  CUDA-core FMAs (``wgmma`` has no f32 inputs).
+* ``"cuda_cores"`` for f32: the same algorithm on f32 CUDA-core FMAs
+  (``wgmma`` has no f32 inputs).
 
 Either route is four launches a call (``rowsum(do·o)``; dk and dv per
 kv tile and query head; dq per q tile; the sum over each kv head's query
@@ -60,9 +62,9 @@ __all__ = ["FlashAttention", "flash_attention_bwd", "flash_attention_bwd_torch",
 
 #: calls that launched the kernel so far (the plain CPU version does not count).
 launches = 0
-#: (q/k, v) head dims of the tensor-core route (bf16 and f16); the rest,
-#: and f32, run on CUDA cores.
-WGMMA_HEAD_DIMS = ((64, 64), (128, 128))
+#: (q/k, v) head dims of the tensor-core route (bf16 and f16); f32 runs on
+#: CUDA cores.
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
 ROUTE_CODES = {"cuda_cores": 0, "wgmma": 1}
 ROW_PAD = 128  #: the kernel's per-row scratch (rowsum(do·o), lse) is padded to it
 _count_lock = threading.Lock()

@@ -24,13 +24,23 @@ whole chunk and masks afterwards (``repro/models/ssm.py:99-103``), which
 overflows above the diagonal at a long chunk and a strong decay and makes
 its ``ddA_cs`` non-finite.
 
+The kernel runs every product on the tensor cores in 3xTF32, as the
+forward does, and keeps dG on chip: one launch sums dG over each group's
+heads in head order beside C·Bᵀ (and, per head, M = dW∘W and dW∘G∘L
+summed over each tile's rows and keys), one computes the per-head dx,
+ddt and ddA_cs, and one dB and dC, whose state term Σ_h (e_h∘x_h)·dS_h
+runs as one product over the group's heads.  Its scratch is C·Bᵀ and dG,
+``(BC, G, Qp, Qp)`` each (Qp = Q rounded up to 64), and those sums, 3 ×
+64 floats per (chunk, head, tile pair).
+
 Contract: f32 ``x (BC, Q, H, P)``, ``dt`` and ``dA_cs (BC, Q, H)``, ``B``
 and ``C (BC, Q, G, N)``, ``dy (BC, Q, H, P)``, ``dS (BC, H, P, N)``, the
-last dim of x, B, C, dy and dS contiguous; the outputs take the inputs'
-shapes, contiguous.  The kernel takes Q from 1 to 256 and P, N in {16,
-32, 64, 128}, as the forward does, and raises ``ValueError`` on anything
-else.  Three launches a call, no float atomics, every sum in a fixed
-order: the same inputs give the same bytes.  :func:`ssd_chunk_bwd`
+last dim of x, B, C, dy and dS contiguous, their bases and strides
+16-byte aligned; the outputs take the inputs' shapes, contiguous.  The
+kernel takes Q from 1 to 256 and P, N in {16, 32, 64, 128}, as the
+forward does, and raises ``ValueError`` on anything else.  Three launches
+a call, no float atomics, every sum in a fixed order: the same inputs
+give the same bytes.  :func:`ssd_chunk_bwd`
 launches the kernel for CUDA tensors and takes the plain version,
 :func:`ssd_chunk_bwd_torch` (the formulas written out, not autograd of the
 forward), only for CPU tensors.  ``launches`` counts calls that launched
@@ -47,7 +57,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import _raw_stream
-from repro_torch.kernels.ssd_scan import MAX_Q, WIDTHS, ssd_chunk_fwd
+from repro_torch.kernels.ssd_scan import ALIGN, MAX_Q, WIDTHS, ssd_chunk_fwd
 
 __all__ = ["SSDChunk", "head_view", "ssd_chunk_bwd", "ssd_chunk_bwd_torch",
            "launches"]
@@ -55,6 +65,7 @@ __all__ = ["SSDChunk", "head_view", "ssd_chunk_bwd", "ssd_chunk_bwd_torch",
 #: calls that launched the kernel so far (the plain CPU version does not count).
 launches = 0
 TILE = 64  #: rows of the kernel's q and key tiles; its scratch pads Q to it
+N_BLOCK = 64  #: most columns of N one dB or dC block of the kernel takes
 _count_lock = threading.Lock()
 _entry = None
 
@@ -71,7 +82,7 @@ class _Params(ctypes.Structure):
             "ds_sb", "ds_sh", "ds_sp")]
         + [(n, ctypes.c_int32) for n in (
             "device", "BC", "Q", "H", "G", "P", "N", "qp",
-            "cb_blocks", "head_blocks", "group_blocks", "pad_")]
+            "pair_blocks", "head_blocks", "group_blocks", "pad_")]
     )
 
 
@@ -196,7 +207,8 @@ class _Call(NamedTuple):
 
     params: _Params  # kept alive: the kernel reads it through `address`
     address: int
-    scratch: Tuple[Tuple[int, ...], ...]  # gs, dgh, dbs
+    scratch: Tuple[int, ...]  # the shape of gs and of dg, (BC, G, Qp, Qp)
+    sums: Tuple[int, ...]  # of ms, (BC, H, tile pairs, 3, 64)
 
 
 #: prepared calls by signature (shapes, strides, types, devices).
@@ -213,17 +225,23 @@ def _prepare(x, dt, dA_cs, Bm, Cm, dy, dS) -> _Call:
         raise TypeError(f"dy and dS must be f32, got {dy.dtype}, {dS.dtype}")
     if dy.stride(-1) != 1 or dS.stride(-1) != 1:
         raise ValueError("the last dim of x, B, C, dy and dS must be contiguous")
+    strides = [*x.stride()[:3], *Bm.stride()[:3], *Cm.stride()[:3],
+               *dy.stride()[:3], *dS.stride()[:3]]
+    if any(s_ * 4 % ALIGN for s_ in strides):
+        raise ValueError(f"the strides of x, B, C, dy and dS {strides} must be "
+                         f"multiples of {ALIGN} bytes")
     BC, Q, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     nt = -(-Q // TILE)
     qp = nt * TILE
+    n_chunks = max(1, N // N_BLOCK)
     params = _Params(
         *x.stride()[:3], *dt.stride(), *dA_cs.stride(), *Bm.stride()[:3],
         *Cm.stride()[:3], *dy.stride()[:3], *dS.stride()[:3],
         x.get_device() if x.is_cuda else 0, BC, Q, H, G, P, N, qp,
-        BC * G * nt * (nt + 1) // 2, BC * H, BC * G * nt * 2, 0)
-    scratch = ((BC, G, qp, qp), (BC, H, qp, qp), (BC, H, qp, N))
-    return _Call(params, ctypes.addressof(params), scratch)
+        BC * G * nt * (nt + 1) // 2, BC * H, 2 * BC * G * nt * n_chunks, 0)
+    return _Call(params, ctypes.addressof(params), (BC, G, qp, qp),
+                 (BC, H, nt * (nt + 1) // 2, 3, TILE))
 
 
 def ssd_chunk_bwd(
@@ -256,11 +274,16 @@ def ssd_chunk_bwd(
             for t in (x, dt, dA_cs, Bm, Cm)]
     if x.numel() == 0 or Bm.numel() == 0:
         return tuple(o.zero_() for o in outs)
-    gs, dgh, dbs = (torch.empty(s, dtype=torch.float32, device=x.device)
-                    for s in call.scratch)
+    ptrs = [t.data_ptr() for t in args]
+    if (ptrs[0] | ptrs[3] | ptrs[4] | ptrs[5] | ptrs[6]) % ALIGN:
+        raise ValueError(
+            f"x, B, C, dy and dS need {ALIGN}-byte aligned base addresses")
+    gs, dg = (torch.empty(call.scratch, dtype=torch.float32, device=x.device)
+              for _ in range(2))
+    ms = torch.empty(call.sums, dtype=torch.float32, device=x.device)
     fn, err_str = _entry or _launcher()
     index = x.get_device()
-    ptrs = [t.data_ptr() for t in (*args, *outs, gs, dgh, dbs)]
+    ptrs += [t.data_ptr() for t in (*outs, gs, dg, ms)]
     if index == torch.cuda.current_device():
         err = fn(call.address, *ptrs, _raw_stream(index))
     else:

@@ -9,12 +9,11 @@ recurrence gates:
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 Prefill runs the recurrence as a log-depth inclusive scan over T of f32
-torch ops (:func:`_linear_scan`, Hillis–Steele: ``ceil(log2 T)`` steps of
-one multiply-add on shifted views), where the reference uses
-``jax.lax.associative_scan``; the two sum in different orders, so they
-agree to f32 rounding, not bit for bit.  Decode is the O(1) update, which
-writes the new conv window and state into the cache it is given (the
-period views of the stacked body cache), as the port's other mixers do.
+torch ops (:func:`_linear_scan`) in the order of operations of the
+reference's ``jax.lax.associative_scan``, so that the two packages round
+alike.  Decode is the O(1) update, which writes the new conv window and
+state into the cache it is given (the period views of the stacked body
+cache), as the port's other mixers do.
 The conv1d front and the gated-GeLU output (the tanh approximation, which
 is ``jax.nn.gelu``'s default) mirror Griffin's recurrent block.
 """
@@ -84,20 +83,34 @@ def _gates(p, xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """All h_t of h_t = a_t h_{t-1} + b_t (h_{-1} = 0) along axis 1.
 
-    Hillis–Steele over the pairs (a, b), which compose as ``(a_l, b_l) then
-    (a_r, b_r) = (a_l a_r, a_r b_l + b_r)``: after the step of shift ``s``
-    position ``t`` holds the composition of positions ``t-2s+1 .. t``.
-    ``ceil(log2 T)`` steps of a few elementwise launches each.  Each step
-    builds new ``a`` and ``b`` and writes nothing in place: autograd keeps
-    views of every step's tensors for the backward pass."""
+    The reference's order of operations (``jax.lax.associative_scan``'s
+    odd/even recursion) over the pairs (a, b), which compose as ``(a_l,
+    b_l) then (a_r, b_r) = (a_l a_r, a_r b_l + b_r)``: compose neighbours
+    (0, 1), (2, 3), ..., scan those pairs, then extend each odd prefix by
+    one element to the next even position.  ``2 ceil(log2 T)`` levels of a
+    few elementwise launches, O(T) work in all.  Each level builds new
+    tensors and writes nothing in place: autograd keeps views of them for
+    the backward pass."""
+    return _odd_even(a, b)[1]
+
+
+def _odd_even(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     T = a.shape[1]
-    s = 1
-    while s < T:
-        b = torch.cat((b[:, :s], b[:, s:] + a[:, s:] * b[:, :-s]), 1)
-        if 2 * s < T:  # the last step needs no composed a
-            a = torch.cat((a[:, :s], a[:, s:] * a[:, :-s]), 1)
-        s *= 2
-    return b
+    if T < 2:
+        return a, b
+    a_l, b_l, a_r, b_r = a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]
+    odd_a, odd_b = _odd_even(a_l * a_r, a_r * b_l + b_r)  # prefixes 1, 3, 5, ..
+    a_e, b_e = a[:, 2::2], b[:, 2::2]
+    n = a_e.shape[1]  # even positions past 0: prefix 2i-1, then element 2i
+    even_a = torch.cat((a[:, :1], odd_a[:, :n] * a_e), 1)
+    even_b = torch.cat((b[:, :1], a_e * odd_b[:, :n] + b_e), 1)
+
+    def interleave(even, odd):
+        m = odd.shape[1]
+        out = torch.stack((even[:, :m], odd), 2).flatten(1, 2)
+        return torch.cat((out, even[:, m:]), 1) if even.shape[1] > m else out
+
+    return interleave(even_a, odd_a), interleave(even_b, odd_b)
 
 
 class RGLRUCache(NamedTuple):

@@ -189,7 +189,7 @@ def _meta(a):
 
 
 @pytest.mark.parametrize("bad", ["P=8", "N=256", "Q=257", "bf16", "x_stride",
-                                 "G=3", "dy_shape", "mixed_devices"])
+                                 "G=3", "dy_shape", "mixed_devices", "dS_stride"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     """Every case raises before a launch, in the prepared call and under
     autograd on a non-CPU tensor (a meta tensor stands in for the card):
@@ -206,10 +206,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         arrays[5] = arrays[5][:, :-1]
     elif bad == "mixed_devices":
         arrays[6] = _meta(arrays[6])
+    elif bad == "dS_stride":  # rows of dS 17 floats apart: no 16-byte cp.async
+        dS = arrays[6]
+        arrays[6] = torch.zeros(*dS.shape[:3], dS.shape[3] + 1)[..., :-1]
     before = ssd_scan_bwd.launches
     with pytest.raises((ValueError, TypeError)):
         ssd_scan_bwd._prepare(*arrays)
-    if bad not in ("dy_shape", "mixed_devices"):
+    if bad not in ("dy_shape", "mixed_devices", "dS_stride"):
         meta = [_meta(a).to(a.dtype) for a in arrays[:5]]
         meta[0].requires_grad_()
         with pytest.raises((ValueError, TypeError)):
@@ -231,10 +234,85 @@ def test_prepared_call_fills_the_kernels_parameter_struct():
     assert (p.dy_sb, p.dy_sq, p.dy_sh) == dy.stride()[:3]
     assert (p.ds_sb, p.ds_sh, p.ds_sp) == dS.stride()[:3]
     assert (p.device, p.BC, p.Q, p.H, p.G, p.P, p.N, p.qp) == (0, 2, 100, 6, 1, 16, 32, 128)
-    # G tiles on and below the diagonal (3 of 2 x 2), a block per (chunk,
-    # head), dC and dB blocks per (chunk, group, 64-row tile)
-    assert (p.cb_blocks, p.head_blocks, p.group_blocks) == (2 * 3, 2 * 6, 2 * 2 * 2)
-    assert call.scratch == ((2, 1, 128, 128), (2, 6, 128, 128), (2, 6, 128, 32))
+    # a block per tile pair on and below the diagonal (3 of 2 x 2), per
+    # (chunk, head), and dC and dB blocks per (chunk, group, 64-row tile,
+    # 64 columns of N)
+    assert (p.pair_blocks, p.head_blocks, p.group_blocks) == (2 * 3, 2 * 6, 2 * 2 * 2)
+    # the scratch: C.B^T and dG per group (no per-head dG), and each head's
+    # 3 x 64 sums of M and dW G L per tile pair
+    assert call.scratch == (2, 1, 128, 128)
+    assert call.sums == (2, 6, 3, 3, 64)
     assert call.address == ctypes.addressof(p) and ctypes.sizeof(p) == 216
     # the offsets the CUDA source's static_assert holds
-    assert (type(p).device.offset, type(p).cb_blocks.offset) == (168, 200)
+    assert (type(p).device.offset, type(p).pair_blocks.offset) == (168, 200)
+    # N 128 at the training widths: two 64-column dB and dC blocks a tile
+    wide = ssd_scan_bwd._prepare(*(torch.from_numpy(a)
+                                   for a in _inputs(2, 16, 256, 80, 64, 128, 1)))
+    assert (wide.params.pair_blocks, wide.params.head_blocks,
+            wide.params.group_blocks) == (16 * 10, 16 * 80, 2 * 16 * 4 * 2)
+    assert wide.scratch == (16, 1, 256, 256) and wide.sums == (16, 80, 10, 3, 64)
+
+
+def _tf32(x):
+    """Cut f32 to TF32's 10 mantissa bits (the low 13 bits cleared), as the
+    kernel splits its operands."""
+    bits = x.contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b in 3xTF32: each operand split into a TF32 high part and the
+    rest cut to TF32, lo·hi + hi·lo + hi·hi summed in f32 (lo·lo dropped)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _ssd_bwd_3xtf32(x, dt, dA, Bg, Cg, dy, dS):
+    """The kernel's arithmetic for one B/C group (``Bg``, ``Cg`` (BC, Q,
+    N)), every product in 3xTF32: C·Bᵀ once; per head dWᵀ = x·Yᵀ, Wᵀ·Y
+    and B·dSᵀ; dG summed over the heads in order; dC = dG·B and dB =
+    dGᵀ·C plus the state term as one product of depth H·P."""
+    BC, Q, H, P = x.shape
+    G = _mm3(Cg, Bg.transpose(1, 2))  # (BC, Q, Q)
+    below = torch.ones(Q, Q, dtype=torch.bool).tril()
+    ex = torch.exp(dA[:, -1:] - dA)  # (BC, Q, H)
+    e = ex * dt
+    dx, ddt, dda = torch.empty_like(x), torch.empty_like(dt), torch.empty_like(dt)
+    dG = torch.zeros(BC, Q, Q)
+    for h in range(H):
+        a = dA[:, :, h]
+        L = torch.exp((a[:, :, None] - a[:, None, :]).masked_fill(~below, -np.inf))
+        dW = _mm3(x[:, :, h], dy[:, :, h].transpose(1, 2)).transpose(1, 2)
+        dW = dW.masked_fill(~below, 0.0)  # (BC, Qq, Qj)
+        GL = G * L
+        W = GL * dt[:, None, :, h]
+        M = dW * W
+        u = _mm3(Bg, dS[:, h].transpose(1, 2))  # (BC, Q, P)
+        dx[:, :, h] = _mm3(W.transpose(1, 2), dy[:, :, h]) + e[:, :, h, None] * u
+        f = (x[:, :, h] * u).sum(-1)
+        ddt[:, :, h] = (dW * GL).sum(1) + f * ex[:, :, h]
+        fe = f * e[:, :, h]
+        dda[:, :, h] = M.sum(2) - M.sum(1) - fe
+        dda[:, -1, h] += fe.sum(1)
+        dG += dW * L * dt[:, None, :, h]
+    dC = _mm3(dG, Bg)
+    xe = (x * e[..., None]).reshape(BC, Q, H * P)
+    dB = _mm3(dG.transpose(1, 2), Cg) + _mm3(xe, dS.reshape(BC, H * P, -1))
+    return dx, ddt, dda, dB[:, :, None], dC[:, :, None]
+
+
+def test_tensor_core_backward_in_3xtf32_holds_the_chip_tolerance():
+    """The kernel's design (every product in 3xTF32, dG summed over the
+    heads, dB's state term one product of depth H·P), emulated in torch at
+    the training widths (Q 256, P 64, N 128, one B/C group) with a few
+    heads, within ``chip_smoke.py``'s SSD_BWD_TOL = 1e-4 (relative L2 per
+    gradient) of the f32 plain version."""
+    arrays = [torch.from_numpy(a) for a in _inputs(23, 2, 256, 3, 64, 128, 1)]
+    x, dt, dA, Bm, Cm, dy, dS = arrays
+    got = _ssd_bwd_3xtf32(x, dt, dA, Bm[:, :, 0], Cm[:, :, 0], dy, dS)
+    want = ssd_chunk_bwd_torch(*arrays)
+    for name, g, w in zip(NAMES, got, want):
+        err = _rel(g.numpy(), w.numpy())
+        assert err <= 1e-4, (name, err)
+        assert err > 0, name  # the split is really there

@@ -268,6 +268,97 @@ def test_remaining_mixers_match_reference(arch, window):
     assert (float(aux) > 0) == (cfg.moe is not None)
 
 
+@pytest.mark.parametrize("window", [3, 5])
+def test_local_attention_ring_decode_matches_reference(window):
+    """One local-attention layer of recurrentgemma-9b: a prefill longer
+    than its window, then decode across two wraps of the ring, against
+    the reference's ``attn_apply``/``attn_decode`` on the same inputs.
+    Every step's output and both ring caches (slot ``t % window`` holds
+    position t) within 1e-5, on inputs drawn at unit scale."""
+    from repro.models import attention as jattn
+    jcfg, cfg = _cfgs("recurrentgemma-9b")
+    rng = np.random.default_rng(7)
+    D, H, Kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    w = {"wq": (D, H, dh), "wk": (D, Kv, dh), "wv": (D, Kv, dh), "wo": (H, dh, D)}
+    jp = {k: (rng.standard_normal(shp) / np.sqrt(shp[0] * (shp[1] if k == "wo" else 1)))
+          .astype(np.float32) for k, shp in w.items()}
+    tp = {k: torch.from_numpy(v) for k, v in jp.items()}
+    prompt, total = window + 2, 3 * window + 1  # two wraps past the prefill
+    x = rng.standard_normal((2, total, D)).astype(np.float32)
+    jo, jc = jattn.attn_apply(jp, jnp.asarray(x[:, :prompt]), jcfg, window=window,
+                              q_chunk=4, kv_chunk=4, collect_cache=True,
+                              cache_len=total)
+    to, tc = attention.attn_apply(tp, torch.from_numpy(x[:, :prompt]), cfg,
+                                  window=window, collect_cache=True, cache_len=total)
+    assert tuple(tc.k.shape) == jc.k.shape == (2, window, Kv, dh)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5, rtol=1e-5)
+    for t in range(prompt, total):
+        jo, jc = jattn.attn_decode(jp, jnp.asarray(x[:, t:t + 1]), jc, jnp.int32(t),
+                                   jcfg, window=window)
+        to, tc = attention.attn_decode(tp, torch.from_numpy(x[:, t:t + 1]), tc, t, cfg)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5, rtol=1e-5)
+        for j, got in zip(jc, tc):
+            np.testing.assert_allclose(got.numpy(), np.asarray(j), atol=1e-5, rtol=1e-5)
+        # the new position's key sits in its ring slot in both caches
+        k_t = np.asarray(jc.k)[:, t % window]
+        np.testing.assert_allclose(tc.k[:, t % window].numpy(), k_t, atol=1e-5,
+                                   rtol=1e-5)
+
+
+def _scaled_gap(want, got) -> float:
+    """max |got - want| over max |want|."""
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got.double().numpy() - want).max() / np.abs(want).max())
+
+
+def test_recurrentgemma_window5_blocks_depart_only_in_rounding():
+    """The window-5 case of ``test_remaining_mixers_match_reference``
+    block by block: each of the port's blocks (the (R, R, L) periods and
+    the postlude) is given the reference's input to that block, and at
+    decode t = 8..11 also the reference's cache, so that no departure
+    upstream reaches it.  Every block's output and cache lies within 1e-5
+    of its scale from the reference's, at prefill and at every decode step
+    across the ring's wrap: no block computes anything else than the
+    reference's block, whatever the whole model's logits do."""
+    from repro.models import ShardCtx, transformer as jt
+    from repro_torch.models import transformer as tt
+    jcfg, cfg = _cfgs("recurrentgemma-9b")
+    jcfg, cfg = _windowed(jcfg, 5), _windowed(cfg, 5)
+    jp, tp = _params(jcfg, cfg, "float32")
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab, (2, TOTAL)).astype(np.int32)
+    shape = ShapeConfig(name="t", kind="prefill", seq_len=PROMPT, global_batch=2,
+                        q_chunk=4, kv_chunk=4, remat="none")
+    blocks = [(jax.tree_util.tree_map(lambda a, i=i: a[i], jp["body"][j]),
+               tt._period(tp["body"][j], i), jcfg.pattern[j], blk)
+              for i in range(cfg.n_periods) for j, blk in enumerate(cfg.pattern)]
+    blocks += [(jp["postlude"][k], tp["postlude"][k], jcfg.postlude[k], blk)
+               for k, blk in enumerate(cfg.postlude)]
+    torch_of = lambda a: torch.from_numpy(np.array(a))
+
+    x = jt._frontend(jp, jcfg, {"tokens": jnp.asarray(tokens[:, :PROMPT])})
+    caches = []
+    for jb, tb, jblk, blk in blocks:
+        jx, _, jc = jax.jit(lambda p, x_, b=jblk: jt._block_apply(
+            p, x_, b, jcfg, shape, ShardCtx(), True, TOTAL))(jb, x)
+        tx, _, tc = tt._block_apply(tb, torch_of(x), blk, cfg, True, TOTAL)
+        assert _scaled_gap(jx, tx) < 1e-5, (blk.mixer, "prefill")
+        for j, t in zip(jc, tc):
+            assert _scaled_gap(j, t) < 1e-5, (blk.mixer, "prefill cache")
+        x = jx
+        caches.append(jc)
+    for t in range(PROMPT, TOTAL):
+        x = jt._frontend(jp, jcfg, {"tokens": jnp.asarray(tokens[:, t:t + 1])})
+        for n, (jb, tb, jblk, blk) in enumerate(blocks):
+            jx, jc = jax.jit(lambda p, x_, c, s, b=jblk: jt._block_decode(
+                p, x_, c, s, b, jcfg, ShardCtx()))(jb, x, caches[n], jnp.int32(t))
+            tc = type(caches[n])(*(torch_of(a) for a in caches[n]))
+            tx, tc = tt._block_decode(tb, torch_of(x), tc, t, blk, cfg)
+            assert _scaled_gap(jx, tx) < 1e-5, (blk.mixer, t)
+            for j, got in zip(jc, tc):
+                assert _scaled_gap(j, got) < 1e-5, (blk.mixer, t, "cache")
+            x, caches[n] = jx, jc
+
+
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "deepseek-v2-lite-16b",
                                   "dbrx-132b"])
 def test_decode_matches_teacher_forced_forward(arch):
