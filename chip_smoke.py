@@ -151,7 +151,9 @@ another sm_90a card).  It builds the port's CUDA kernels from
    route at every head dim, f32 the CUDA-core one; times the backward
    at the training shape (event and device ms) beside SDPA's forward and
    backward, the plain version
-   and its bounds, and the forward at T=4096; then ``loss.backward()`` of qwen2.5-3b at full
+   and its bounds, and the forward at T=4096; times the f32 route
+   (``cuda_cores``) at the ``f32_route`` case's shape the same way, its
+   bound at the TF32 peak; then ``loss.backward()`` of qwen2.5-3b at full
    width cut to 2 layers (one sequence of 1024, f32, remat "full")
    through the kernels and through the plain versions, each parameter's
    gradient within relative L2 1e-3; then trains qwen2.5-3b at full width
@@ -192,7 +194,38 @@ another sm_90a card).  It builds the port's CUDA kernels from
    flash backward (route ``wgmma``, its device ms below SDPA's forward
    and backward) and forward at recurrentgemma's local training shape
    (16 heads of 256 over one, window 2048, T 4096);
-16. prints a ``kernels`` JSON line: each kernel's launches on its path
+16. training MLA and MoE: holds the flash backward at MLA's (q/k, v)
+   head dims (192, 128) against its plain version, every case run twice
+   for the same bits: deepseek-v2-lite-16b's training shape (B=1, T=4096,
+   16 heads over 16, causal, scale 1/√192, bf16), T=1000, T=1 (where dq
+   and dk cancel to 0 in exact arithmetic: held against the norm of the
+   cancelling terms), f16, f32 (route ``cuda_cores``) and 1000 queries
+   over 1536 keys not causal (relative L2 <= 2e-2 for bf16/f16, 1e-4 for
+   f32; bf16/f16 on route ``wgmma``), and a q view whose strides TMA
+   cannot take must raise ``ValueError``; times it at the training shape
+   (event and device ms by kernel) beside SDPA's forward and backward
+   (the backend SDPA picks printed), the plain version and the bounds,
+   and the forward there; then ``loss.backward()`` of deepseek-v2-lite-16b
+   at full width cut to the dense prelude and one MoE period (seq 1024,
+   f32, remat "full") through the kernels, twice (every gradient the same
+   bits) and through the plain versions (relative L2 1e-3); one MoE
+   layer at full width forward and backward twice (the same bits) and
+   under ``torch.use_deterministic_algorithms(True)``, which must not
+   raise; then trains deepseek-v2-lite-16b at full width (d_model 2048,
+   MLA kv_lora 512, 64 experts top-6 and 2 shared, vocab 102400) cut to
+   the dense prelude and 4 MoE periods (2.84 B parameters) as phase 14
+   trains qwen2.5-3b: 4 steps of 4 x 4096 tokens in 4 microbatches,
+   remat "full", bf16 compute, AdamW lr 3e-4; finite losses and grad
+   norms, the last loss below the first, flash launched 36 times a step
+   forward (the prelude once, each MoE period's layer twice under remat,
+   per microbatch) and 20 backward, no plain version reached; then
+   ``python -m repro_torch.examples.train_lm --hundred-m`` for 20 steps
+   (losses finite and falling, its checkpoint durable in the client's
+   PMEM tier) and the serving launcher ``python -m
+   repro_torch.launch.serve --full --arch gemma-2b`` (4 prompts of 32
+   tokens, 16 greedy tokens each; flash once a layer, decode once a layer
+   a step);
+17. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
@@ -206,7 +239,10 @@ another sm_90a card).  It builds the port's CUDA kernels from
    ring and dbrx's), since an event-timed ``ms`` includes
    the wrapper's host time.  The ``flash_attention_bwd`` row counts its
    launches on the training path and carries SDPA's forward and backward
-   as its library time, and recurrentgemma's training launches and shape;
+   as its library time (and the backend SDPA picked), recurrentgemma's and
+   deepseek's training launches and shapes, and the f32 route's time at
+   its case's shape beside its bound at the TF32 peak and SDPA's f32
+   forward and backward;
    the ``ssd_chunk`` row its mamba2-2.7b training launches and shape, and
    the ``ssd_chunk_bwd`` row its launches there, its checks and time.
    Decode and the SSD forward must make one launch a call, of their own
@@ -231,6 +267,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -2569,16 +2606,27 @@ class BwdRecord:
         self.checks = 0
 
 
-def bwd_case(rec: BwdRecord, case: str, q, k, v, do, **kw) -> None:
+#: the backward kernel's route by input type: tensor cores for bf16/f16
+BWD_ROUTE = {torch.bfloat16: "wgmma", torch.float16: "wgmma",
+             torch.float32: "cuda_cores"}
+
+
+def bwd_case(rec: BwdRecord, case: str, q, k, v, do, norms=None, **kw) -> None:
     """The forward kernel's lse and the backward kernel's dq, dk, dv
-    against the plain versions in f32 on the same inputs, each call made
-    twice: the same bits both times; then the backward event-timed."""
+    against the plain versions in f32 on the same inputs, on the route the
+    input type must take, each call made twice: the same bits both times;
+    then the backward event-timed.  ``norms`` (name -> norm) replaces the
+    plain gradient's norm as the relative error's denominator where the
+    gradient cancels to 0 in exact arithmetic (both versions' values are
+    then rounding noise): the norm of the terms that cancel."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
 
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     o2, lse2 = fa.flash_attention(q, k, v, return_lse=True, **kw)
     route = fb._plan(q, k, v, o, do)
+    check(route == BWD_ROUTE[q.dtype],
+          f"flash_attention_bwd {case}: {q.dtype} took route {route}")
     got = fb.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     again = fb.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     check(torch.equal(o, o2) and torch.equal(lse, lse2)
@@ -2595,7 +2643,8 @@ def bwd_case(rec: BwdRecord, case: str, q, k, v, do, **kw) -> None:
         check(g.dtype == q.dtype and g.shape == w.shape
               and bool(torch.isfinite(g.float()).all()),
               f"flash_attention_bwd {case}: {name} {g.dtype} {tuple(g.shape)}")
-        rels[name] = _rel_l2(g, w)
+        rels[name] = (_rel_l2(g, w) if norms is None or name not in norms
+                      else float((g.float() - w.float()).norm() / norms[name]))
         abss[name] = float((g.float() - w.float()).abs().max())
         check(rels[name] <= BWD_TOL[q.dtype],
               f"flash_attention_bwd {case}: {name} relative L2 {rels[name]}")
@@ -2605,8 +2654,10 @@ def bwd_case(rec: BwdRecord, case: str, q, k, v, do, **kw) -> None:
     ms = time_ms(lambda: fb.flash_attention_bwd(q, k, v, o, do, lse, **kw), reps=5,
                  warmup=1)
     emit("flash_bwd_case", case=case, shape=list(q.shape), keys=k.shape[1],
-         kv_heads=k.shape[2], dtype=str(q.dtype), route=route, ms=ms, rel_l2=rels, max_abs_err=abss, lse_max_abs_err=lse_err,
+         kv_heads=k.shape[2], v_head_dim=v.shape[3], dtype=str(q.dtype), route=route,
+         ms=ms, rel_l2=rels, max_abs_err=abss, lse_max_abs_err=lse_err,
          tol=BWD_TOL[q.dtype], bit_identical_rerun=True, ok=True,
+         **({"cancelling_terms_norm": norms} if norms else {}),
          **{k_: v_ for k_, v_ in kw.items() if v_ is not None})
 
 
@@ -2679,9 +2730,12 @@ def _kernel_pair(cfg):
     return (fa, fb), ("flash_attention", "flash_attention_bwd")
 
 
-def _path_layers(cfg, mixers) -> tuple:
-    """Layers of ``cfg`` whose mixer is in ``mixers``: (in the body, whose
-    periods remat recomputes; in the prelude and postlude)."""
+def _path_layers(cfg) -> tuple:
+    """Layers of ``cfg`` whose mixer runs the path's kernels (Mamba-2's SSD
+    layers, else attention, local attention and MLA): (in the body, whose
+    periods remat recomputes; in the prelude and postlude, which it does
+    not)."""
+    mixers = ("ssm",) if cfg.ssm is not None else ("attn", "local", "mla")
     body = cfg.n_periods * sum(b.mixer in mixers for b in cfg.pattern)
     rest = sum(b.mixer in mixers for b in (*cfg.prelude, *cfg.postlude))
     return body, rest
@@ -2697,13 +2751,16 @@ def _draw_train_params(cfg, seed: int, dev):
     return params
 
 
-def phase_grad_check(dev, seed: int, model: str = TRAIN_MODEL) -> dict:
-    """``loss.backward()`` of ``model`` at full width cut to 2 layers, one
-    sequence of 1024, f32, remat "full": through the kernels, then through
-    the plain versions of both (``_PlainFlash`` or ``_PlainSSD`` in place
-    of the wrapper); every parameter's gradient held to relative L2
-    GRAD_TOL, and the launches to 2 forward (the forward and remat's
-    recompute) and 1 backward a layer."""
+def phase_grad_check(dev, seed: int, model: str = TRAIN_MODEL,
+                     n_periods: int = GRAD_LAYERS, rerun: bool = False) -> dict:
+    """``loss.backward()`` of ``model`` at full width, its body cut to
+    ``n_periods`` periods, one sequence of 1024, f32, remat "full": through
+    the kernels, then through the plain versions of both (``_PlainFlash``
+    or ``_PlainSSD`` in place of the wrapper); every parameter's gradient
+    held to relative L2 GRAD_TOL, and the launches to 2 forward (the
+    forward and remat's recompute) and 1 backward a body layer, 1 and 1 a
+    prelude or postlude layer.  With ``rerun`` the kernels' pass runs
+    twice and every gradient must be the same bits."""
     from repro_torch.configs import get_config
     from repro_torch.data import PipelineConfig, make_batch
     from repro_torch.kernels import ops
@@ -2712,7 +2769,7 @@ def phase_grad_check(dev, seed: int, model: str = TRAIN_MODEL) -> dict:
     from repro_torch.models.layers import chunked_ce_loss
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = replace(get_config(model), n_periods=GRAD_LAYERS)
+    cfg = replace(get_config(model), n_periods=n_periods)
     params = _draw_train_params(cfg, seed, dev)
     (fwd, bwd), names = _kernel_pair(cfg)
     batch = make_batch(PipelineConfig(vocab=cfg.vocab, seq_len=GRAD_SEQ,
@@ -2732,9 +2789,19 @@ def phase_grad_check(dev, seed: int, model: str = TRAIN_MODEL) -> dict:
     fwd.launches = bwd.launches = 0
     loss_k, grads_k = grads()
     launches = {names[0]: fwd.launches, names[1]: bwd.launches}
-    want = {names[0]: 2 * GRAD_LAYERS, names[1]: GRAD_LAYERS}
+    body, rest = _path_layers(cfg)
+    want = {names[0]: 2 * body + rest, names[1]: body + rest}
     check(launches == want, f"gradient check: launches {launches} for "
-          f"{GRAD_LAYERS} layers under remat full, want {want}")
+          f"{cfg.n_layers} layers under remat full, want {want}")
+    equal_rerun = None
+    if rerun:
+        loss_r, grads_r = grads()
+        equal_rerun = loss_r == loss_k and all(
+            torch.equal(a, b) for a, b in zip(grads_k, grads_r))
+        check(equal_rerun, f"gradient check {cfg.name}: a second backward "
+              "gave other gradients")
+        del grads_r
+        fwd.launches, bwd.launches = launches[names[0]], launches[names[1]]
     if cfg.ssm is not None:
         op, plain = "ssd_chunk", _PlainSSD.apply
     else:
@@ -2754,10 +2821,11 @@ def phase_grad_check(dev, seed: int, model: str = TRAIN_MODEL) -> dict:
     worst = max(rels)
     check(all(math.isfinite(r) for r in rels) and worst <= GRAD_TOL,
           f"gradient check: worst relative L2 {worst} > {GRAD_TOL}")
-    out = {"model": cfg.name, "layers": GRAD_LAYERS, "seq": GRAD_SEQ,
+    out = {"model": cfg.name, "layers": cfg.n_layers, "seq": GRAD_SEQ,
            "dtype": "float32", "loss_kernels": loss_k, "loss_plain": loss_p,
            "leaves": len(rels), "worst_rel_l2": worst,
-           "median_rel_l2": statistics.median(rels), "tol": GRAD_TOL, **launches}
+           "median_rel_l2": statistics.median(rels), "tol": GRAD_TOL,
+           "bit_identical_rerun": equal_rerun, **launches}
     emit("train_grad_check", **out)
     del params, grads_k, grads_p
     free_card()
@@ -2867,8 +2935,7 @@ def phase_training(dev, seed: int, model: str = TRAIN_MODEL,
     opt = adamw_init(params)
     n_params = sum(p.numel() for p in tree_leaves(params))
     (fwd, bwd), names = _kernel_pair(cfg)
-    body, rest = _path_layers(cfg, ("ssm",) if cfg.ssm is not None
-                              else ("attn", "local"))
+    body, rest = _path_layers(cfg)
     want = ((2 * body + rest) * TRAIN_MICROBATCHES, (body + rest) * TRAIN_MICROBATCHES)
     shape = ShapeConfig(name="train_4k_cut", kind="train", seq_len=TRAIN_SEQ,
                         global_batch=TRAIN_BATCH, microbatches=TRAIN_MICROBATCHES,
@@ -2955,12 +3022,14 @@ def phase_training(dev, seed: int, model: str = TRAIN_MODEL,
 
 
 def measure_flash_bwd(q, k, v, do, kw) -> dict:
-    """The backward kernel at the training shape: its route, event-timed
+    """The backward kernel at a training shape: its route, event-timed
     ms (with the wrapper's host time) and device ms (in all and by
-    kernel), beside the plain
-    version, SDPA's forward and backward (``enable_gqa``; a window that
-    masks as an explicit mask), and the bound: 5 products of 2·dh operations over each (row, key) pair the
-    mask keeps at the bf16 peak, against q, k, v, o, do and lse read once
+    kernel), beside the plain version, SDPA's forward and backward
+    (``enable_gqa``; a window that masks as an explicit mask; the backend
+    SDPA picks), and the bound: 5 products over each (row, key) pair the
+    mask keeps (Q·Kᵀ, dS·K and dSᵀ·Q of 2·dqk operations, dO·Vᵀ and Pᵀ·dO
+    of 2·dv) at the peak of the inputs' type (bf16/f16 on the tensor
+    cores; f32 at the TF32 peak), against q, k, v, o, do and lse read once
     and dq, dk, dv written once; ``bound_as_run_ms`` counts the 7 products
     the kernel runs (its dq pass recomputes Q·Kᵀ and dO·Vᵀ)."""
     import torch.nn.functional as F
@@ -2969,6 +3038,7 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
     from repro_torch.kernels import flash_attention_bwd as fb
 
     B, T, H, dh = q.shape
+    dv = v.shape[3]
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     bwd = lambda: fb.flash_attention_bwd(q, k, v, o, do, lse, **kw)  # noqa: E731
     kernel_ms = time_ms(bwd)
@@ -2983,16 +3053,17 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
     window = kw.get("window")
     mask = (fa.live_mask(T, T, kw["causal"], window, q.device)
             if window is not None and window < T else None)
+    causal = kw["causal"] and mask is None
 
     def sdpa_fwd():
         return F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=kw["causal"] and mask is None,
+            qt, kt, vt, attn_mask=mask, is_causal=causal, scale=kw.get("scale"),
             enable_gqa=True)
 
     def sdpa():
         return torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
 
-    library_ms = library_device = library_fwd_ms = None
+    library_ms = library_device = library_fwd_ms = backend = None
     try:
         sdpa()
     except RuntimeError as exc:  # a yardstick only: record the refusal
@@ -3001,26 +3072,37 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
         library_ms, library_device = time_ms(sdpa), device_ms(sdpa)
         with torch.no_grad():
             library_fwd_ms = time_ms(sdpa_fwd)
+        choice = getattr(torch, "_fused_sdp_choice", None)  # the backend it picks
+        if choice is not None:
+            from torch.nn.attention import SDPBackend
+
+            backend = SDPBackend(choice(qt, kt, vt, mask, 0.0, causal,
+                                        scale=kw.get("scale"), enable_gqa=True)).name
     pairs = (sum(i + 1 - max(0, i - window + 1) for i in range(T)) if window
              else T * (T + 1) // 2 if kw["causal"] else T * T)
-    flops = 5 * 2 * dh * pairs * B * H
+    flops = 2 * (3 * dh + 2 * dv) * pairs * B * H
+    flops_as_run = 2 * (4 * dh + 3 * dv) * pairs * B * H
     # q, o, do read and dq written; k, v read and dk, dv written; lse read
-    nbytes = q.element_size() * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
-    ops_ms = flops / BF16_FLOPS * 1e3
+    nbytes = (q.element_size() * 2 * (q.numel() + do.numel() + k.numel() + v.numel())
+              + 4 * lse.numel())
+    peak = TF32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    ops_ms = flops / peak * 1e3
     bytes_ms = bytes_bound_ms(nbytes)
     return {
-        "shape": {"B": B, "T": T, "H": H, "Kv": k.shape[2], "dh": dh,
+        "shape": {"B": B, "T": T, "H": H, "Kv": k.shape[2], "dh": dh, "dv": dv,
                   "causal": kw["causal"], "window": window, "dtype": str(q.dtype)},
         "kernel_route": fb._plan(q, k, v, o, do),
-        "bound_as_run_ms": max(ops_ms * 7 / 5, bytes_ms),
+        "bound_as_run_ms": max(flops_as_run / peak * 1e3, bytes_ms),
         "kernel_ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "fwd_bwd_ms": fwd_bwd_ms, "library_ms": library_ms,
         "library_device_ms": library_device, "library_fwd_ms": library_fwd_ms,
+        "library_backend": backend,
         "launches_per_call": per_call, "kernels_seen": sorted(names),
         "device_ms_by_kernel": names,
         "window_lost": lost, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "flops": flops, "bytes": nbytes,
+        "peak_flops": peak, "flops": flops, "flops_as_run": flops_as_run,
+        "bytes": nbytes,
     }
 
 
@@ -3239,6 +3321,233 @@ class _PlainSSD(torch.autograd.Function):
         from repro_torch.kernels import ssd_scan_bwd as sb
 
         return sb.ssd_chunk_bwd_torch(*ctx.saved_tensors, dy, dS)
+
+
+# -- training MLA and MoE: the backward at (192, 128), deepseek-v2-lite-16b,
+# -- the train_lm example, the serving launcher --------------------------------
+
+MLA_HEAD_DIMS = (192, 128)  # deepseek-v2's q/k (128 "nope" + 64 rotary) and v
+MLA_GRAD_PERIODS = 1  # the gradient check: the dense prelude and one MoE period
+MLA_TRAIN_PERIODS = 4  # deepseek-v2-lite-16b's 26 MoE periods cut to 4: 2.84 B
+MLA_TRAIN_STEPS = 4
+EXAMPLE_STEPS = 20
+EXAMPLE_BATCH, EXAMPLE_SEQ = 8, 128  # the example's defaults
+EXAMPLE_HELD = 3  # batches whose loss is read before and after training
+EXAMPLE_CKPT_EVERY = 20  # one checkpoint: each is 1.9 GB of f32 state
+LAUNCHER_ARCH = "gemma-2b"  # the serving launcher's default model, at full width
+LAUNCHER_BATCH, LAUNCHER_PROMPT, LAUNCHER_TOKENS = 4, 32, 16
+
+
+def phase_mla_backward(dev, seed: int, rec: BwdRecord) -> tuple:
+    """The backward kernel at MLA's (192, 128), 16 heads over 16 (no GQA),
+    scale 1/√192: deepseek-v2-lite-16b's training shape (T 4096, causal,
+    bf16), T 1000, T 1, f16, f32 (route ``cuda_cores``) and 1000 queries
+    over 1536 keys not causal.  Returns the training shape's inputs and
+    options."""
+    g = torch.Generator(device=dev).manual_seed(seed + 24)
+    dqk, dv = MLA_HEAD_DIMS
+    scale = 1.0 / math.sqrt(dqk)
+    kw = {"causal": True, "scale": scale}
+
+    def inputs(B, T, H, dtype, Tk=None):
+        q, k, v = flash_inputs(g, dev, B, T, H, H, dqk, dtype, Tk=Tk, dv=dv)
+        return q, k, v, _randn(g, (B, T, H, dv), dtype, dev)
+
+    train = inputs(1, TRAIN_SEQ, 16, torch.bfloat16)
+    bwd_case(rec, "mla_train_shape", *train, **kw)
+    bwd_case(rec, "mla_ragged_T1000", *inputs(1, 1000, 16, torch.bfloat16), **kw)
+    # one row over one key: P = 1, so dS = P (dP - D) is 0 in exact
+    # arithmetic and both versions' dq and dk are rounding noise; they are
+    # held against the norm of the terms that cancel, scale (do.v) k and
+    # scale (do.v) q (H = Kv: each head its own kv head)
+    q1, k1, v1, do1 = inputs(1, 1, 16, torch.bfloat16)
+    dp = (do1.float() * v1.float()).sum(-1, keepdim=True)
+    norms = {"dq": float((scale * dp * k1.float()).norm()),
+             "dk": float((scale * dp * q1.float()).norm())}
+    bwd_case(rec, "mla_T1", q1, k1, v1, do1, norms=norms, **kw)
+    bwd_case(rec, "mla_f16", *inputs(2, 333, 16, torch.float16), **kw)
+    bwd_case(rec, "mla_f32_route", *inputs(1, 1024, 16, torch.float32), **kw)
+    bwd_case(rec, "mla_tq_lt_tk_full", *inputs(1, 1000, 16, torch.bfloat16, Tk=1536),
+             causal=False, scale=scale)
+    # q as a view whose head stride (196 elements) TMA cannot take: the
+    # backward raises rather than run another way
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    q, k, v, do = inputs(1, 64, 16, torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    wide = torch.zeros(1, 64, 16, dqk + 4, dtype=q.dtype, device=dev)
+    wide[..., :dqk] = q
+    try:
+        fb.flash_attention_bwd(wide[..., :dqk], k, v, o, do, lse, **kw)
+    except ValueError as exc:
+        check("TMA" in str(exc), f"MLA backward refused a view for {exc}")
+        emit("mla_bwd_tma_refusal", head_stride=dqk + 4, error=str(exc)[:120])
+    else:
+        raise SmokeError("the MLA backward took a q view whose strides TMA cannot take")
+    return train, kw
+
+
+def phase_moe_determinism(dev, seed: int) -> dict:
+    """One MoE layer of deepseek-v2-lite-16b at full width (64 experts
+    top-6 and 2 shared, capacity factor 1.25), 4096 tokens, bf16: forward
+    and backward twice, the same bits both times; then once under
+    ``torch.use_deterministic_algorithms(True)``, where PyTorch raises on
+    an operation it knows to be nondeterministic on CUDA (the cuBLAS
+    setting it asks for, ``CUBLAS_WORKSPACE_CONFIG``, is set for that call
+    only).  Prints how far that call's results lie from the first."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, moe
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(MLA_MODEL)
+    g = torch.Generator(device=dev).manual_seed(seed + 25)
+    p0 = init_params(moe.moe_defs(cfg), g, dev)
+    x0 = _randn(g, (1, TRAIN_SEQ, cfg.d_model), torch.bfloat16, dev)
+    dy = _randn(g, (1, TRAIN_SEQ, cfg.d_model), torch.bfloat16, dev)
+
+    def run():
+        p = tree_map(lambda t: t.detach().requires_grad_(), p0)
+        x = x0.detach().requires_grad_()
+        out, aux = moe.moe_apply(p, x, cfg)
+        torch.autograd.backward((out, aux), (dy, torch.ones_like(aux)))
+        torch.cuda.synchronize()
+        return [out.detach(), aux.detach(), x.grad] + [t.grad for t in tree_leaves(p)]
+
+    first, second = run(), run()
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          "MoE layer: two forward and backward passes differ")
+    check(all(bool(torch.isfinite(t.float()).all()) for t in first),
+          "MoE layer: a non-finite output or gradient")
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        flagged = run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+    out = {"model": cfg.name, "tokens": TRAIN_SEQ, "dtype": "bfloat16",
+           "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+           "capacity_factor": cfg.moe.capacity_factor,
+           "bit_identical_rerun": True, "deterministic_algorithms": "no error",
+           "deterministic_equal": all(torch.equal(a, b) for a, b in zip(first, flagged)),
+           "deterministic_max_abs_diff": max(float((a.float() - b.float()).abs().max())
+                                             for a, b in zip(first, flagged))}
+    emit("moe_determinism", **out)
+    del p0, x0, dy, first, second, flagged
+    free_card()
+    return out
+
+
+def phase_train_example(dev, workdir: Path) -> dict:
+    """``python -m repro_torch.examples.train_lm --hundred-m`` on the card
+    for EXAMPLE_STEPS steps, a checkpoint every EXAMPLE_CKPT_EVERY to the
+    PMEM tier of its client: losses finite, every checkpoint durable, both
+    flash kernels launched.  That the steps learn is read on the same
+    batches before and after: the loss of the first EXAMPLE_HELD batches
+    (all trained on) at the run's initial weights (drawn here as the
+    example draws them; the first must equal the run's first loss) and at
+    its trained weights.  Each must fall: a run that updated nothing
+    would read them equal.  (Across batches the losses move with the
+    data: in 20 steps this config's loss falls by less than the
+    step-to-step spread, its gradient norm at init being ~3e6, as the
+    reference's own example's is, so the clipped updates are small.)"""
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.launch.steps import COMPUTE_DTYPE
+    from repro_torch.models import forward, init_params, model_defs
+    from repro_torch.models.layers import chunked_ce_loss
+    from repro_torch.models.transformer import cast_weights
+
+    cfg, shape = train_lm.build(True, EXAMPLE_SEQ, EXAMPLE_BATCH)
+    pipe = PipelineConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                          global_batch=shape.global_batch)
+
+    @torch.no_grad()
+    def held_losses(params) -> list:
+        out = []
+        for step in range(EXAMPLE_HELD):
+            b = {k: torch.as_tensor(v).to(dev) for k, v in make_batch(pipe, step).items()}
+            h, _ = forward(params, cfg, {"tokens": b["tokens"]}, dtype=COMPUTE_DTYPE)
+            loss, _ = chunked_ce_loss(h, cast_weights(params["unembed"], COMPUTE_DTYPE),
+                                      b["labels"], t_chunk=shape.loss_chunk,
+                                      logit_softcap=cfg.final_softcap)
+            out.append(float(loss))
+        return out
+
+    before = held_losses(init_params(model_defs(cfg),
+                                     torch.Generator(device=dev).manual_seed(0), dev,
+                                     dtype=torch.float32))
+    free_card()
+    fa.launches = fb.launches = 0
+    t0 = time.perf_counter()
+    out = train_lm.main(["--hundred-m", "--steps", str(EXAMPLE_STEPS),
+                         "--batch", str(EXAMPLE_BATCH), "--seq", str(EXAMPLE_SEQ),
+                         "--ckpt-every", str(EXAMPLE_CKPT_EVERY), "--device", str(dev),
+                         "--ckpt-dir", str(workdir)])
+    s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches, "flash_attention_bwd": fb.launches}
+    losses = out["losses"]
+    after = held_losses(out.pop("params"))
+    free_card()
+    want_ckpts = list(range(EXAMPLE_CKPT_EVERY, EXAMPLE_STEPS + 1, EXAMPLE_CKPT_EVERY))
+    check(all(math.isfinite(x) for x in losses + out["grad_norms"] + before + after),
+          f"train_lm example: losses {losses[0]} ... {losses[-1]}")
+    check(abs(before[0] - losses[0]) <= 1e-3 * abs(losses[0]),
+          f"train_lm example: batch 0 at the initial weights {before[0]}, "
+          f"the run's first loss {losses[0]}")
+    check(all(a < b for a, b in zip(after, before)),
+          f"train_lm example: held batches' losses {before} before, {after} after")
+    check(out["checkpoints"] == want_ckpts,
+          f"train_lm example: durable checkpoints {out['checkpoints']}, want {want_ckpts}")
+    check(launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0,
+          f"train_lm example: launches {launches}")
+    res = {"steps": EXAMPLE_STEPS, "first_loss": losses[0], "last_loss": losses[-1],
+           "held_before": before, "held_after": after,
+           "grad_norm_first": out["grad_norms"][0],
+           "checkpoints": out["checkpoints"], "tokens_per_s": out["tokens_per_s"],
+           **launches, "s": s}
+    emit("train_example", **res)
+    return res
+
+
+def phase_serve_launcher(dev) -> dict:
+    """``python -m repro_torch.launch.serve --full --arch gemma-2b`` on the
+    card: LAUNCHER_BATCH prompts of LAUNCHER_PROMPT tokens, LAUNCHER_TOKENS
+    greedy tokens each.  The tokens lie in the vocabulary; flash launched
+    once a layer (the prefill), decode once a layer a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+
+    cfg = get_config(LAUNCHER_ARCH)
+    fa.launches = da.launches = 0
+    out = serve.main(["--full", "--arch", LAUNCHER_ARCH, "--batch", str(LAUNCHER_BATCH),
+                      "--prompt-len", str(LAUNCHER_PROMPT), "--tokens",
+                      str(LAUNCHER_TOKENS), "--device", "cuda"])
+    tokens = out["tokens"]
+    check(tokens.shape == (LAUNCHER_BATCH, LAUNCHER_TOKENS)
+          and 0 <= tokens.min() and tokens.max() < cfg.vocab,
+          f"serve launcher: tokens {tokens.shape}")
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (LAUNCHER_TOKENS - 1)}
+    got = {"flash_attention": fa.launches, "decode_attention": da.launches}
+    check(got == want, f"serve launcher: launches {got}, want {want}")
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": LAUNCHER_BATCH,
+           "prompt_len": LAUNCHER_PROMPT, "tokens": LAUNCHER_TOKENS,
+           "prefill_ms": out["prefill_s"] * 1e3, "decode_ms": out["decode_s"] * 1e3,
+           "decode_tokens_per_s": (LAUNCHER_TOKENS - 1) * LAUNCHER_BATCH
+           / out["decode_s"], "first_tokens": tokens[0, :8].tolist(), **got}
+    emit("serve_launcher", **res)
+    free_card()
+    return res
 
 
 def dbrx_path_shapes(dev, seed: int, cfg, prompt_len: int, steps: int) -> tuple:
@@ -3467,6 +3776,16 @@ def main(argv=None) -> int:
     flash_train_shape = measure_flash(tq, tk, tv, {"causal": True})
     emit("flash_train_path_shape", **flash_train_shape)
     del tq, tk, tv, tdo
+    # the f32 route (CUDA cores) at the f32_route case's shape, against its
+    # bound at the TF32 peak and SDPA's f32 forward and backward
+    g = torch.Generator(device=dev).manual_seed(args.seed + 26)
+    fq, fk, fv = flash_inputs(g, dev, 1, 1024, 16, 2, 128, torch.float32)
+    bwd_f32_shape = measure_flash_bwd(fq, fk, fv, _randn(g, fq.shape, torch.float32, dev),
+                                      {"causal": True})
+    emit("flash_bwd_f32_shape", card=card, **bwd_f32_shape)
+    check(bwd_f32_shape["kernel_route"] == "cuda_cores",
+          f"the f32 backward took route {bwd_f32_shape['kernel_route']}")
+    del fq, fk, fv
     free_card()
     emit("phase_done", name="flash_backward", s=time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -3520,6 +3839,36 @@ def main(argv=None) -> int:
     free_card()
     emit("phase_done", name="recurrentgemma_training", s=time.perf_counter() - t0)
 
+    # training MLA and MoE: the backward kernel at (192, 128), deepseek-v2-
+    # lite-16b's whole-model gradients, determinism and full-width steps;
+    # the train_lm example; the serving launcher
+    t0 = time.perf_counter()
+    (mq, mk, mv, mdo), mkw = phase_mla_backward(dev, args.seed, bwd_rec)
+    mla_bwd_shape = measure_flash_bwd(mq, mk, mv, mdo, mkw)
+    emit("flash_bwd_mla_train_shape", card=card, **mla_bwd_shape)
+    check(mla_bwd_shape["kernel_route"] == "wgmma",
+          f"MLA's backward took route {mla_bwd_shape['kernel_route']}")
+    mla_fwd_shape = measure_flash(mq, mk, mv, mkw)
+    emit("flash_mla_train_path_shape", **mla_fwd_shape)
+    del mq, mk, mv, mdo
+    free_card()
+    emit("phase_done", name="mla_backward", s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mla_grad = phase_grad_check(dev, args.seed, MLA_MODEL, n_periods=MLA_GRAD_PERIODS,
+                                rerun=True)
+    moe_det = phase_moe_determinism(dev, args.seed)
+    mla_train = phase_training(dev, args.seed, MLA_MODEL, MLA_TRAIN_STEPS,
+                               n_periods=MLA_TRAIN_PERIODS)
+    emit("phase_done", name="deepseek_training", s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_example_") as workdir:
+        example = phase_train_example(dev, Path(workdir))
+    free_card()
+    launcher = phase_serve_launcher(dev)
+    emit("phase_done", name="example_and_launcher", s=time.perf_counter() - t0)
+    emit("mla_moe_training", gradient_check=mla_grad, moe_determinism=moe_det,
+         example=example, serve_launcher=launcher)
+
     def path_row(m, launches):
         return {"shape": m["shape"], "launches": launches, "ms": m["kernel_ms"],
                 "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
@@ -3570,8 +3919,14 @@ def main(argv=None) -> int:
              "qwen2.5-3b_train_4k": path_row(
                  flash_train_shape, train_launches["flash_attention"]),
              "recurrentgemma-9b_train_4k": path_row(
-                 rg_fwd_shape, rg_train["launches"]["flash_attention"])},
+                 rg_fwd_shape, rg_train["launches"]["flash_attention"]),
+             "deepseek-v2-lite-16b_train_4k": path_row(
+                 mla_fwd_shape, mla_train["launches"]["flash_attention"])},
          "training_launches": train_launches["flash_attention"],
+         "training_launches_deepseek-v2-lite-16b":
+             mla_train["launches"]["flash_attention"],
+         "launches_per_step_deepseek-v2-lite-16b":
+             mla_train["launches_per_step"]["flash_attention"],
          "training_launches_recurrentgemma-9b": rg_train["launches"]["flash_attention"],
          "launches_per_step_recurrentgemma-9b":
              rg_train["launches_per_step"]["flash_attention"]},
@@ -3585,6 +3940,7 @@ def main(argv=None) -> int:
          "library_device_ms": bwd_shape["library_device_ms"],
          "library": "scaled_dot_product_attention forward + backward",
          "library_fwd_ms": bwd_shape["library_fwd_ms"],
+         "library_backend": bwd_shape["library_backend"],
          "fwd_bwd_ms": bwd_shape["fwd_bwd_ms"],
          "max_rel_l2": bwd_rec.max_rel_l2,
          "launches_per_step": train_out["launches_per_step"]["flash_attention_bwd"],
@@ -3592,9 +3948,27 @@ def main(argv=None) -> int:
              rg_train["launches"]["flash_attention_bwd"],
          "launches_per_step_recurrentgemma-9b":
              rg_train["launches_per_step"]["flash_attention_bwd"],
-         "path_shapes": {"recurrentgemma-9b_train_4k": {
-             **path_row(rg_bwd_shape, rg_train["launches"]["flash_attention_bwd"]),
-             "kernel_route": rg_bwd_shape["kernel_route"]}}},
+         "training_launches_deepseek-v2-lite-16b":
+             mla_train["launches"]["flash_attention_bwd"],
+         "launches_per_step_deepseek-v2-lite-16b":
+             mla_train["launches_per_step"]["flash_attention_bwd"],
+         "path_shapes": {
+             "recurrentgemma-9b_train_4k": {
+                 **path_row(rg_bwd_shape, rg_train["launches"]["flash_attention_bwd"]),
+                 "kernel_route": rg_bwd_shape["kernel_route"]},
+             "deepseek-v2-lite-16b_train_4k": {
+                 **path_row(mla_bwd_shape, mla_train["launches"]["flash_attention_bwd"]),
+                 "kernel_route": mla_bwd_shape["kernel_route"],
+                 "bound_as_run_ms": mla_bwd_shape["bound_as_run_ms"],
+                 "device_ms_by_kernel": mla_bwd_shape["device_ms_by_kernel"],
+                 "library_fwd_ms": mla_bwd_shape["library_fwd_ms"],
+                 "library_backend": mla_bwd_shape["library_backend"]},
+             "f32_route": {
+                 **path_row(bwd_f32_shape, 0),
+                 "kernel_route": bwd_f32_shape["kernel_route"],
+                 "bound_as_run_ms": bwd_f32_shape["bound_as_run_ms"],
+                 "library_fwd_ms": bwd_f32_shape["library_fwd_ms"],
+                 "library_backend": bwd_f32_shape["library_backend"]}}},
         {**row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                "src/repro/kernels/decode_attention.py:127",
                serve_launches["decode_attention"], decode_rec.max_abs_err,

@@ -2,11 +2,11 @@
 // in flash_attention.cu from q (B, Tq, H, D), k and v (B, Tk, Kv, D), the
 // forward's output o and its per-row log-sum-exp `lse` (f32, (B, H, Tq)),
 // and the output's gradient do, for causal or full attention with GQA, an
-// optional softcap and sliding window, any Tq and Tk.  Head dims D in {64,
-// 128, 256}, square: the tensor-core kernels at D 64 and 128 are templates
-// on the pair (DQK, DV), as the forward's are, but MLA's (192, 128) is not
-// built yet.
-// bf16, f16 and f32.
+// optional softcap and sliding window, any Tq and Tk.  Head dims (q/k, v)
+// square at 64, 128 and 256, or MLA's (192, 128) (deepseek-v2's 128 "nope"
+// and 64 rotary columns of q and k against v's 128): every kernel but the
+// dh-256 split ones is a template on the pair (DQK, DV), as the forward's
+// are.  bf16, f16 and f32.
 //
 // Replaces the TPU side's jax.vjp of the XLA twin of the Pallas forward
 // (repro/models/layers.py, chunked_attention): the reference has no Pallas
@@ -49,11 +49,12 @@
 // No atomics and no split whose order varies: the same inputs give the
 // same bytes, which a training run resumed from a checkpoint relies on.
 //
-// * "wgmma" (bf16 / f16, D 64, 128 and 256): kernels 2 and 3 run on the tensor
-//   cores, fed by TMA, with the forward's building blocks (hopper.h).  A
-//   block is two consumer warpgroups of 64 resident rows each and one
-//   producer warpgroup (setmaxnreg 24 / 240) whose first thread loads the
-//   resident tiles once and streams 64-row tiles through a two-stage ring
+// * "wgmma" (bf16 / f16, (D, Dv) (64, 64), (128, 128), (192, 128) and (256,
+//   256)): kernels 2 and 3 run on the tensor cores, fed by TMA, with the
+//   forward's building blocks (hopper.h).  A block is two consumer
+//   warpgroups of 64 resident rows each and one producer warpgroup
+//   (setmaxnreg 24 / 240) whose first thread loads the resident tiles
+//   once and streams 64-row tiles through a two-stage ring
 //   (128-byte swizzle; one mbarrier per stage for its loads, one that
 //   every consumer thread releases).  TMA reads rows past Tq or Tk as
 //   zeros; a padded row's lse of +inf gives it P = 0.
@@ -102,18 +103,33 @@
 //     key tile of a q block's) has a row that sees a key, so none is
 //     skipped; the causal and window masks act on the tiles that cross
 //     them.  226 KB of shared memory, one block an SM.
-// * "cuda_cores" (f32 at every D): kernels 2 and 3 on f32 CUDA-core FMAs
-//   out of shared memory (wgmma has no f32 inputs).  Tiles: 64 keys x 64
-//   query rows for D 64 and 128, 32 x 32 for D 256 (K, V, Q and do tiles
-//   of D + 1 floats a row, the +1 pad spreading column walks over the 32
-//   banks; P and dy tiles); 256 threads; causal and window blocks skip the
-//   tiles they cannot see, the heaviest blocks first.
+//   - (192, 128), MLA: the dh-128 kernels instantiated at (192, 128),
+//     162 KB of shared memory (q and k stream in three 128-byte column
+//     chunks, v and do in two).  A dk/dv consumer holds dk (96 f32
+//     registers) and dv (64); with S^T and dP^T (32 each) live together,
+//     as the square kernels hold them, ptxas spills past setmaxnreg's 240.
+//     So at q/k wider than v (`kLean`) the consumer never holds two f32
+//     tiles: S^T, then P^T packed in the input type (16 registers: dV's A
+//     fragments) while P (1 - tanh^2) stays f32, dV += P^T.dO, P (1 -
+//     tanh^2) packed in its place, then dP^T, dS^T = P (1 - tanh^2) (dP^T
+//     - D) from the packed value, dK += dS^T.Q.  The cost: P (1 - tanh^2)
+//     is rounded to the input type before dS^T (the square kernels round
+//     only dS^T), and dV's product no longer overlaps dP^T's within a
+//     warpgroup.  dq holds 96 registers of dQ and needs no change.
+// * "cuda_cores" (f32 at every pair of head dims): kernels 2 and 3 on f32
+//   CUDA-core FMAs out of shared memory (wgmma has no f32 inputs).  Tiles:
+//   64 keys x 64 query rows for D 64 and 128, 32 x 32 for D 256 and (192,
+//   128) (K and Q tiles of DQK + 1 floats a row, V and do tiles of DV + 1,
+//   the +1 pad spreading column walks over the 32 banks; P and dy tiles);
+//   256 threads; causal and window blocks skip the tiles they cannot see,
+//   the heaviest blocks first.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -219,18 +235,20 @@ __global__ void __launch_bounds__(kThreads) delta_kernel(const Args a) {
 
 // -- the CUDA-core route: shared tiles ----------------------------------------
 
-// Shared memory of the dkdv and dq kernels, in floats: K and V tiles (BK
-// rows), Q and do tiles (BQ rows), each D + 1 floats a row; P and dy tiles
-// (BQ x (BK + 1)); and the q tile's lse and D (BQ each).
-template <int D, int BK, int BQ>
+// Shared memory of the dkdv and dq kernels, in floats: K and Q tiles of
+// DQK + 1 floats a row and V and do tiles of DV + 1 (BK rows of K and V,
+// BQ of Q and do); P and dy tiles (BQ x (BK + 1)); and the q tile's lse
+// and D (BQ each).
+template <int DQK, int DV, int BK, int BQ>
 struct Smem {
-  static constexpr int RS = D + 1;   // row stride of the K, V, Q, do tiles
-  static constexpr int PS = BK + 1;  // row stride of the P and dy tiles
+  static constexpr int RK = DQK + 1;  // row stride of the K and Q tiles
+  static constexpr int RV = DV + 1;   // row stride of the V and do tiles
+  static constexpr int PS = BK + 1;   // row stride of the P and dy tiles
   static constexpr int K = 0;
-  static constexpr int V = K + BK * RS;
-  static constexpr int Q = V + BK * RS;
-  static constexpr int G = Q + BQ * RS;
-  static constexpr int P = G + BQ * RS;
+  static constexpr int V = K + BK * RK;
+  static constexpr int Q = V + BK * RV;
+  static constexpr int G = Q + BQ * RK;
+  static constexpr int P = G + BQ * RV;
   static constexpr int S = P + BQ * PS;
   static constexpr int LSE = S + BQ * PS;
   static constexpr int DL = LSE + BQ;
@@ -250,13 +268,15 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t st,
   }
 }
 
-// S = Q.K^T and dP = do.V^T for one (q tile, kv tile) pair, then P and dy
-// into the shared P and dy tiles.  Thread (ty, tx) takes rows ty + 16 i
-// and keys tx + 16 j.
-template <int D, int BK, int BQ>
+// S = Q.K^T (over DQK) and dP = do.V^T (over DV) for one (q tile, kv
+// tile) pair, then P and dy into the shared P and dy tiles.  Thread (ty,
+// tx) takes rows ty + 16 i and keys tx + 16 j.  The shared columns run as
+// one loop; the rest of the wider of the two after it.
+template <int DQK, int DV, int BK, int BQ>
 __device__ __forceinline__ void scores(const Args& a, float* sm, int q0, int k0) {
-  using L = Smem<D, BK, BQ>;
+  using L = Smem<DQK, DV, BK, BQ>;
   constexpr int RI = BQ / 16, KJ = BK / 16;
+  constexpr int DMIN = DQK < DV ? DQK : DV;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const float* sQ = sm + L::Q;
   const float* sG = sm + L::G;
@@ -268,17 +288,17 @@ __device__ __forceinline__ void scores(const Args& a, float* sm, int q0, int k0)
 #pragma unroll
     for (int j = 0; j < KJ; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < DMIN; ++d) {
     float qv[RI], gv[RI], kv[KJ], vv[KJ];
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
-      qv[i] = sQ[(ty + 16 * i) * L::RS + d];
-      gv[i] = sG[(ty + 16 * i) * L::RS + d];
+      qv[i] = sQ[(ty + 16 * i) * L::RK + d];
+      gv[i] = sG[(ty + 16 * i) * L::RV + d];
     }
 #pragma unroll
     for (int j = 0; j < KJ; ++j) {
-      kv[j] = sK[(tx + 16 * j) * L::RS + d];
-      vv[j] = sV[(tx + 16 * j) * L::RS + d];
+      kv[j] = sK[(tx + 16 * j) * L::RK + d];
+      vv[j] = sV[(tx + 16 * j) * L::RV + d];
     }
 #pragma unroll
     for (int i = 0; i < RI; ++i)
@@ -287,6 +307,30 @@ __device__ __forceinline__ void scores(const Args& a, float* sm, int q0, int k0)
         s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
         dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
       }
+  }
+#pragma unroll 4
+  for (int d = DMIN; d < DQK; ++d) {
+    float qv[RI], kv[KJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) qv[i] = sQ[(ty + 16 * i) * L::RK + d];
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) kv[j] = sK[(tx + 16 * j) * L::RK + d];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+  }
+#pragma unroll 4
+  for (int d = DMIN; d < DV; ++d) {
+    float gv[RI], vv[KJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) gv[i] = sG[(ty + 16 * i) * L::RV + d];
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) vv[j] = sV[(tx + 16 * j) * L::RV + d];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
   }
   const bool capped = a.softcap > 0.f;
 #pragma unroll
@@ -314,10 +358,10 @@ __device__ __forceinline__ void scores(const Args& a, float* sm, int q0, int k0)
 
 // -- the CUDA-core route: dk, dv per (kv tile, batch, query head) -------------
 
-template <typename T, int D, int BK, int BQ>
+template <typename T, int DQK, int DV, int BK, int BQ>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
-  using L = Smem<D, BK, BQ>;
-  constexpr int KI = BK / 16, C = D / 16;
+  using L = Smem<DQK, DV, BK, BQ>;
+  constexpr int KI = BK / 16, CQ = DQK / 16, CV = DV / 16;
   extern __shared__ float sm[];
   const int BH = a.B * a.H;
   const int kt = blockIdx.x / BH;  // small kv tiles first: under a causal
@@ -334,8 +378,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
   const float* lse = a.lse + static_cast<int64_t>(bh) * a.Tq;
   const float* delta = a.delta + static_cast<int64_t>(bh) * a.Tp;
 
-  load_tile<T, D, BK, L::RS>(sm + L::K, k, a.k_st, k0, a.Tk);
-  load_tile<T, D, BK, L::RS>(sm + L::V, v, a.v_st, k0, a.Tk);
+  load_tile<T, DQK, BK, L::RK>(sm + L::K, k, a.k_st, k0, a.Tk);
+  load_tile<T, DV, BK, L::RV>(sm + L::V, v, a.v_st, k0, a.Tk);
 
   // the q tiles with a row that sees a key of [k0, k0 + BK)
   const int n_qt = (a.Tq + BQ - 1) / BQ;
@@ -343,70 +387,73 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
   int qt_end = n_qt;
   if (a.window > 0) qt_end = min(n_qt, (k0 + BK - 2 + a.window) / BQ + 1);
 
-  float dk[KI][C], dv[KI][C];
+  float dk[KI][CQ], dv[KI][CV];
 #pragma unroll
-  for (int i = 0; i < KI; ++i)
+  for (int i = 0; i < KI; ++i) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) dk[i][c] = dv[i][c] = 0.f;
+    for (int c = 0; c < CQ; ++c) dk[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CV; ++c) dv[i][c] = 0.f;
+  }
 
   for (int qt = qt_begin; qt < qt_end; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();  // the previous q tile is consumed
-    load_tile<T, D, BQ, L::RS>(sm + L::Q, q, a.q_st, q0, a.Tq);
-    load_tile<T, D, BQ, L::RS>(sm + L::G, g, a.g_st, q0, a.Tq);
+    load_tile<T, DQK, BQ, L::RK>(sm + L::Q, q, a.q_st, q0, a.Tq);
+    load_tile<T, DV, BQ, L::RV>(sm + L::G, g, a.g_st, q0, a.Tq);
     for (int r = threadIdx.x; r < BQ; r += kThreads) {
       const bool in = q0 + r < a.Tq;
       sm[L::LSE + r] = in ? lse[q0 + r] : INFINITY;
       sm[L::DL + r] = in ? delta[q0 + r] : 0.f;
     }
     __syncthreads();
-    scores<D, BK, BQ>(a, sm, q0, k0);
+    scores<DQK, DV, BK, BQ>(a, sm, q0, k0);
     __syncthreads();
     // dv += P^T do, dk += dy^T q: thread (ty, tx) owns keys ty + 16 i and
     // columns tx + 16 c
 #pragma unroll 2
     for (int r = 0; r < BQ; ++r) {
-      float pk[KI], sk[KI], gc[C], qc[C];
+      float pk[KI], sk[KI], gc[CV], qc[CQ];
 #pragma unroll
       for (int i = 0; i < KI; ++i) {
         pk[i] = sm[L::P + r * L::PS + ty + 16 * i];
         sk[i] = sm[L::S + r * L::PS + ty + 16 * i];
       }
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        gc[c] = sm[L::G + r * L::RS + tx + 16 * c];
-        qc[c] = sm[L::Q + r * L::RS + tx + 16 * c];
+      for (int c = 0; c < CV; ++c) gc[c] = sm[L::G + r * L::RV + tx + 16 * c];
+#pragma unroll
+      for (int c = 0; c < CQ; ++c) qc[c] = sm[L::Q + r * L::RK + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < KI; ++i) {
+#pragma unroll
+        for (int c = 0; c < CV; ++c) dv[i][c] = fmaf(pk[i], gc[c], dv[i][c]);
+#pragma unroll
+        for (int c = 0; c < CQ; ++c) dk[i][c] = fmaf(sk[i], qc[c], dk[i][c]);
       }
-#pragma unroll
-      for (int i = 0; i < KI; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          dv[i][c] = fmaf(pk[i], gc[c], dv[i][c]);
-          dk[i][c] = fmaf(sk[i], qc[c], dk[i][c]);
-        }
     }
   }
 
-  float* dkp = a.dk_part + static_cast<int64_t>(bh) * a.Tk * D;
-  float* dvp = a.dv_part + static_cast<int64_t>(bh) * a.Tk * D;
+  float* dkp = a.dk_part + static_cast<int64_t>(bh) * a.Tk * DQK;
+  float* dvp = a.dv_part + static_cast<int64_t>(bh) * a.Tk * DV;
 #pragma unroll
   for (int i = 0; i < KI; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= a.Tk) continue;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dkp[static_cast<int64_t>(key) * D + tx + 16 * c] = dk[i][c] * a.scale;
-      dvp[static_cast<int64_t>(key) * D + tx + 16 * c] = dv[i][c];
-    }
+    for (int c = 0; c < CQ; ++c)
+      dkp[static_cast<int64_t>(key) * DQK + tx + 16 * c] = dk[i][c] * a.scale;
+#pragma unroll
+    for (int c = 0; c < CV; ++c)
+      dvp[static_cast<int64_t>(key) * DV + tx + 16 * c] = dv[i][c];
   }
 }
 
 // -- the CUDA-core route: dq per (q tile, batch, head) ------------------------
 
-template <typename T, int D, int BK, int BQ>
+template <typename T, int DQK, int DV, int BK, int BQ>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
-  using L = Smem<D, BK, BQ>;
-  constexpr int RI = BQ / 16, C = D / 16;
+  using L = Smem<DQK, DV, BK, BQ>;
+  constexpr int RI = BQ / 16, C = DQK / 16;
   extern __shared__ float sm[];
   const int BH = a.B * a.H;
   const int n_qt = (a.Tq + BQ - 1) / BQ;
@@ -424,8 +471,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
-  load_tile<T, D, BQ, L::RS>(sm + L::Q, q, a.q_st, q0, a.Tq);
-  load_tile<T, D, BQ, L::RS>(sm + L::G, g, a.g_st, q0, a.Tq);
+  load_tile<T, DQK, BQ, L::RK>(sm + L::Q, q, a.q_st, q0, a.Tq);
+  load_tile<T, DV, BQ, L::RV>(sm + L::G, g, a.g_st, q0, a.Tq);
   for (int r = threadIdx.x; r < BQ; r += kThreads) {
     const bool in = q0 + r < a.Tq;
     sm[L::LSE + r] = in ? a.lse[static_cast<int64_t>(bh) * a.Tq + q0 + r] : INFINITY;
@@ -447,10 +494,10 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous kv tile is consumed
-    load_tile<T, D, BK, L::RS>(sm + L::K, k, a.k_st, k0, a.Tk);
-    load_tile<T, D, BK, L::RS>(sm + L::V, v, a.v_st, k0, a.Tk);
+    load_tile<T, DQK, BK, L::RK>(sm + L::K, k, a.k_st, k0, a.Tk);
+    load_tile<T, DV, BK, L::RV>(sm + L::V, v, a.v_st, k0, a.Tk);
     __syncthreads();
-    scores<D, BK, BQ>(a, sm, q0, k0);
+    scores<DQK, DV, BK, BQ>(a, sm, q0, k0);
     __syncthreads();
     // dq += dy k: thread (ty, tx) owns rows ty + 16 i, columns tx + 16 c
 #pragma unroll 2
@@ -459,7 +506,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
 #pragma unroll
       for (int i = 0; i < RI; ++i) sr[i] = sm[L::S + (ty + 16 * i) * L::PS + j];
 #pragma unroll
-      for (int c = 0; c < C; ++c) kc[c] = sm[L::K + j * L::RS + tx + 16 * c];
+      for (int c = 0; c < C; ++c) kc[c] = sm[L::K + j * L::RK + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < RI; ++i)
 #pragma unroll
@@ -472,7 +519,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= a.Tq) continue;
-    T* orow = out + ((static_cast<int64_t>(b) * a.Tq + row) * a.H + h) * D;
+    T* orow = out + ((static_cast<int64_t>(b) * a.Tq + row) * a.H + h) * DQK;
 #pragma unroll
     for (int c = 0; c < C; ++c) orow[tx + 16 * c] = from_f<T>(dq[i][c] * a.scale);
   }
@@ -480,33 +527,57 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
 
 // -- both routes: dk, dv = the sum over a kv head's query heads ---------------
 
-// Element idx of a (B, Tk, Kv, W) output: the sum of its H / Kv query
-// heads' f32 slots of `part` ((B, H, Tk, W)), in head order (the same sum
-// every call), rounded to T.
+constexpr int kReduceThreads = 256;
+
+// Four f32 values rounded to T into 4 consecutive outputs (16-byte or
+// 8-byte aligned: every head dim is a multiple of 4).
 template <typename T>
-__device__ __forceinline__ void reduce_one(const Args& a, const float* part, T* out,
-                                           int64_t idx, int W) {
-  const int d = static_cast<int>(idx % W);
-  const int kvh = static_cast<int>((idx / W) % a.Kv);
-  const int t = static_cast<int>((idx / (static_cast<int64_t>(W) * a.Kv)) % a.Tk);
-  const int b = static_cast<int>(idx / (static_cast<int64_t>(W) * a.Kv * a.Tk));
-  const int rep = a.H / a.Kv;
-  float sum = 0.f;
-  for (int r = 0; r < rep; ++r)
-    sum += part[((static_cast<int64_t>(b) * a.H + kvh * rep + r) * a.Tk + t) * W + d];
-  out[idx] = from_f<T>(sum);
+__device__ __forceinline__ void store4(T* out, float4 v) {
+  float r0, r1;
+  uint2 u;
+  u.x = pack2<T>(v.x, v.y, &r0, &r1);
+  u.y = pack2<T>(v.z, v.w, &r0, &r1);
+  *reinterpret_cast<uint2*>(out) = u;
+}
+template <>
+__device__ __forceinline__ void store4<float>(float* out, float4 v) {
+  *reinterpret_cast<float4*>(out) = v;
 }
 
-// dk, then dv: one thread an element.
+// Rows (batch, key, kv head) of dk (blockIdx.y 0) or dv (1), several to
+// a block, a thread to four columns: each column the sum of the row's
+// H / Kv query heads' f32 slots of `dk_part` / `dv_part` ((B, H, Tk, W)),
+// in head order (the same sum every call), rounded to T into the (B, Tk,
+// Kv, W) output.  A block holds kReduceThreads / (max(D, Dv) / 4) rows.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) reduce_kernel(const Args a) {
-  const int64_t nk = static_cast<int64_t>(a.B) * a.Tk * a.Kv * a.D;
-  const int64_t nv = static_cast<int64_t>(a.B) * a.Tk * a.Kv * a.Dv;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx < nk)
-    reduce_one<T>(a, a.dk_part, static_cast<T*>(a.dk), idx, a.D);
-  else if (idx < nk + nv)
-    reduce_one<T>(a, a.dv_part, static_cast<T*>(a.dv), idx - nk, a.Dv);
+__global__ void __launch_bounds__(kReduceThreads) reduce_kernel(const Args a) {
+  const bool is_v = blockIdx.y != 0;
+  const int W = is_v ? a.Dv : a.D;
+  const int W4 = W / 4;
+  const int rows = kReduceThreads / (max(a.D, a.Dv) / 4);
+  const int local = static_cast<int>(threadIdx.x) / W4;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * rows + local;  // (b Tk + t) Kv + kvh
+  if (local >= rows || row >= static_cast<int64_t>(a.B) * a.Tk * a.Kv) return;
+  const int d4 = static_cast<int>(threadIdx.x) - local * W4;
+  const int kvh = static_cast<int>(row % a.Kv);
+  const int64_t bt = row / a.Kv;
+  const int t = static_cast<int>(bt % a.Tk);
+  const int b = static_cast<int>(bt / a.Tk);
+  const int rep = a.H / a.Kv;
+  const float* part = is_v ? a.dv_part : a.dk_part;
+  const float4* src = reinterpret_cast<const float4*>(
+                          part + ((static_cast<int64_t>(b) * a.H + kvh * rep) * a.Tk + t) * W) +
+                      d4;
+  const int64_t head_stride = static_cast<int64_t>(a.Tk) * W4;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = 0; r < rep; ++r) {
+    const float4 v = src[r * head_stride];
+    sum.x += v.x;
+    sum.y += v.y;
+    sum.z += v.z;
+    sum.w += v.w;
+  }
+  store4<T>(static_cast<T*>(is_v ? a.dv : a.dk) + row * W + 4 * d4, sum);
 }
 
 // -- the wgmma route: tiles --------------------------------------------------
@@ -682,6 +753,22 @@ __device__ __forceinline__ void store_keys(float* out, const float (&acc)[CH][32
   }
 }
 
+// The two values pack2 packed, back in f32.
+template <typename T>
+__device__ __forceinline__ void unpack2(uint32_t u, float* x0, float* x1);
+template <>
+__device__ __forceinline__ void unpack2<__nv_bfloat16>(uint32_t u, float* x0, float* x1) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&u);
+  *x0 = __low2float(h);
+  *x1 = __high2float(h);
+}
+template <>
+__device__ __forceinline__ void unpack2<__half>(uint32_t u, float* x0, float* x1) {
+  const __half2 h = *reinterpret_cast<const __half2*>(&u);
+  *x0 = __low2float(h);
+  *x1 = __high2float(h);
+}
+
 // -- the wgmma route: dk, dv per (128-key tile, batch, query head) ------------
 
 template <typename T, int DQK, int DV>
@@ -759,6 +846,9 @@ __global__ void __launch_bounds__(TcLayout<DQK, DV>::THREADS, 1)
     for (int i = 0; i < 32; ++i) dv[j][i] = 0.f;
   float s[32], dp[32];
   uint32_t pa[4][4], da[4][4];
+  // q/k wider than v (MLA's (192, 128)): the order that holds fewer
+  // registers at once (`kLean` below)
+  constexpr bool kLean = DQK > DV;
 
   mbar_wait(bars.res_full, 0);
   for (int it = 0; it < n_it; ++it) {
@@ -768,39 +858,122 @@ __global__ void __launch_bounds__(TcLayout<DQK, DV>::THREADS, 1)
     const bool dead = !keys || (a.causal && q0 + 63 < ka) ||
                       (a.window > 0 && q0 - (ka + 63) >= a.window);
     if (!dead) {
-      const uint32_t qs = base + L::ST0 + st * L::ST0_BYTES;
-      const uint32_t gs = base + L::ST1 + st * L::ST1_BYTES;
-      issue_scores<T, DQK, DV>(s, dp, k_wg, v_wg, qs, gs);
-      wg_wait<0>();
-      // element i: key (i & 2 ? key1 : key0), q row q0 + 8 (i / 4) + col + (i & 1)
-      const float* lse_s = rows_smem + st * (L::ROW_BYTES / 4);
-      const float* del_s = lse_s + 64;
-      grads(s, dp, capped, sl, cap_in, cap_out, [&](int i, float* l, float* d_) {
-        const int c = 8 * (i / 4) + col + (i & 1);
-        *l = lse_s[c];
-        *d_ = del_s[c];
-      });
-      const bool edge = (a.causal && ka + 63 > q0) ||
-                        (a.window > 0 && q0 + 63 - ka >= a.window);
-      if (edge) {
+      if constexpr (kLean) {
+        // (192, 128): S^T; P^T packed in the input type (dv's A fragments)
+        // and P (1 - tanh^2) kept in f32; dV += P^T.dO; P (1 - tanh^2)
+        // packed in its place; dP^T; dS^T from the packed values; dK +=
+        // dS^T.Q.  One f32 tile and two packed ones at most beside dk and dv.
+        const uint32_t qs = base + L::ST0 + st * L::ST0_BYTES;
+        const uint32_t gs = base + L::ST1 + st * L::ST1_BYTES;
+        const float* lse_s = rows_smem + st * (L::ROW_BYTES / 4);
+        const float* del_s = lse_s + 64;
+        wg_fence();
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int key = (i & 2) ? key1 : key0;
-          const int row = q0 + 8 * (i / 4) + col + (i & 1);
-          bool live = true;
-          if (a.causal) live = row >= key;
-          if (a.window > 0) live = live && row - key < a.window;
-          if (!live) s[i] = dp[i] = 0.f;
+        for (int kk = 0; kk < DQK / 16; ++kk)
+          wgmma_ss<T>(s, kmajor_desc(k_wg, L::BR, kk), kmajor_desc(qs, 64, kk), kk > 0);
+        wg_commit();
+        wg_wait<0>();
+        const bool edge = (a.causal && ka + 63 > q0) ||
+                          (a.window > 0 && q0 + 63 - ka >= a.window);
+        // elements i, i + 1 (i = 8 kk + 2 r): key (r & 1 ? key1 : key0), q
+        // rows q0 + c and q0 + c + 1, c = 8 (i / 4) + col
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 8 * kk + 2 * r;
+            const int c = 8 * (i / 4) + col;
+            const int key = (r & 1) ? key1 : key0;
+            float p[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float pc;
+              if (capped) {
+                const float t = tanhf(s[i + e] * cap_in);
+                p[e] = ex2(fmaf(t, cap_out, -lse_s[c + e]));
+                pc = p[e] * (1.f - t * t);
+              } else {
+                p[e] = ex2(fmaf(s[i + e], sl, -lse_s[c + e]));
+                pc = p[e];
+              }
+              if (edge) {
+                const int row = q0 + c + e;
+                bool live = true;
+                if (a.causal) live = row >= key;
+                if (a.window > 0) live = live && row - key < a.window;
+                if (!live) p[e] = pc = 0.f;
+              }
+              s[i + e] = pc;
+            }
+            float r0, r1;
+            pa[kk][r] = pack2<T>(p[0], p[1], &r0, &r1);
+          }
         }
+        wg_fence();
+        issue_rs<T, DV>(dv, pa, gs);
+        wg_commit();
+        wg_wait<0>();
+        if (capped) {
+          float unused0, unused1;
+          pack_a<T>(s, pa, &unused0, &unused1);
+        }
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk)
+          wgmma_ss<T>(dp, kmajor_desc(v_wg, L::BR, kk), kmajor_desc(gs, 64, kk), kk > 0);
+        wg_commit();
+        wg_wait<0>();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 8 * kk + 2 * r;
+            const int c = 8 * (i / 4) + col;
+            float x0, x1, r0, r1;
+            unpack2<T>(pa[kk][r], &x0, &x1);
+            da[kk][r] = pack2<T>(x0 * (dp[i] - del_s[c]), x1 * (dp[i + 1] - del_s[c + 1]),
+                                 &r0, &r1);
+          }
+        }
+        wg_fence();
+        issue_rs<T, DQK>(dk, da, qs);
+        wg_commit();
+        wg_wait<0>();
+      } else {
+        const uint32_t qs = base + L::ST0 + st * L::ST0_BYTES;
+        const uint32_t gs = base + L::ST1 + st * L::ST1_BYTES;
+        issue_scores<T, DQK, DV>(s, dp, k_wg, v_wg, qs, gs);
+        wg_wait<0>();
+        // element i: key (i & 2 ? key1 : key0), q row q0 + 8 (i / 4) + col + (i & 1)
+        const float* lse_s = rows_smem + st * (L::ROW_BYTES / 4);
+        const float* del_s = lse_s + 64;
+        grads(s, dp, capped, sl, cap_in, cap_out, [&](int i, float* l, float* d_) {
+          const int c = 8 * (i / 4) + col + (i & 1);
+          *l = lse_s[c];
+          *d_ = del_s[c];
+        });
+        const bool edge = (a.causal && ka + 63 > q0) ||
+                          (a.window > 0 && q0 + 63 - ka >= a.window);
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int key = (i & 2) ? key1 : key0;
+            const int row = q0 + 8 * (i / 4) + col + (i & 1);
+            bool live = true;
+            if (a.causal) live = row >= key;
+            if (a.window > 0) live = live && row - key < a.window;
+            if (!live) s[i] = dp[i] = 0.f;
+          }
+        }
+        float unused0, unused1;
+        pack_a<T>(s, pa, &unused0, &unused1);
+        pack_a<T>(dp, da, &unused0, &unused1);
+        wg_fence();
+        issue_rs<T, DV>(dv, pa, gs);
+        issue_rs<T, DQK>(dk, da, qs);
+        wg_commit();
+        wg_wait<0>();
       }
-      float unused0, unused1;
-      pack_a<T>(s, pa, &unused0, &unused1);
-      pack_a<T>(dp, da, &unused0, &unused1);
-      wg_fence();
-      issue_rs<T, DV>(dv, pa, gs);
-      issue_rs<T, DQK>(dk, da, qs);
-      wg_commit();
-      wg_wait<0>();
     }
     mbar_arrive(bars.empty + 8 * st);
   }
@@ -1332,17 +1505,20 @@ cudaError_t launch_delta(const Args& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_reduce(const Args& a, cudaStream_t stream) {
-  reduce_kernel<T><<<blocks(static_cast<int64_t>(a.B) * a.Tk * a.Kv * (a.D + a.Dv)),
-                     kThreads, 0, stream>>>(a);
+  const int rows = kReduceThreads / (std::max(a.D, a.Dv) / 4);  // a block's
+  const int64_t n_rows = static_cast<int64_t>(a.B) * a.Tk * a.Kv;
+  const dim3 grid(static_cast<unsigned>((n_rows + rows - 1) / rows), 2);
+  reduce_kernel<T><<<grid, kReduceThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int D, int BK, int BQ>
+template <typename T, int DQK, int DV, int BK, int BQ>
 cudaError_t cc_launch(const Args& a, int device, cudaStream_t stream) {
-  using L = Smem<D, BK, BQ>;
+  using L = Smem<DQK, DV, BK, BQ>;
+  static_assert(L::BYTES <= 232448, "a CUDA-core block must fit one SM");
   static PerDevice dkdv_done, dq_done;  // the attributes, per kernel and device
-  auto dkdv = dkdv_kernel<T, D, BK, BQ>;
-  auto dq = dq_kernel<T, D, BK, BQ>;
+  auto dkdv = dkdv_kernel<T, DQK, DV, BK, BQ>;
+  auto dq = dq_kernel<T, DQK, DV, BK, BQ>;
   cudaError_t err = configure(dkdv, L::BYTES, device, dkdv_done);
   if (err != cudaSuccess) return err;
   err = configure(dq, L::BYTES, device, dq_done);
@@ -1357,16 +1533,18 @@ cudaError_t cc_launch(const Args& a, int device, cudaStream_t stream) {
 }
 
 // The CUDA-core route: f32 only (bf16 and f16 run on the tensor cores at
-// every head dim they are built for).
+// every head dim they are built for), at the square head dims and MLA's
+// (192, 128).
 cudaError_t cc_dispatch(const Args& a, int device, cudaStream_t stream) {
+  if (a.D == 192 && a.Dv == 128) return cc_launch<float, 192, 128, 32, 32>(a, device, stream);
   if (a.Dv != a.D) return cudaErrorInvalidValue;
   switch (a.D) {
     case 64:
-      return cc_launch<float, 64, 64, 64>(a, device, stream);
+      return cc_launch<float, 64, 64, 64, 64>(a, device, stream);
     case 128:
-      return cc_launch<float, 128, 64, 64>(a, device, stream);
+      return cc_launch<float, 128, 128, 64, 64>(a, device, stream);
     case 256:
-      return cc_launch<float, 256, 32, 32>(a, device, stream);
+      return cc_launch<float, 256, 256, 32, 32>(a, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1416,10 +1594,11 @@ cudaError_t wide_launch(const Args& a, const CUtensorMap (&m)[4], int device,
   return launch_reduce<T>(a, stream);
 }
 
-// The head dims the tensor-core route is built for: (64, 64), (128, 128)
-// and (256, 256).
+// The head dims the tensor-core route is built for: (64, 64), (128, 128),
+// (256, 256) and MLA's (192, 128).
 bool tc_built(int dqk, int dv) {
-  return dqk == dv && (dqk == 64 || dqk == 128 || dqk == 256);
+  return (dqk == dv && (dqk == 64 || dqk == 128 || dqk == 256)) ||
+         (dqk == 192 && dv == 128);
 }
 
 // Tensor maps of q, k, v and do (TMA: 16-byte aligned bases and strides,
@@ -1440,6 +1619,8 @@ cudaError_t tc_dispatch(const Args& a, CUtensorMapDataType type, int device,
       return tc_launch<T, 64, 64>(a, m, device, stream);
     case 128:
       return tc_launch<T, 128, 128>(a, m, device, stream);
+    case 192:  // Dv 128 (tc_built)
+      return tc_launch<T, 192, 128>(a, m, device, stream);
     default:
       return wide_launch<T>(a, m, device, stream);
   }
@@ -1478,8 +1659,9 @@ static_assert(sizeof(Params) == 176 && offsetof(Params, dtype) == 120 &&
 // head dims contiguous, and lse (f32, (B, H, Tq) contiguous), on `stream`,
 // without synchronising.  `delta` and `lse2` (B, H, Tq rounded up to 128)
 // and `dk_part` (B, H, Tk, D), `dv_part` (B, H, Tk, Dv) are f32 scratch.
-// The route is "wgmma" for bf16 and f16 at (D, Dv) = (64, 64), (128, 128)
-// or (256, 256), "cuda_cores" for f32 (square D only).  Returns a cudaError_t
+// The route is "wgmma" for bf16 and f16 at (D, Dv) = (64, 64), (128, 128),
+// (192, 128) or (256, 256), "cuda_cores" for f32 at the same pairs.
+// Returns a cudaError_t
 // (cudaErrorInvalidValue for an unsupported dtype or head dims, a route
 // other than this rule's, or a layout TMA refuses).
 extern "C" int flash_attention_bwd_launch(const Params* p, const void* q,

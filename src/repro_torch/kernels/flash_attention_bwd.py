@@ -11,12 +11,13 @@ that lse (``csrc/flash_attention_bwd.cu``): P and dS are recomputed from
 the lse, never stored.  It takes the forward's options (causal or full,
 ``window``, ``softcap``, ``scale``) and GQA through the strides (query
 head ``h`` reads kv head ``h // (H // Kv)``; dk and dv sum over the
-group), head dims 64, 128 and 256 (square), bf16, f16 and f32, any Tq.
-Anything else raises, MLA's (192, 128) included.
+group), head dims (q/k, v) in :data:`HEAD_DIM_PAIRS`: the square 64, 128
+and 256 and MLA's (192, 128); bf16, f16 and f32, any Tq.  Anything else
+raises.
 
 :func:`_plan` picks the route, in pure Python:
 
-* ``"wgmma"`` for bf16 and f16 at head dims 64, 128 and 256: the
+* ``"wgmma"`` for bf16 and f16 at every pair of head dims: the
   products on the tensor cores, fed by TMA (at 256 the head dim is split
   between a block's two consumer warpgroups, and Pᵀ and dSᵀ pass through
   shared memory in the input type).  TMA binds the layout of q, k, v, o
@@ -51,7 +52,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import _raw_stream
 from repro_torch.kernels.flash_attention import (
     DTYPE_CODES,
-    HEAD_DIMS,
+    HEAD_DIM_PAIRS,
     TMA_ALIGN,
     flash_attention,
     live_mask,
@@ -62,9 +63,6 @@ __all__ = ["FlashAttention", "flash_attention_bwd", "flash_attention_bwd_torch",
 
 #: calls that launched the kernel so far (the plain CPU version does not count).
 launches = 0
-#: (q/k, v) head dims of the tensor-core route (bf16 and f16); f32 runs on
-#: CUDA cores.
-WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
 ROUTE_CODES = {"cuda_cores": 0, "wgmma": 1}
 ROW_PAD = 128  #: the kernel's per-row scratch (rowsum(do·o), lse) is padded to it
 _count_lock = threading.Lock()
@@ -170,11 +168,12 @@ def _check(q, k, v, o, do, lse) -> None:
 
 
 def _plan(q, k, v, o, do) -> str:
-    """The route of a call: ``"wgmma"`` for bf16 and f16 at head dims
-    :data:`WGMMA_HEAD_DIMS`, else ``"cuda_cores"``; raises ``ValueError`` on
-    bases or strides the tensor-core route's TMA loads refuse.  Reads only
-    shapes, strides, the dtype and the base addresses."""
-    if q.dtype == torch.float32 or (q.shape[3], v.shape[3]) not in WGMMA_HEAD_DIMS:
+    """The route of a call: ``"wgmma"`` for bf16 and f16 (at every pair of
+    head dims the kernel is built for, :data:`HEAD_DIM_PAIRS`),
+    ``"cuda_cores"`` for f32; raises ``ValueError`` on bases or strides the
+    tensor-core route's TMA loads refuse.  Reads only strides, the dtype
+    and the base addresses."""
+    if q.dtype == torch.float32:
         return "cuda_cores"
     tensors = (q, k, v, o, do)  # head dims contiguous: `_check`
     # 16-byte aligned bases and strides (8 elements of 2 bytes; one OR
@@ -208,11 +207,11 @@ _CALLS_MAX = 256
 
 
 def _check_kernel(q, v) -> None:
-    """The head dims the kernel is built for: square 64, 128, 256."""
-    if q.shape[3] != v.shape[3] or q.shape[3] not in HEAD_DIMS:
+    """The head dims the kernel is built for: :data:`HEAD_DIM_PAIRS`."""
+    if (q.shape[3], v.shape[3]) not in HEAD_DIM_PAIRS:
         raise ValueError(
             f"head dims (q/k, v) {(q.shape[3], v.shape[3])}: the backward "
-            f"kernel takes square ones in {HEAD_DIMS}")
+            f"kernel takes {HEAD_DIM_PAIRS}")
 
 
 def _prepare(q, k, v, o, do, lse, causal, scale, softcap, window) -> _Call:

@@ -1,7 +1,11 @@
-"""The train step: f32 masters, bf16 compute, microbatched gradient
-accumulation, optional int8 gradient compression, AdamW.
+"""Step factories: the train step (f32 masters, bf16 compute, microbatched
+gradient accumulation, optional int8 gradient compression, AdamW), and
+the prefill and decode steps.
 
-The port of ``repro/launch/steps.py::make_train_step`` for one card.  The
+The port of ``repro/launch/steps.py`` for one card.  The reference's
+factories return a ``StepBundle`` (the step, its shardings and argument
+stand-ins for the dry-run); here each returns the step itself, a plain
+callable on one device, with no shardings.  For the train step the
 reference builds a jitted, sharded step and casts the whole f32 tree to
 bf16 once per step; here the step runs eagerly, and the weights are cast
 inside each checkpointed layer period (``models.transformer.forward``'s
@@ -11,8 +15,9 @@ full width the f32 masters, the two moments and the f32 gradients take
 gradients into one f32 buffer, which is divided by the number of
 microbatches, optionally compressed, and handed to AdamW, which updates
 the masters and moments in place.  There is no mesh and no sharding (no
-``zero1``).  The reference's prefill and decode step factories serve its
-dry-run, which the port does not have yet.
+``zero1``).  ``make_prefill_step`` and ``make_decode_step`` are the
+reference's serving steps (the serve launcher's prefill and greedy
+decode), and ``make_step`` picks one by ``shape.kind``.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.models import ModelConfig, ShapeConfig, forward
+from repro_torch.models import ModelConfig, ShapeConfig, decode_step, forward, logits_fn
 from repro_torch.models.layers import chunked_ce_loss
 from repro_torch.models.param import default_device
 from repro_torch.models.transformer import Periods, cast_weights
@@ -29,7 +34,8 @@ from repro_torch.optim.adamw import AdamWConfig, OptState, adamw_update
 from repro_torch.optim.compression import EFState, compress_decompress
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["make_train_step", "autograd_leaves"]
+__all__ = ["make_train_step", "make_prefill_step", "make_decode_step", "make_step",
+           "autograd_leaves"]
 
 #: the type the step computes in; the masters stay f32
 COMPUTE_DTYPE = torch.bfloat16
@@ -117,3 +123,43 @@ def make_train_step(
         return out + ((new_ef,) if compress_grads else ())
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
+                      cache_len: Optional[int] = None) -> Callable:
+    """The prefill step ``(params, batch) -> (logits, caches)``: the
+    softcapped f32 logits of each sequence's last token, ``(B, V)``, and
+    the cache tree of ``forward(collect_cache=True)``, ``cache_len`` rows
+    long (default: the prompt's; more leaves decode headroom).  It runs
+    where ``params`` and the batch's ``tokens`` lie, in the weights' own
+    type."""
+
+    def prefill_step(params: Dict[str, Any], batch: Dict[str, Any]):
+        h, _aux, caches = forward(params, cfg, batch, collect_cache=True,
+                                  cache_len=cache_len)
+        return logits_fn(params, cfg, h[:, -1]), caches
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, shape: ShapeConfig) -> Callable:
+    """The greedy decode step ``(params, tokens (B, 1), cache, t) ->
+    (next tokens (B, 1) int32, cache)``: one ``decode_step`` at position
+    ``t`` (the cache's layers are written in place) and the argmax of its
+    logits."""
+
+    def serve_step(params: Dict[str, Any], tokens: torch.Tensor,
+                   cache: Dict[str, Any], t: int):
+        logits, new_cache = decode_step(params, cfg, tokens, cache, t)
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], new_cache
+
+    return serve_step
+
+
+def make_step(cfg: ModelConfig, shape: ShapeConfig, **kw) -> Callable:
+    """The step of ``shape.kind``: "train", "prefill", or else decode."""
+    if shape.kind == "train":
+        return make_train_step(cfg, shape, **kw)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, shape, **kw)
+    return make_decode_step(cfg, shape, **kw)

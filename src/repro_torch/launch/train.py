@@ -15,11 +15,11 @@ as a Marvel-style stateful application:
     deterministic on the card (the attention backward kernel has no
     atomics), so the resumed run replays the losses it would have had.
 
-Only configurations whose mixers all have a backward on the card train
-there: the dense-attention ones, Mamba-2 (the SSD chunk's backward
-kernel) and RG-LRU (a scan of torch ops; its local attention on the
-flash kernels).  MLA and MoE wait for theirs, and the reference's mesh
-flags wait for the port's sharding.
+Every token-frontend configuration trains: dense attention and MLA on
+the flash backward kernel (MLA at q/k 192 against v 128), Mamba-2 on the
+SSD chunk's backward kernel, RG-LRU as a scan of torch ops, MoE through
+its dense path (deterministic under ``backward()``).  The reference's
+mesh flags wait for the port's sharding.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\

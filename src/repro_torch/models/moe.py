@@ -10,8 +10,8 @@ experts and the same ones are dropped: a stable sort of the (token, slot)
 entries by expert, each entry's position in its expert's run, and a
 capacity of ``ceil(N·k / E · capacity_factor)`` slots per expert; entries
 past it are dropped (the reference's ``.at[...].set(mode="drop")`` with
-out-of-range indices; here they are written to a spare slot that no
-expert runs).  Every expert runs
+out-of-range indices; here they are written to a spare row past the
+experts' slots, which no expert runs).  Every expert runs
 its whole ``(capacity, D)`` buffer as one batched gated FFN.
 
 The combine differs in one way: the reference scatter-adds each entry
@@ -19,6 +19,19 @@ into its token (``contrib.at[tok].add``), which on CUDA would be
 ``index_add_`` with atomics in no fixed order.  Here each token's ``k``
 contributions are gathered to ``(N, k, D)`` and summed over ``k``, one
 reduction in a fixed order, so two runs give the same bytes.
+
+The backward is deterministic too.  Indexing with repeated indices
+(``xf[tok[order]]`` repeats each token ``k`` times; the dropped entries
+all read one slot) would accumulate its gradient into the repeats, on
+CUDA with atomics in no fixed order.  So the two moves, tokens into the
+experts' slots and the experts' rows back to (token, slot) order, are
+:class:`_Dispatch` and :class:`_Combine`: their forwards are the plain
+index-and-scatter (``order`` is a permutation, so each scatter writes a
+row once, bar the dropped entries' spare row), and their backwards
+invert the same map, each kept entry owning one slot, with a token's
+``k`` slots summed in a fixed order.  The gradient reaches the kept
+entries and, through the combine weights, the router's softmax, as
+``jax.value_and_grad`` gives it.
 
 At decode (``N = 1``) the capacity is 1 and every expert computes one
 slot, mostly empty: every expert's weights are read on every token, as in
@@ -101,6 +114,65 @@ def _pack_by_group(
     return order, gs, pos, keep
 
 
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` with the rows of an index past ``x``'s end read as zeros."""
+    n = x.shape[0]
+    out = x[torch.clamp(idx, max=n - 1)]
+    return out.masked_fill_((idx >= n)[:, None], 0)
+
+
+class _Dispatch(torch.autograd.Function):
+    """Tokens into the experts' rows.  ``x`` (N, D); ``order`` the sorted
+    entries (entry ``j`` is token ``j // k``); ``slot`` each sorted
+    entry's row of the ``(n_slots, D)`` result, ``n_slots`` where it is
+    dropped.  Rows no entry fills are zero.  The backward reads the
+    gradient by the same map (zero for dropped entries), puts it back in
+    entry order (``order`` is a permutation: each row written once) and
+    sums a token's ``k`` entries in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, order, slot, k: int, n_slots: int):
+        ctx.save_for_backward(order, slot)
+        ctx.k = k
+        # the dropped entries all land in a spare last row, cut off
+        buf = x.new_zeros((n_slots + 1, x.shape[1]))
+        buf[slot] = x[torch.div(order, k, rounding_mode="floor")]
+        return buf[:n_slots]
+
+    @staticmethod
+    def backward(ctx, g):
+        order, slot = ctx.saved_tensors
+        g_sorted = _rows(g, slot)
+        g_entry = torch.empty_like(g_sorted)
+        g_entry[order] = g_sorted
+        return (g_entry.view(-1, ctx.k, g.shape[1]).sum(dim=1),
+                None, None, None, None)
+
+
+class _Combine(torch.autograd.Function):
+    """The experts' rows ``y`` (n_slots, D) back in entry order: entry
+    ``order[i]`` takes row ``slot[i]``, zero where dropped.  The backward
+    writes each kept entry's gradient to its row, and zero to the rows no
+    entry fills (the dropped entries all write a spare last row, cut
+    off)."""
+
+    @staticmethod
+    def forward(ctx, y, order, slot):
+        ctx.save_for_backward(order, slot)
+        ctx.n_slots = y.shape[0]
+        vals = _rows(y, slot)
+        out = torch.empty_like(vals)
+        out[order] = vals
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        order, slot = ctx.saved_tensors
+        gy = g.new_zeros((ctx.n_slots + 1, g.shape[1]))  # spare row as above
+        gy[slot] = g[order]
+        return gy[: ctx.n_slots], None, None
+
+
 def moe_apply_dense(
     p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -113,20 +185,17 @@ def moe_apply_dense(
     xf = x.reshape(N, D)
     w, idx, aux = _route(xf, p["router"], m)
     M = N * k
-    tok = torch.arange(N, device=x.device).repeat_interleave(k)
     cap = max(1, int(math.ceil(M / E * m.capacity_factor)))
     order, gs, pos, keep = _pack_by_group(idx.reshape(M), E, cap)
-    # dropped entries all go to a spare slot `cap` that no expert runs (a
-    # mask by index, not by a boolean selection: no device-to-host sync)
-    gx = torch.zeros((E, cap + 1, D), dtype=x.dtype, device=x.device)
-    gx[gs, torch.where(keep, pos, cap)] = xf[tok[order]]
-    y = _expert_ffn(gx[:, :cap], p["w_gate"], p["w_up"], p["w_down"], cfg.act)
-    # each sorted entry's output (0 where dropped), back in (token, slot)
-    # order, weighted, and summed over a token's k slots in a fixed order
-    vals = torch.where(keep[:, None], y[gs, torch.clamp(pos, max=cap - 1)],
-                       torch.zeros((), dtype=y.dtype, device=y.device))
-    per_slot = torch.empty_like(vals)
-    per_slot[order] = vals
+    # each sorted entry's row of the experts' (E·cap) slots, E·cap where
+    # dropped (a mask by index, not by a boolean selection: no
+    # device-to-host sync)
+    slot = torch.where(keep, gs * cap + pos, E * cap)
+    gx = _Dispatch.apply(xf, order, slot, k, E * cap).view(E, cap, D)
+    y = _expert_ffn(gx, p["w_gate"], p["w_up"], p["w_down"], cfg.act)
+    # each entry's output (0 where dropped) in (token, slot) order,
+    # weighted, and summed over a token's k slots in a fixed order
+    per_slot = _Combine.apply(y.reshape(E * cap, D), order, slot)
     per_slot = per_slot * w.reshape(M, 1).to(y.dtype)
     out = per_slot.reshape(N, k, D).sum(dim=1).reshape(B, T, D).to(x.dtype)
     if m.n_shared:

@@ -8,7 +8,8 @@ a plain PyTorch version of its backward kernel
 log-sum-exp) and the autograd Function ``ops.flash_attention`` takes
 under grad.  Both must give the reference's dq, dk and dv on the same
 seeded f32 inputs: relative L2 error <= 1e-4 per gradient (f32 sums in
-another order).  The autograd guards of the kernels without a backward,
+another order); MLA's q/k head dim 192 against v head dim 128 among
+them.  The autograd guards of the kernels without a backward,
 and the backward's route plan and TMA layout rules, are checked on
 ``meta`` tensors, which stand in for the card.  The tensor-core route's
 rounding (Pᵀ and dSᵀ to bf16 before their products) is emulated on the
@@ -28,7 +29,8 @@ from repro_torch.kernels import flash_attention_bwd as fb
 
 TOL = 1e-4  # relative L2, f32
 
-# (B, T, H, Kv, dh, causal, softcap, window, Tk)
+# (B, T, H, Kv, dh, causal, softcap, window, Tk[, dv]): dv, v's head dim,
+# is dh where the tuple stops at Tk
 CASES = {
     "causal_rep2": (2, 40, 4, 2, 64, True, None, None, None),
     "full_rep1": (1, 33, 4, 4, 64, False, None, None, None),
@@ -41,15 +43,21 @@ CASES = {
     "ragged": (1, 67, 4, 2, 64, True, None, None, None),
     "tq_lt_tk_full": (1, 20, 4, 2, 64, False, None, None, 29),
 }
+#: each case's seed: its place among the cases above, then MLA's
+SEEDS = {case: i for i, case in enumerate(sorted(CASES))}
+# MLA (deepseek-v2): q/k head dim 192 (128 "nope" + 64 rotary) against v's 128
+CASES["mla"] = (1, 40, 4, 4, 192, True, None, None, None, 128)
+SEEDS["mla"] = len(SEEDS)
 
 
 def _inputs(case):
-    B, T, H, Kv, dh, causal, cap, window, Tk = CASES[case]
+    B, T, H, Kv, dh, causal, cap, window, Tk, *dv = CASES[case]
     Tk = Tk or T
-    rng = np.random.default_rng(sorted(CASES).index(case))
+    dv = dv[0] if dv else dh
+    rng = np.random.default_rng(SEEDS[case])
     draw = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
-    q, k, v, do = draw(B, T, H, dh), draw(B, Tk, Kv, dh), draw(B, Tk, Kv, dh), \
-        draw(B, T, H, dh)
+    q, k, v, do = draw(B, T, H, dh), draw(B, Tk, Kv, dh), draw(B, Tk, Kv, dv), \
+        draw(B, T, H, dv)
     return (q, k, v, do), dict(causal=causal, softcap=cap, window=window)
 
 
@@ -78,7 +86,8 @@ def test_plain_backward_matches_jax_vjp(case):
         assert _rel(g, r) <= TOL, (name, _rel(g, r))
 
 
-@pytest.mark.parametrize("case", ["causal_rep2", "softcap_window_full", "ragged"])
+@pytest.mark.parametrize("case", ["causal_rep2", "softcap_window_full", "ragged",
+                                  "mla"])
 def test_autograd_function_matches_jax_vjp(case):
     (q, k, v, do), kw = _inputs(case)
     _, grads_ref = _reference(q, k, v, do, kw)
@@ -115,33 +124,39 @@ def test_no_grad_path_is_the_plain_kernel_call():
 
 
 def test_backward_kernel_takes_square_head_dims_only():
-    q = torch.empty(1, 4, 2, 192)
-    with pytest.raises(ValueError, match="square"):
-        fb._check_kernel(q, torch.empty(1, 4, 2, 128))
-    with pytest.raises(ValueError, match="square"):
-        fb._check_kernel(torch.empty(1, 4, 2, 32), torch.empty(1, 4, 2, 32))
-    fb._check_kernel(torch.empty(1, 4, 2, 128), torch.empty(1, 4, 2, 128))
+    """The kernel's head dims (q/k, v): the square 64, 128 and 256 and
+    MLA's (192, 128); any other pair raises."""
+    for d in (64, 128, 256):
+        fb._check_kernel(torch.empty(1, 4, 2, d), torch.empty(1, 4, 2, d))
+    fb._check_kernel(torch.empty(1, 4, 2, 192), torch.empty(1, 4, 2, 128))
+    for dqk, dv in ((128, 64), (192, 192), (32, 32)):
+        with pytest.raises(ValueError, match="backward kernel takes"):
+            fb._check_kernel(torch.empty(1, 4, 2, dqk), torch.empty(1, 4, 2, dv))
 
 
 def _meta(*shape, grad=True):
     return torch.empty(*shape, device="meta").requires_grad_(grad)
 
 
-def _bwd_meta(dtype, D, B=1, T=64, H=8, Kv=2):
-    """q, k, v, o, do, lse of one backward call, on ``meta``."""
+def _bwd_meta(dtype, D, B=1, T=64, H=8, Kv=2, Dv=None):
+    """q, k, v, o, do, lse of one backward call, on ``meta``; v, o and do
+    of head dim ``Dv`` (default ``D``)."""
+    Dv = Dv or D
+
     def t(*shape):
         return torch.empty(*shape, device="meta", dtype=dtype)
-    return (t(B, T, H, D), t(B, T, Kv, D), t(B, T, Kv, D), t(B, T, H, D),
-            t(B, T, H, D), torch.empty(B, H, T, device="meta"))
+    return (t(B, T, H, D), t(B, T, Kv, D), t(B, T, Kv, Dv), t(B, T, H, Dv),
+            t(B, T, H, Dv), torch.empty(B, H, T, device="meta"))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256, 192])
 def test_backward_route_plan(dtype, D):
-    """bf16 and f16 take the tensor cores at head dims 64, 128 and 256; f32
-    the CUDA-core route.  The plan is pure Python: it reads shapes,
-    strides, the dtype and base addresses only."""
-    q, k, v, o, do, lse = _bwd_meta(dtype, D)
+    """bf16 and f16 take the tensor cores at head dims 64, 128 and 256 and
+    MLA's (192, 128) (D 192 here: v's head dim 128); f32 the CUDA-core
+    route.  The plan is pure Python: it reads shapes, strides, the dtype
+    and base addresses only."""
+    q, k, v, o, do, lse = _bwd_meta(dtype, D, Dv=128 if D == 192 else None)
     want = "wgmma" if dtype != torch.float32 else "cuda_cores"
     assert fb._plan(q, k, v, o, do) == want
     assert fb._prepare(q, k, v, o, do, lse, True, None, None, None).route == want
@@ -178,49 +193,60 @@ def test_backward_tma_layout_rules(which, fault):
 
 
 def test_backward_refuses_non_square_head_dims_on_the_card():
-    q, k, v, o, do, lse = _bwd_meta(torch.bfloat16, 192)
-    v, o, do = (torch.empty(*t.shape[:3], 128, device="meta", dtype=t.dtype)
-                for t in (v, o, do))
-    with pytest.raises(ValueError, match="square"):
-        fb._prepare(q, k, v, o, do, lse, True, None, None, None)
+    """On the card (``meta`` here) a call is prepared for MLA's (192, 128)
+    on the tensor cores, and refused for any other pair that is not
+    square at 64, 128 or 256."""
+    args = _bwd_meta(torch.bfloat16, 192, Dv=128)
+    assert fb._prepare(*args, True, None, None, None).route == "wgmma"
+    for D, Dv in ((128, 64), (192, 192), (32, 32)):
+        args = _bwd_meta(torch.bfloat16, D, Dv=Dv)
+        with pytest.raises(ValueError, match="backward kernel takes"):
+            fb._prepare(*args, True, None, None, None)
 
 
 def _tensor_core_backward(q, k, v, o, do, lse, causal):
     """The tensor-core route's arithmetic on the CPU: f32 products of the
     bf16 inputs, with Pᵀ and dSᵀ rounded to bf16 before the products that
     take them as A fragments (dV = Pᵀ·dO, dK = dSᵀ·Q, dQ = dS·K), and the
-    outputs rounded to bf16."""
+    outputs rounded to bf16.  At q/k wider than v (MLA's (192, 128)) the
+    dk/dv kernel keeps P packed in bf16 and makes dSᵀ from it, so P is
+    rounded before dS there too (the dq kernel makes its dS from f32 P)."""
     B, T, H, D = q.shape
-    Kv = k.shape[2]
+    Kv, Dv = k.shape[2], v.shape[3]
     rep = H // Kv
     scale = 1.0 / np.sqrt(D)
     qf = q.float().reshape(B, T, Kv, rep, D)
-    gf = do.float().reshape(B, T, Kv, rep, D)
+    gf = do.float().reshape(B, T, Kv, rep, Dv)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkrd,bckd->bkrqc", qf, kf) * scale
     live = fa.live_mask(T, k.shape[1], causal, None, q.device)
     p = torch.where(live, torch.exp(s - lse.reshape(B, Kv, rep, T, 1)), 0.0)
     dp = torch.einsum("bqkrd,bckd->bkrqc", gf, vf)
-    delta = (gf * o.float().reshape(B, T, Kv, rep, D)).sum(-1).permute(0, 2, 3, 1)
+    delta = (gf * o.float().reshape(B, T, Kv, rep, Dv)).sum(-1).permute(0, 2, 3, 1)
     ds = p * (dp - delta[..., None])
     p16, ds16 = (x.to(torch.bfloat16).float() for x in (p, ds))
+    # dk's dS from the packed P, where the dk/dv kernel keeps P so
+    dsk16 = ((p16 * (dp - delta[..., None])).to(torch.bfloat16).float()
+             if Dv < D else ds16)
     dv = torch.einsum("bkrqc,bqkrd->bckd", p16, gf)
-    dk = torch.einsum("bkrqc,bqkrd->bckd", ds16, qf) * scale
+    dk = torch.einsum("bkrqc,bqkrd->bckd", dsk16, qf) * scale
     dq = torch.einsum("bkrqc,bckd->bqkrd", ds16, kf) * scale
     return tuple(x.to(torch.bfloat16) for x in (dq.reshape(B, T, H, D), dk, dv))
 
 
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [128, 256, 192])
 def test_tensor_core_rounding_holds_the_chip_tolerance(D):
     """Rounding Pᵀ and dSᵀ to bf16, as the tensor-core route does (from
-    registers at dh 128, through shared memory at dh 256), keeps dq, dk
-    and dv within ``chip_smoke.py``'s BWD_TOL[bfloat16] = 2e-2 (relative
-    L2) of the f32 plain version at T=256, GQA rep 8."""
+    registers at dh 128 and at MLA's (192, 128), through shared memory at
+    dh 256), keeps dq, dk and dv within ``chip_smoke.py``'s
+    BWD_TOL[bfloat16] = 2e-2 (relative L2) of the f32 plain version at
+    T=256, GQA rep 8 (D 192: v's head dim 128, rep 1, as MLA has)."""
     rng = np.random.default_rng(21)
-    B, T, H, Kv = 1, 256, 8, 1
+    B, T, H, Kv = 1, 256, 8, 8 if D == 192 else 1
+    Dv = 128 if D == 192 else D
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                    .to(torch.bfloat16)
-                   for s in ((B, T, H, D), (B, T, Kv, D), (B, T, Kv, D), (B, T, H, D)))
+                   for s in ((B, T, H, D), (B, T, Kv, D), (B, T, Kv, Dv), (B, T, H, Dv)))
     o, lse = fa.flash_attention_torch(q.float(), k.float(), v.float(),
                                       return_lse=True)
     o = o.to(torch.bfloat16)

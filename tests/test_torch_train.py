@@ -73,9 +73,12 @@ JSHAPE = JShapeConfig(**dataclasses.asdict(SHAPE))
 #: recurrentgemma-9b's first RG-LRU layer does the same: its ``wa`` and
 #: ``lam`` gradients lie 1.3e-4 and 1.4e-4 from the reference's f64 ones
 #: in both packages, and 1.89e-4 apart (the worst leaf, the same at 1, 3
-#: and 8 threads); mamba2-2.7b's lie within 1.4e-6.
+#: and 8 threads); mamba2-2.7b's lie within 1.4e-6.  deepseek-v2-lite-16b's
+#: (MLA, MoE with a shared expert) lie within 1.2e-5, dbrx-132b's (GQA,
+#: MoE) within 8.7e-6.
 TOL_GRAD = {"qwen2.5-3b": 1e-4, "gemma2-9b": 2e-4, "mamba2-2.7b": 2e-4,
-            "recurrentgemma-9b": 2e-4}
+            "recurrentgemma-9b": 2e-4, "deepseek-v2-lite-16b": 1e-4,
+            "dbrx-132b": 1e-4}
 
 
 def _cfgs(arch, window=None):
@@ -107,7 +110,9 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("arch,window", [("qwen2.5-3b", None), ("gemma2-9b", 16),
                                          ("mamba2-2.7b", None),
-                                         ("recurrentgemma-9b", 16)])
+                                         ("recurrentgemma-9b", 16),
+                                         ("deepseek-v2-lite-16b", None),
+                                         ("dbrx-132b", None)])
 def test_model_gradients_match_jax_value_and_grad(arch, window):
     jcfg, cfg = _cfgs(arch, window)
     jp = _jparams_f32(jcfg)
@@ -155,6 +160,8 @@ def _grads_under(policy, cfg, tp, batch):
     ("gemma2-9b", 16),  # post-block norms: every branch
     ("mamba2-2.7b", None),  # the SSD chunk's autograd Function under remat
     ("recurrentgemma-9b", 16),  # the RG-LRU scan and local attention
+    ("deepseek-v2-lite-16b", None),  # MLA's (192, 128) attention and MoE
+    ("dbrx-132b", None),  # MoE beside GQA attention
 ])
 def test_remat_policies_give_the_gradients_of_none(policy, arch, window):
     jcfg, cfg = _cfgs(arch, window)
@@ -487,3 +494,34 @@ def test_launcher_trains_a_reduced_mamba2(tmp_path, capsys):
     assert len(losses) == 3 and np.isfinite(losses).all(), out
     assert losses[0] > losses[1] > losses[2], losses
     assert "done: 15 steps" in out
+
+
+def test_launcher_replays_a_crash_of_a_reduced_deepseek(tmp_path):
+    """MLA and MoE through the launcher's own loop on the CPU: reduced
+    deepseek-v2-lite-16b as ``launch.train``'s ``build`` makes it, 8
+    steps of 4 sequences of 32 in 2 microbatches.  A crash after step 6
+    restores step 4's checkpoint and replays steps 5-8 with the
+    uninterrupted run's losses, bit for bit; the loss falls."""
+    import argparse
+
+    from repro_torch.launch.train import build
+
+    cfg, shape = build(argparse.Namespace(arch="deepseek-v2-lite-16b", reduced=True,
+                                          seq=32, batch=4, microbatches=2))
+    assert cfg.mla is not None and cfg.moe is not None
+    runs = []
+    for name, fail_at in (("clean", None), ("crash", 6)):
+        ckpt = CheckpointManager(PmemTier(str(tmp_path / name)), "t", keep=2)
+        try:
+            runs.append(train(cfg, shape, AdamWConfig(lr=3e-3, weight_decay=0.0),
+                              ckpt, steps=8, checkpoint_every=4, fail_at=fail_at,
+                              device="cpu", log=lambda s: None))
+        finally:
+            ckpt.close()
+    clean, crash = ([(h["step"], h["loss"]) for h in r["history"]] for r in runs)
+    assert [s for s, _ in crash] == [1, 2, 3, 4, 5, 6, 5, 6, 7, 8]
+    assert crash[:6] + crash[8:] == clean
+    assert crash[6:8] == clean[4:6]
+    assert runs[1]["restores"][0]["step"] == 4
+    losses = [x for _, x in clean]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
