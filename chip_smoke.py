@@ -225,7 +225,18 @@ another sm_90a card).  It builds the port's CUDA kernels from
    repro_torch.launch.serve --full --arch gemma-2b`` (4 prompts of 32
    tokens, 16 greedy tokens each; flash once a layer, decode once a layer
    a step);
-17. prints a ``kernels`` JSON line: each kernel's launches on its path
+17. sharding over ``torch.distributed`` on the one card: NCCL at world
+   size 1 through ``launch.process_group`` (a file rendezvous in the
+   run's temporary directory), meshes (1,) over "data" and (1, 1) over
+   ("data", "model"); ``device_histogram`` through the (1,) mesh, byte
+   for byte the one-device call on 2^24 Zipf(1.1) keys over 32000
+   buckets (both calls' ms printed); ``moe_apply_a2a`` and
+   ``moe_apply_gather`` on the (1, 1) mesh for one deepseek-v2-lite-16b
+   MoE layer at full width (2 x 512 tokens) against ``moe_apply_dense``
+   in f32 (2e-4 abs and rel, the reference's own limit) and in bf16
+   (relative L2 2e-2 against the dense path in f32); the process group
+   is gone afterwards.  No time across cards is measured;
+18. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
@@ -3569,6 +3580,131 @@ def dbrx_path_shapes(dev, seed: int, cfg, prompt_len: int, steps: int) -> tuple:
     return flash, decode
 
 
+# -- phase 17: sharding over torch.distributed at world size 1 -----------------
+
+DIST_TOKENS = 1 << 24  # device_histogram through a mesh, Zipf(1.1) keys
+DIST_VOCAB = 32000
+DIST_MOE_SHAPE = (2, 512)  # (B, T) through one full-width MoE layer
+DIST_F32_LIMIT = 2e-4  # the reference's own tolerance for the EP paths
+DIST_BF16_LIMIT = 2e-2  # relative L2, bf16 against f32
+
+
+def phase_distributed(dev, seed: int, card: str) -> dict:
+    """NCCL at world size 1, through the port's mesh helpers: a process
+    group from a file rendezvous, meshes (1,) over "data" and (1, 1) over
+    ("data", "model"); ``device_histogram`` through the (1,) mesh (two
+    ``all_to_all_single`` and the gathers, at size 1) against the
+    one-device call on the same 2^24 Zipf keys over 32000 buckets, byte
+    for byte; ``moe_apply_a2a`` and ``moe_apply_gather`` called on the
+    (1, 1) mesh for one deepseek-v2-lite-16b MoE layer at full width (64
+    experts top-6, 2 shared, d_model 2048), against ``moe_apply_dense``:
+    in f32 within 2e-4 abs and rel, in bf16 within relative L2 2e-2 of the
+    dense path in f32 on the same bf16 inputs and weights.  The group is
+    destroyed on the way out, also on failure.  With one card no time
+    across cards is measured: the times printed are each call's on one."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import device_histogram
+    from repro_torch.launch import make_mesh_compat, process_group
+    from repro_torch.models import init_params, moe
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as workdir:
+        t0 = time.perf_counter()
+        with process_group(0, 1, os.path.join(workdir, "rdzv")):
+            mesh1 = make_mesh_compat((1,), ("data",))
+            mesh2 = make_mesh_compat((1, 1), ("data", "model"))
+            emit("dist_init", backend=dist.get_backend(), world=dist.get_world_size(),
+                 meshes=[list(mesh1.mesh_dim_names), list(mesh2.mesh_dim_names)],
+                 init_s=time.perf_counter() - t0)
+            g = torch.Generator(device=dev).manual_seed(seed + 30)
+            keys = zipf_tokens(DIST_TOKENS, DIST_VOCAB, g, dev)
+            values = torch.ones_like(keys)
+
+            def one():
+                return device_histogram(keys, values, 1, vocab=DIST_VOCAB, device=dev)
+
+            def via_mesh():
+                return device_histogram(keys, values, vocab=DIST_VOCAB, mesh=mesh1)
+
+            a, b = one(), via_mesh()
+            check(b.counts.device == dev and b.counts.dtype == a.counts.dtype
+                  and torch.equal(b.counts, a.counts),
+                  "device_histogram through a (1,) mesh != the one-device call")
+            fields = ("dropped", "shuffled_bytes", "buffer_bytes", "spilled",
+                      "spilled_bytes")
+            check(all(int(getattr(a, f)) == int(getattr(b, f)) for f in fields),
+                  "device_histogram through a mesh: another accounting")
+            out["histogram"] = {
+                "tokens": DIST_TOKENS, "vocab": DIST_VOCAB, "byte_equal": True,
+                "dropped": int(a.dropped), "one_device_ms": time_ms(one, reps=5),
+                "mesh_ms": time_ms(via_mesh, reps=5)}
+            emit("dist_histogram", **out["histogram"])
+            del a, b, keys, values
+
+            cfg = get_config(MLA_MODEL)
+            B, T = DIST_MOE_SHAPE
+            p32 = init_params(moe.moe_defs(cfg), g, dev, dtype=torch.float32)
+            x32 = _randn(g, (B, T, cfg.d_model), torch.float32, dev)
+            paths = {"a2a": moe.moe_apply_a2a, "gather": moe.moe_apply_gather}
+            moe_out = {}
+            with torch.no_grad():
+                for dtype in (torch.float32, torch.bfloat16):
+                    p = _cast_moe(p32, dtype)
+                    x = x32.to(dtype)
+                    # the dense path in f32 on the inputs as given
+                    want, want_aux = moe.moe_apply_dense(_cast_moe(p, torch.float32),
+                                                         x.float(), cfg)
+                    for name, fn in paths.items():
+                        def call(fn=fn, p=p, x=x):
+                            return fn(p, x, cfg, mesh2, ("data",), "model")
+
+                        got, aux = call()
+                        err = float((got.float() - want).abs().max())
+                        rel = _rel_l2(got, want)
+                        if dtype == torch.float32:
+                            ok = bool(torch.allclose(got, want, atol=DIST_F32_LIMIT,
+                                                     rtol=DIST_F32_LIMIT))
+                            limit = {"atol": DIST_F32_LIMIT, "rtol": DIST_F32_LIMIT}
+                        else:
+                            ok = rel <= DIST_BF16_LIMIT
+                            limit = {"rel_l2": DIST_BF16_LIMIT}
+                        check(ok and bool(torch.isfinite(got.float()).all()),
+                              f"moe_apply_{name} ({dtype}) departs from the dense "
+                              f"path: max abs {err}, rel L2 {rel}")
+                        check(abs(float(aux) - float(want_aux))
+                              <= 1e-5 * abs(float(want_aux)),
+                              f"moe_apply_{name} ({dtype}): aux {float(aux)} "
+                              f"against {float(want_aux)}")
+                        row = {"path": name, "dtype": str(dtype).split(".")[-1],
+                               "tokens": B * T, "experts": cfg.moe.n_experts,
+                               "top_k": cfg.moe.top_k, "max_abs_err": err,
+                               "rel_l2": rel, "limit": limit,
+                               "ms": time_ms(call, reps=5),
+                               "dense_ms": time_ms(
+                                   lambda p=p, x=x: moe.moe_apply_dense(p, x, cfg),
+                                   reps=5)}
+                        moe_out[f"{name}_{row['dtype']}"] = row
+                        emit("dist_moe", **row)
+                    del p, x, want
+            out["moe"] = moe_out
+            del p32, x32
+        check(not dist.is_initialized(), "a process group outlived the phase")
+    free_card()
+    out["s"] = time.perf_counter() - t0
+    emit("dist_done", s=out["s"], group_left=False)
+    print(card, flush=True)
+    print("no multi-GPU time measured", flush=True)
+    return out
+
+
+def _cast_moe(tree, dtype):
+    """``tree`` with every floating leaf but the f32 router cast to ``dtype``."""
+    return {k: _cast_moe(v, dtype) if isinstance(v, dict)
+            else v if k == "router" else v.to(dtype) for k, v in tree.items()}
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, torch.Tensor):
         return fn(tree)
@@ -3868,6 +4004,11 @@ def main(argv=None) -> int:
     emit("phase_done", name="example_and_launcher", s=time.perf_counter() - t0)
     emit("mla_moe_training", gradient_check=mla_grad, moe_determinism=moe_det,
          example=example, serve_launcher=launcher)
+
+    # sharding over torch.distributed: NCCL at world size 1
+    t0 = time.perf_counter()
+    phase_distributed(dev, args.seed, card)
+    emit("phase_done", name="distributed", s=time.perf_counter() - t0)
 
     def path_row(m, launches):
         return {"shape": m["shape"], "launches": launches, "ms": m["kernel_ms"],

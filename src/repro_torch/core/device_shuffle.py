@@ -16,8 +16,11 @@ exact results, the Faasm/Cloudburst fast-over-slow layering) or, without
 a spill tier, is dropped and counted.  Keys are int32 ``>= 0``; ownership
 is range-partitioned (``key // vocab_local``) so the owner-concatenated
 result is already in key order; reductions are segment-sums over the
-owner-local slot.  On one GPU (``ndev == 1``) the exchange is the
-identity; exchanging across GPUs is not ported yet (ROADMAP.md).
+owner-local slot.  On one GPU (``ndev == 1``, no mesh) the exchange is
+the identity.  Across ranks (``mesh=``, a ``DeviceMesh``) each rank packs
+its own shard and two ``all_to_all_single`` calls over the mesh axis's
+process group carry the buffers to their owners, as the reference's
+``shard_map`` does with ``jax.lax.all_to_all``.
 
 Count workloads accumulate in **int32** by default (``value_dtype=None``
 infers it from integer value dtypes): an f32 accumulator silently stops
@@ -42,7 +45,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.parallel.collectives import all_gather, mesh_axis, pmean
 from repro_torch.storage.tiers import Tier
 
 __all__ = [
@@ -224,16 +229,39 @@ def host_histogram(
     return out
 
 
+def _spill_merge(
+    counts: torch.Tensor, ok: np.ndarray, ov: np.ndarray, spill_tier: Tier,
+    spill_key: str,
+) -> Tuple[torch.Tensor, int]:
+    """Over-capacity pairs take the slow path: a real round-trip through
+    the host tier (its modeled seconds are the spill cost), then a
+    host-side merge back into the reduced counts, in the order given.
+    ``ok``/``ov`` hold the overflow with padding key -1.  Returns the
+    merged counts (on ``counts``' device) and the bytes spilled."""
+    mask = ok >= 0
+    blob = _spill_blob(ok[mask], ov[mask])
+    spill_tier.put(spill_key, blob)
+    rk, rv = _unspill_blob(
+        spill_tier.get(spill_key), int(mask.sum()), ok.dtype, ov.dtype,
+    )
+    merged = counts.cpu().numpy().copy()
+    np.add.at(merged, rk, rv.astype(merged.dtype))
+    return torch.from_numpy(merged).to(counts.device), len(blob)
+
+
 def device_histogram(
-    keys,  # (n_global,) int32 tokens, padding = -1
-    values,  # (n_global,) weights (ones for wordcount)
-    ndev: int = 1,
+    keys,  # (n,) int32 tokens, padding = -1: the whole input, or this rank's shard
+    values,  # (n,) weights (ones for wordcount)
+    ndev: Optional[int] = None,
     vocab: int = 32000,
     capacity_factor: float = 1.3,
     value_dtype=None,
     spill_tier: Optional[Tier] = None,
     spill_key: str = "shuffle/spill/device",
     device=None,
+    *,
+    mesh=None,
+    axis: str = "data",
 ) -> ShuffleResult:
     """Map→shuffle→reduce entirely on the device (the Marvel/IGFS fast path).
 
@@ -241,15 +269,29 @@ def device_histogram(
     routes to the key's owner, reduce segment-sums.  ``keys`` and
     ``values`` are tensors or arrays; they are moved to ``device``.
 
+    Without ``mesh`` the call runs on one device (``ndev`` None or 1), and
+    ``ndev > 1`` is refused: several owners need a mesh.  With ``mesh``
+    (a ``DeviceMesh``) ``ndev`` is the size of its ``axis``; each rank
+    passes its own shard (any length; the plan is the reference's over the
+    whole input, whose shards are the axis's ranks' in rank order, and the
+    ranks along the other axes pass the same shard), and every rank
+    returns the whole result.  ``device`` defaults to the mesh's device
+    type, else the card.  A mesh of size 1 runs the collectives too.
+
     With ``spill_tier``, over-capacity pairs round-trip the host tier and
     are merged back into the counts (exact results, ``dropped == 0``) —
     the paper's fast-tier-with-slow-spill layering.
     """
-    if ndev != 1:
-        raise NotImplementedError(
-            "device_histogram across GPUs (ndev > 1) is not ported yet: "
-            "see ROADMAP.md, multi-GPU device_histogram"
+    if mesh is not None:
+        return _mesh_histogram(keys, values, ndev, vocab, capacity_factor,
+                               value_dtype, spill_tier, spill_key, device,
+                               mesh, axis)
+    if ndev not in (None, 1):
+        raise ValueError(
+            f"device_histogram over ndev={ndev} owners needs a mesh: pass "
+            "mesh= (a DeviceMesh) with ndev ranks along its axis"
         )
+    ndev = 1
     dev = _device(device)
     k = torch.as_tensor(keys, device=dev).reshape(-1)
     v = torch.as_tensor(values, device=dev).reshape(-1)
@@ -267,22 +309,71 @@ def device_histogram(
     counts = hist[:vocab]
     spilled = spilled_bytes = 0
     if spill_tier is not None and n_dropped:
-        # Over-capacity pairs take the slow path: a real round-trip
-        # through the host tier (its modeled seconds are the spill cost),
-        # then a host-side merge back into the reduced counts.
-        ok = ovf_k.cpu().numpy()
-        ov = ovf_v.cpu().numpy()
-        mask = ok >= 0
-        blob = _spill_blob(ok[mask], ov[mask])
-        spill_tier.put(spill_key, blob)
-        rk, rv = _unspill_blob(
-            spill_tier.get(spill_key), int(mask.sum()), ok.dtype, ov.dtype,
-        )
-        merged = counts.cpu().numpy().copy()
-        np.add.at(merged, rk, rv.astype(merged.dtype))
-        counts = torch.from_numpy(merged).to(dev)
+        counts, spilled_bytes = _spill_merge(
+            counts, ovf_k.cpu().numpy(), ovf_v.cpu().numpy(), spill_tier,
+            spill_key)
         spilled = n_dropped
-        spilled_bytes = len(blob)
+        n_dropped = 0
+    return ShuffleResult(
+        counts=counts,
+        dropped=torch.tensor(n_dropped, dtype=torch.int32),
+        shuffled_bytes=(n_valid - n_dropped - spilled) * itemsize,
+        buffer_bytes=ndev * ndev * capacity * itemsize,
+        spilled=spilled,
+        spilled_bytes=spilled_bytes,
+    )
+
+
+def _mesh_histogram(keys, values, ndev, vocab, capacity_factor, value_dtype,
+                    spill_tier, spill_key, device, mesh, axis) -> ShuffleResult:
+    """``device_histogram`` across the ranks of ``mesh``'s ``axis``: the
+    steps of the reference's ``shard_fn``, with the collectives written
+    out over the axis's process group."""
+    size, group, me = mesh_axis(mesh, axis)
+    if ndev not in (None, size):
+        raise ValueError(f"ndev={ndev}, but the mesh's {axis!r} axis has {size} ranks")
+    ndev = size
+    dev = _device(mesh.device_type if device is None else device)
+    k = torch.as_tensor(keys, device=dev).reshape(-1)
+    v = torch.as_tensor(values, device=dev).reshape(-1)
+    value_dtype = _resolve_value_dtype(v.dtype, value_dtype)
+    # every rank's shard length and valid pairs, in rank order: the plan
+    # is the whole input's
+    mine = torch.stack([torch.tensor(k.shape[0], device=dev), (k >= 0).sum()])
+    stats = all_gather(mine.to(torch.int64), group).view(ndev, 2).cpu()
+    n_global, n_valid = (int(x) for x in stats.sum(dim=0))
+    if n_global == 0:
+        return _empty_result(vocab, value_dtype, dev)
+    _, capacity, vocab_local = _plan(n_global, ndev, vocab, capacity_factor)
+    dest = torch.where(k >= 0, k // vocab_local, -1)
+    bk, bv, dropped, ovf_k, ovf_v = _pack_impl(k, v, dest, ndev, capacity)
+    rk, rv = torch.empty_like(bk), torch.empty_like(bv)
+    dist.all_to_all_single(rk, bk, group=group)
+    dist.all_to_all_single(rv, bv, group=group)
+    hist = _owner_reduce(rk, rv, me * vocab_local, vocab_local,
+                         _torch_dtype(value_dtype))
+    total_dropped = dropped.reshape(1).to(torch.int64)
+    dist.all_reduce(total_dropped, op=dist.ReduceOp.SUM, group=group)
+    for a in mesh.mesh_dim_names:  # replicate over the other axes, as pmean/pmax do
+        if a != axis:
+            hist = pmean(hist, mesh.get_group(a))
+            dist.all_reduce(total_dropped, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group(a))
+    counts = all_gather(hist, group)[:vocab]
+    itemsize = k.element_size() + v.element_size()
+    n_dropped = int(total_dropped)
+    spilled = spilled_bytes = 0
+    if spill_tier is not None and n_dropped:
+        # every rank's overflow, padded to the longest shard, in rank
+        # order: the reference's P(axis) out-spec
+        n_max = int(stats[:, 0].max())
+        ok = torch.full((n_max,), -1, dtype=k.dtype, device=dev)
+        ov = torch.zeros((n_max,), dtype=v.dtype, device=dev)
+        ok[: k.shape[0]], ov[: k.shape[0]] = ovf_k, ovf_v
+        counts, spilled_bytes = _spill_merge(
+            counts, all_gather(ok, group).cpu().numpy(),
+            all_gather(ov, group).cpu().numpy(), spill_tier, spill_key)
+        spilled = n_dropped
         n_dropped = 0
     return ShuffleResult(
         counts=counts,

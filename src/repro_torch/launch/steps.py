@@ -17,7 +17,8 @@ microbatches, optionally compressed, and handed to AdamW, which updates
 the masters and moments in place.  There is no mesh and no sharding (no
 ``zero1``).  ``make_prefill_step`` and ``make_decode_step`` are the
 reference's serving steps (the serve launcher's prefill and greedy
-decode), and ``make_step`` picks one by ``shape.kind``.
+decode), and ``make_step`` picks one by ``shape.kind``.  ``make_ctx`` builds the
+layers' mesh context; the step factories stay unsharded.
 """
 
 from __future__ import annotations
@@ -27,15 +28,17 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.models import ModelConfig, ShapeConfig, decode_step, forward, logits_fn
+from repro_torch.models.ctx import ShardCtx
 from repro_torch.models.layers import chunked_ce_loss
 from repro_torch.models.param import default_device
 from repro_torch.models.transformer import Periods, cast_weights
 from repro_torch.optim.adamw import AdamWConfig, OptState, adamw_update
 from repro_torch.optim.compression import EFState, compress_decompress
+from repro_torch.parallel.sharding import mesh_axes
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step", "make_step",
-           "autograd_leaves"]
+           "autograd_leaves", "make_ctx"]
 
 #: the type the step computes in; the masters stay f32
 COMPUTE_DTYPE = torch.bfloat16
@@ -58,6 +61,15 @@ def autograd_leaves(params: Dict[str, Any], grads: Dict[str, Any]) -> Dict[str, 
 
     return {k: tree_map(per_period if k == "body" else leaf, params[k], grads[k])
             for k in params}
+
+
+def make_ctx(mesh) -> ShardCtx:
+    """The layers' mesh context for ``mesh`` (a ``DeviceMesh`` or None): its
+    data axes and TP axis, named as the reference names them."""
+    if mesh is None:
+        return ShardCtx()
+    dp, _, tp = mesh_axes(mesh)
+    return ShardCtx(mesh=mesh, dp_axes=dp or ("data",), tp_axis=tp or "model")
 
 
 def _to_device(x: Any, device: torch.device) -> torch.Tensor:

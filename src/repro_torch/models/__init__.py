@@ -17,6 +17,7 @@ from repro_torch.models.config import (
 )
 from repro_torch.models import attention, mla, moe, rglru, ssm
 from repro_torch.models.convert import from_jax_params
+from repro_torch.models.ctx import ShardCtx, constrain
 from repro_torch.models.mla import MLACache
 from repro_torch.models.param import ParamDef, init_params, stack_defs
 from repro_torch.models.rglru import RGLRUCache
@@ -27,6 +28,7 @@ from repro_torch.models.transformer import (
     init_cache,
     logits_fn,
     model_defs,
+    shard_moe_params,
 )
 
 __all__ = [
@@ -55,4 +57,7 @@ __all__ = [
     "init_cache",
     "logits_fn",
     "model_defs",
+    "shard_moe_params",
+    "ShardCtx",
+    "constrain",
 ]

@@ -1,0 +1,95 @@
+"""ShardCtx: the mesh context threaded through model layers, plus the
+``constrain`` helper that pins an activation to the intended layout.
+
+The port of ``repro/models/ctx.py``.  The mesh is a
+:class:`torch.distributed.device_mesh.DeviceMesh` (or None on one
+device).  The context also hands out each axis's process group and this
+rank's coordinate on it, which the layers that write their collectives
+explicitly (the MoE expert-parallel paths) need.
+
+``constrain`` follows the reference's rules; for a ``DTensor`` it
+redistributes to the placements they give, and it leaves a plain tensor
+as it is (the reference's ``with_sharding_constraint`` steers the
+compiler's layout of a global array; a plain tensor here is one rank's
+whole value, with no layout to steer).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+
+__all__ = ["ShardCtx", "constrain"]
+
+
+@dataclass(frozen=True)
+class ShardCtx:
+    """Mesh context threaded to layers that use explicit collectives or
+    sharding constraints."""
+
+    mesh: Optional[DeviceMesh] = None
+    dp_axes: Tuple[str, ...] = ("data",)
+    tp_axis: str = "model"
+    #: weights arrive pre-gathered (TP-only layout) — ZeRO-1 step layout;
+    #: MoE then skips its FSDP gathers
+    zero1: bool = False
+
+    def _has(self, axis: str) -> bool:
+        return self.mesh is not None and axis in self.mesh.mesh_dim_names
+
+    def axis_size(self, axis: str) -> int:
+        """Ranks along ``axis``; 1 without a mesh or without that axis."""
+        if not self._has(axis):
+            return 1
+        return self.mesh.size(self.mesh.mesh_dim_names.index(axis))
+
+    def tp_size(self) -> int:
+        return self.axis_size(self.tp_axis)
+
+    def dp_size(self) -> int:
+        n = 1
+        for a in self.dp_axes:
+            n *= self.axis_size(a)
+        return n
+
+    def group(self, axis: str):
+        """The process group of this rank's line along ``axis``."""
+        return self.mesh.get_group(axis)
+
+    def local_rank(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return self.mesh.get_local_rank(axis)
+
+
+def constrain(x: torch.Tensor, ctx: Optional[ShardCtx], *entries) -> torch.Tensor:
+    """Pin ``x`` to a layout given per-dim entries:
+
+      'b'  -> the data axes if the dim divides, else replicated
+      'tp' -> the TP axis if the dim divides, else replicated
+      None -> replicated
+
+    No-op without a mesh (smoke tests, single device) and for a plain
+    tensor; a ``DTensor`` is redistributed to that layout.
+    """
+    if ctx is None or ctx.mesh is None:
+        return x
+    # imported here: DTensor's import costs a second per process
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    names = ctx.mesh.mesh_dim_names
+    placements = [Replicate()] * len(names)
+    for d, (dim, e) in enumerate(zip(x.shape, entries)):
+        if e == "b" and ctx.dp_size() > 1 and dim % ctx.dp_size() == 0:
+            axes = [a for a in ctx.dp_axes if a in names]
+        elif e == "tp" and ctx.tp_size() > 1 and dim % ctx.tp_size() == 0:
+            axes = [ctx.tp_axis]
+        else:
+            axes = []
+        for a in axes:
+            placements[names.index(a)] = Shard(d)
+    return x.redistribute(ctx.mesh, placements)

@@ -1,9 +1,29 @@
 """Mixture-of-Experts FFN: top-k routing and capacity-packed experts.
 
-The port of ``repro/models/moe.py`` for one card: its dense path
-(``moe_apply_dense``), the oracle that its dispatcher takes when there is
-no mesh.  The expert-parallel paths (``moe_apply_a2a``,
-``moe_apply_gather``: ``shard_map`` over a TP axis) wait for sharding.
+The port of ``repro/models/moe.py``.  Three apply paths, picked by
+``moe_apply`` with the reference's rules:
+
+  * ``moe_apply_dense``   — every token through its top-k experts on one
+    device; the oracle, and the path with no mesh.
+  * ``moe_apply_a2a``     — expert parallelism over the mesh's TP axis:
+    tokens sequence-sharded over TP, two ``all_to_all_single`` calls
+    (dispatch and return).  Used for train/prefill.
+  * ``moe_apply_gather``  — expert parallelism for tiny T (decode): tokens
+    replicated over TP, each TP rank computes its own experts, and one
+    all-reduce sums them.
+
+EP dispatch *is* the paper's shuffle (``core/device_shuffle.py``): tokens
+are intermediate data routed to their owner, the expert.  The reference
+writes the sharded paths as ``shard_map`` bodies; here each rank runs the
+body on its block with the collectives over the mesh axes' process
+groups.  Outside the MoE layer activations are replicated on every rank:
+a sharded path takes the whole ``x``, works on the rank's block as the
+reference's ``in_specs`` lay it out, and all-gathers its output back to
+``(B, T, D)``.  Each rank holds only its ``E/tp`` experts, sliced over the
+last data axis too unless ``zero1`` (:func:`shard_params` cuts them), and
+gathers the FSDP slices inside the layer, as the reference's manual
+ZeRO-3 gather does.  The sharded paths run forward only: plain
+``all_to_all_single`` carries no gradient, so they refuse autograd.
 
 The dispatch is the reference's, so the same tokens reach the same
 experts and the same ones are dropped: a stable sort of the (token, slot)
@@ -18,9 +38,10 @@ The combine differs in one way: the reference scatter-adds each entry
 into its token (``contrib.at[tok].add``), which on CUDA would be
 ``index_add_`` with atomics in no fixed order.  Here each token's ``k``
 contributions are gathered to ``(N, k, D)`` and summed over ``k``, one
-reduction in a fixed order, so two runs give the same bytes.
+reduction in a fixed order, so two runs give the same bytes (the sharded
+paths combine the same way).
 
-The backward is deterministic too.  Indexing with repeated indices
+The backward of the dense path is deterministic too.  Indexing with repeated indices
 (``xf[tok[order]]`` repeats each token ``k`` times; the dropped entries
 all read one slot) would accumulate its gradient into the repeats, on
 CUDA with atomics in no fixed order.  So the two moves, tokens into the
@@ -44,13 +65,17 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import mlp_apply, mlp_defs
 from repro_torch.models.param import FSDP, TP, ParamDef
+from repro_torch.parallel.collectives import all_gather, mesh_axis, pmean
+from repro_torch.tree import tree_leaves
 
-__all__ = ["moe_defs", "moe_apply", "moe_apply_dense"]
+__all__ = ["moe_defs", "moe_apply", "moe_apply_dense", "moe_apply_a2a",
+           "moe_apply_gather", "shard_params"]
 
 
 def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -203,9 +228,221 @@ def moe_apply_dense(
     return out, aux
 
 
-def moe_apply(
-    p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
+# -- sharded paths ---------------------------------------------------------
+
+def _block(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim``, split over ``axes`` (the
+    first the major one), as a spec entry ``axes`` at ``dim`` lays it out."""
+    idx, n = 0, 1
+    for a in axes:
+        size, _, coord = mesh_axis(mesh, a)
+        idx, n = idx * size + coord, n * size
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over "
+                         f"{tuple(axes)} ({n} ranks)")
+    b = t.shape[dim] // n
+    return t.narrow(dim, idx * b, b)
+
+
+def _unblock(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The inverse of :func:`_block`: the blocks of every rank along
+    ``axes`` gathered back along ``dim``."""
+    for a in reversed(tuple(axes)):
+        t = all_gather(t, mesh_axis(mesh, a)[1], dim)
+    return t
+
+
+def _expert_parallel(mesh, tp_axis: str, n_experts: int) -> bool:
+    """The reference's rule: experts are split over TP only with a TP axis
+    of more than one rank that divides them; else the dense path runs."""
+    if mesh is None or tp_axis not in mesh.mesh_dim_names:
+        return False
+    tp = mesh_axis(mesh, tp_axis)[0]
+    return tp > 1 and n_experts % tp == 0
+
+
+def shard_params(p: Dict[str, torch.Tensor], mesh, dp_axes=("data",),
+                 tp_axis: str = "model", zero1: bool = False):
+    """This rank's slices of a MoE layer's full parameters, by the
+    reference's ``in_specs``: the router over the last data axis on its
+    rows, the experts over TP on the expert dim and over the last data
+    axis on d_model (none of the data slicing with ``zero1``).  A stacked
+    layer (a leading period axis) is cut the same way.  The shared expert
+    stays whole, and so does everything where ``moe_apply`` runs the dense
+    path."""
+    lead = p["w_gate"].ndim - 3
+    if not _expert_parallel(mesh, tp_axis, p["w_gate"].shape[lead]):
+        return p
+    fsdp = () if zero1 else tuple(dp_axes[-1:])
+    tp = (tp_axis,)
+    out = dict(p)
+    out["router"] = _block(p["router"], mesh, fsdp, lead).clone()
+    for name, fdim in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
+        out[name] = _block(_block(p[name], mesh, tp, lead), mesh, fsdp,
+                           lead + fdim).clone()
+    return out
+
+
+def _gather_experts(p, mesh, fsdp_axes):
+    """Manual ZeRO gather of the router and expert weights over the FSDP
+    axis/axes."""
+    router, wg, wu, wd = p["router"], p["w_gate"], p["w_up"], p["w_down"]
+    for ax in fsdp_axes:
+        group = mesh_axis(mesh, ax)[1]
+        router = all_gather(router, group, 0)
+        wg = all_gather(wg, group, 1)
+        wu = all_gather(wu, group, 1)
+        wd = all_gather(wd, group, 2)
+    return router, wg, wu, wd
+
+
+def _refuse_autograd(p, x: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in tree_leaves(p))):
+        raise NotImplementedError(
+            "the expert-parallel MoE paths run forward only: their "
+            "all_to_all_single carries no gradient (run under torch.no_grad)")
+
+
+def _aux_mean(aux: torch.Tensor, mesh, axes) -> torch.Tensor:
+    for a in axes:
+        aux = pmean(aux, mesh_axis(mesh, a)[1])
+    return aux
+
+
+def moe_apply_a2a(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    mesh,
+    dp_axes: Tuple[str, ...],
+    tp_axis: str,
+    zero1: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The MoE FFN on one device: the dense path, as the reference's
-    dispatcher takes it with no mesh."""
-    return moe_apply_dense(p, x, cfg)
+    """EP via two all-to-alls; tokens sequence-sharded along TP.  ``p``
+    holds this rank's slices (:func:`shard_params`); ``x`` is the whole
+    (B, T, D) input, and so is the output, on every rank."""
+    _refuse_autograd(p, x)
+    m = cfg.moe
+    B, T, D = x.shape
+    k, E = m.top_k, m.n_experts
+    tp, tp_group, my_col = mesh_axis(mesh, tp_axis)
+    if E % tp or T % tp:
+        raise ValueError(f"the a2a MoE path needs {E} experts and seq {T} "
+                         f"divisible by TP {tp}")
+    E_loc = E // tp
+    fsdp_axes = () if zero1 else tuple(dp_axes[-1:])
+    router, wg, wu, wd = _gather_experts(p, mesh, fsdp_axes)
+    xl = _block(_block(x, mesh, dp_axes, 0), mesh, (tp_axis,), 1)
+    Bl, Tl, _ = xl.shape
+    N = Bl * Tl
+    M = N * k
+    xf = xl.reshape(N, D)
+    w, idx, aux = _route(xf, router, m)
+    e_flat = idx.reshape(M)
+    cap_s = max(1, int(math.ceil(M / tp * m.capacity_factor)))
+    cap_e = max(1, int(math.ceil(M * tp / E * m.capacity_factor)))
+
+    # ---- dispatch pack (by owner column); dropped entries to a spare row
+    order, gs, pos, keep = _pack_by_group(e_flat // E_loc, tp, cap_s)
+    slot = torch.where(keep, gs * cap_s + pos, tp * cap_s)
+    send_x = xf.new_zeros((tp * cap_s + 1, D))
+    send_x[slot] = xf[torch.div(order, k, rounding_mode="floor")]
+    send_e = torch.full((tp * cap_s + 1,), -1, dtype=torch.int64, device=x.device)
+    send_e[slot] = e_flat[order]
+    recv_x = torch.empty_like(send_x[:-1])
+    recv_e = torch.empty_like(send_e[:-1])
+    dist.all_to_all_single(recv_x, send_x[:-1], group=tp_group)
+    dist.all_to_all_single(recv_e, send_e[:-1], group=tp_group)
+
+    # ---- local expert grouping
+    le = torch.where(recv_e >= 0, recv_e - my_col * E_loc, E_loc)
+    order2, gs2, pos2, keep2 = _pack_by_group(le, E_loc, cap_e)
+    slot2 = torch.where(keep2, gs2 * cap_e + pos2, E_loc * cap_e)
+    gx = xf.new_zeros((E_loc * cap_e + 1, D))
+    gx[slot2] = recv_x[order2]
+    y = _expert_ffn(gx[:-1].view(E_loc, cap_e, D), wg, wu, wd, cfg.act)
+    ret = torch.empty_like(recv_x)
+    ret[order2] = _rows(y.reshape(E_loc * cap_e, D), slot2).to(x.dtype)
+    back = torch.empty_like(ret)
+    dist.all_to_all_single(back, ret, group=tp_group)
+
+    # ---- combine at source: each entry's row (0 where dropped), weighted,
+    # summed over a token's k slots in a fixed order
+    got = xf.new_empty((M, D))
+    got[order] = _rows(back, slot)
+    out = (got * w.reshape(M, 1).to(got.dtype)).view(N, k, D).sum(dim=1)
+    out = _unblock(_unblock(out.view(Bl, Tl, D), mesh, (tp_axis,), 1),
+                   mesh, dp_axes, 0)
+    aux = _aux_mean(aux, mesh, (tp_axis,) + tuple(dp_axes))
+    if m.n_shared:
+        out = out + mlp_apply(p["shared"], x, cfg.act)
+    return out, aux
+
+
+def moe_apply_gather(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    mesh,
+    dp_axes: Tuple[str, ...],
+    tp_axis: str,
+    zero1: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EP for decode-size T: tokens replicated over TP, each TP rank runs
+    its own experts, and an all-reduce over TP sums them.  ``p`` and ``x``
+    as for :func:`moe_apply_a2a`."""
+    _refuse_autograd(p, x)
+    m = cfg.moe
+    B, T, D = x.shape
+    k, E = m.top_k, m.n_experts
+    tp, tp_group, my_col = mesh_axis(mesh, tp_axis)
+    if E % tp:
+        raise ValueError(f"{E} experts do not split over TP {tp}")
+    E_loc = E // tp
+    fsdp_axes = () if zero1 else tuple(dp_axes[-1:])
+    router, wg, wu, wd = _gather_experts(p, mesh, fsdp_axes)
+    xl = _block(x, mesh, dp_axes, 0)
+    Bl = xl.shape[0]
+    N = Bl * T
+    M = N * k
+    xf = xl.reshape(N, D)
+    w, idx, aux = _route(xf, router, m)
+    le = idx.reshape(M) - my_col * E_loc
+    le = torch.where((le >= 0) & (le < E_loc), le, E_loc)
+    cap_e = max(1, int(math.ceil(M / E * m.capacity_factor)))
+    order, gs, pos, keep = _pack_by_group(le, E_loc, cap_e)
+    slot = torch.where(keep, gs * cap_e + pos, E_loc * cap_e)
+    gx = xf.new_zeros((E_loc * cap_e + 1, D))
+    gx[slot] = xf[torch.div(order, k, rounding_mode="floor")]
+    y = _expert_ffn(gx[:-1].view(E_loc, cap_e, D), wg, wu, wd, cfg.act)
+    vals = _rows(y.reshape(E_loc * cap_e, D), slot)
+    per = torch.empty_like(vals)
+    per[order] = vals * w.reshape(M)[order, None].to(vals.dtype)
+    contrib = per.view(N, k, D).sum(dim=1)
+    dist.all_reduce(contrib, op=dist.ReduceOp.SUM, group=tp_group)
+    out = _unblock(contrib.view(Bl, T, D).to(x.dtype), mesh, dp_axes, 0)
+    aux = _aux_mean(aux, mesh, dp_axes)
+    if m.n_shared:
+        out = out + mlp_apply(p["shared"], x, cfg.act)
+    return out, aux
+
+
+def moe_apply(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    mesh=None,
+    dp_axes: Tuple[str, ...] = ("data",),
+    tp_axis: str = "model",
+    zero1: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatching wrapper, the reference's rules: dense with no mesh, no
+    TP axis, TP 1 or experts that TP does not divide; a2a when TP divides
+    the sequence; gather otherwise.  ``p`` is what :func:`shard_params`
+    gives for the same mesh."""
+    if not _expert_parallel(mesh, tp_axis, cfg.moe.n_experts):
+        return moe_apply_dense(p, x, cfg)
+    if x.shape[1] % mesh_axis(mesh, tp_axis)[0] == 0:
+        return moe_apply_a2a(p, x, cfg, mesh, dp_axes, tp_axis, zero1)
+    return moe_apply_gather(p, x, cfg, mesh, dp_axes, tp_axis, zero1)

@@ -39,13 +39,14 @@ from torch.utils.checkpoint import (
 
 from repro_torch.models import attention, mla, moe, rglru, ssm
 from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.models.ctx import ShardCtx
 from repro_torch.models.layers import layer_norm, mlp_apply, mlp_defs, rms_norm, softcap
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device, stack_defs
 from repro_torch.models.quant_cache import init_quant_cache
 from repro_torch.tree import tree_map
 
 __all__ = ["model_defs", "forward", "logits_fn", "decode_step", "init_cache",
-           "Periods", "REMAT_POLICIES", "cast_weights"]
+           "Periods", "REMAT_POLICIES", "cast_weights", "shard_moe_params"]
 
 #: remat policies per layer period, the reference's ``shape.remat``
 REMAT_POLICIES = ("none", "full", "dots", "save_block_out")
@@ -154,6 +155,24 @@ def _stack(caches: List[Any]) -> Any:
     return type(first)(*(_stack(list(f)) for f in zip(*caches)))
 
 
+def shard_moe_params(params: Dict[str, Any], cfg: ModelConfig,
+                     ctx: ShardCtx) -> Dict[str, Any]:
+    """``params`` with each MoE layer's parameters cut to this rank's
+    slices for ``ctx``'s mesh (``moe.shard_params``; the body's stacked
+    layers keep their period axis).  Every other leaf is shared with
+    ``params``."""
+    def cut(p, blk):
+        if blk.ffn != "moe":
+            return p
+        return {**p, "ffn": moe.shard_params(p["ffn"], ctx.mesh, ctx.dp_axes,
+                                             ctx.tp_axis, ctx.zero1)}
+
+    return {**params,
+            "prelude": [cut(p, b) for p, b in zip(params["prelude"], cfg.prelude)],
+            "body": [cut(p, b) for p, b in zip(params["body"], cfg.pattern)],
+            "postlude": [cut(p, b) for p, b in zip(params["postlude"], cfg.postlude)]}
+
+
 # -- apply ---------------------------------------------------------------
 
 def cast_weights(tree: Any, dtype: Optional[torch.dtype]) -> Any:
@@ -234,13 +253,16 @@ def _mixer_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
     return out if collect_cache else (out, None)
 
 
-def _ffn_apply(p, x, blk: BlockSpec, cfg: ModelConfig):
+def _ffn_apply(p, x, blk: BlockSpec, cfg: ModelConfig, ctx: Optional[ShardCtx] = None):
     """The FFN's output and its aux loss (None but for MoE)."""
     if blk.ffn == "dense":
         act = "gelu" if cfg.act == "gelu_plain" else cfg.act
         return mlp_apply(p, x, act), None
     if blk.ffn == "moe":
-        return moe.moe_apply(p, x, cfg)
+        if ctx is None:
+            return moe.moe_apply(p, x, cfg)
+        return moe.moe_apply(p, x, cfg, ctx.mesh, ctx.dp_axes, ctx.tp_axis,
+                             zero1=ctx.zero1)
     raise ValueError(blk.ffn)
 
 
@@ -248,7 +270,8 @@ def _direct(fn, q, x):
     return fn(q, x)
 
 
-def _finish_block(p, x, h, blk: BlockSpec, cfg: ModelConfig, half=_direct):
+def _finish_block(p, x, h, blk: BlockSpec, cfg: ModelConfig, half=_direct,
+                  ctx: Optional[ShardCtx] = None):
     """The residual add of the mixer output ``h``, then the FFN sub-block
     (prefill and decode alike), run through ``half`` (see
     ``_block_apply``).  Returns (x, the FFN's aux loss or None)."""
@@ -258,7 +281,8 @@ def _finish_block(p, x, h, blk: BlockSpec, cfg: ModelConfig, half=_direct):
     aux = None
     if blk.ffn != "none":
         def ffn(q, x_):
-            return _ffn_apply(q["ffn"], _norm_apply(q["norm2"], x_, cfg), blk, cfg)
+            return _ffn_apply(q["ffn"], _norm_apply(q["norm2"], x_, cfg), blk, cfg,
+                              ctx)
 
         h, aux = half(ffn, {"norm2": p["norm2"], "ffn": p["ffn"]}, x)
         if cfg.post_block_norm:
@@ -268,7 +292,8 @@ def _finish_block(p, x, h, blk: BlockSpec, cfg: ModelConfig, half=_direct):
 
 
 def _block_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
-                 collect_cache: bool = False, cache_len=None, half=_direct):
+                 collect_cache: bool = False, cache_len=None, half=_direct,
+                 ctx: Optional[ShardCtx] = None):
     """One block.  Its mixer half and its FFN half each run as
     ``half(fn, q, x)``, ``fn(q, x)`` over the half's own slice ``q`` of
     ``p``: directly, or checkpointed under "save_block_out"."""
@@ -277,7 +302,7 @@ def _block_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
                             cfg, collect_cache, cache_len)
 
     h, cache = half(mixer, {"norm1": p["norm1"], "mixer": p["mixer"]}, x)
-    x, aux = _finish_block(p, x, h, blk, cfg, half)
+    x, aux = _finish_block(p, x, h, blk, cfg, half, ctx)
     return x, aux, cache
 
 
@@ -300,6 +325,7 @@ def forward(
     *,
     remat: str = "none",
     dtype: Optional[torch.dtype] = None,
+    ctx: Optional[ShardCtx] = None,
 ):
     """Full-sequence forward.  Returns (hidden (B, T, D), aux loss) or,
     with ``collect_cache`` (prefill), (hidden, aux, cache tree).
@@ -311,7 +337,10 @@ def forward(
     in the backward pass, as the reference's ``shape.remat`` does; it acts
     only when autograd records (and never with ``collect_cache``).
     ``dtype`` casts f32 weights to the compute type where they are used
-    (:func:`cast_weights`); None computes in the weights' own types."""
+    (:func:`cast_weights`); None computes in the weights' own types.
+    ``ctx`` (a :class:`ShardCtx` with a mesh) runs the MoE layers expert-
+    parallel over it, forward only, with their parameters as
+    :func:`shard_moe_params` cuts them; None computes on one device."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat policy {remat!r} not in {REMAT_POLICIES}")
     if collect_cache or not torch.is_grad_enabled():
@@ -328,7 +357,7 @@ def forward(
     def block(p, blk):
         nonlocal x, aux
         x, a, c = _block_apply(cast_weights(p, dtype), x, blk, cfg,
-                               collect_cache, cache_len)
+                               collect_cache, cache_len, ctx=ctx)
         aux = add(aux, a)
         return c
 
@@ -342,9 +371,10 @@ def forward(
                 # the norms cast here; the halves cast their own weights
                 p = {k: v if k in ("mixer", "ffn") else cast_weights(v, dtype)
                      for k, v in p.items()}
-                x_, a, _ = _block_apply(p, x_, blk, cfg, half=_saving_halves(dtype))
+                x_, a, _ = _block_apply(p, x_, blk, cfg, half=_saving_halves(dtype),
+                                        ctx=ctx)
             else:
-                x_, a, _ = _block_apply(cast_weights(p, dtype), x_, blk, cfg)
+                x_, a, _ = _block_apply(cast_weights(p, dtype), x_, blk, cfg, ctx=ctx)
             aux_ = add(aux_, a)
         return x_, aux_
 
@@ -408,7 +438,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     }
 
 
-def _block_decode(p, x, cache, t: int, blk: BlockSpec, cfg: ModelConfig):
+def _block_decode(p, x, cache, t: int, blk: BlockSpec, cfg: ModelConfig,
+                  ctx: Optional[ShardCtx] = None):
     xn = _norm_apply(p["norm1"], x, cfg)
     if blk.mixer in ("attn", "local"):
         h, new_cache = attention.attn_decode(p["mixer"], xn, cache, t, cfg)
@@ -420,7 +451,7 @@ def _block_decode(p, x, cache, t: int, blk: BlockSpec, cfg: ModelConfig):
         h, new_cache = rglru.rglru_decode(p["mixer"], xn, cache, cfg)
     else:
         raise ValueError(blk.mixer)
-    return _finish_block(p, x, h, blk, cfg)[0], new_cache
+    return _finish_block(p, x, h, blk, cfg, ctx=ctx)[0], new_cache
 
 
 def decode_step(
@@ -429,24 +460,25 @@ def decode_step(
     tokens: torch.Tensor,  # (B, 1) current token ids
     cache: Dict[str, Any],
     t: int,  # position of `tokens`
+    ctx: Optional[ShardCtx] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token decode.  Returns (logits (B, V) fp32, the cache tree),
-    whose layers were updated in place."""
+    whose layers were updated in place.  ``ctx`` as for :func:`forward`."""
     x = _frontend(params, cfg, {"tokens": tokens})
 
     new_prelude = []
     for p, c, blk in zip(params["prelude"], cache["prelude"], cfg.prelude):
-        x, nc = _block_decode(p, x, c, t, blk, cfg)
+        x, nc = _block_decode(p, x, c, t, blk, cfg, ctx)
         new_prelude.append(nc)
 
     for i in range(cfg.n_periods):
         for j, blk in enumerate(cfg.pattern):
             x, _ = _block_decode(_period(params["body"][j], i), x,
-                                 _period(cache["body"][j], i), t, blk, cfg)
+                                 _period(cache["body"][j], i), t, blk, cfg, ctx)
 
     new_postlude = []
     for p, c, blk in zip(params["postlude"], cache["postlude"], cfg.postlude):
-        x, nc = _block_decode(p, x, c, t, blk, cfg)
+        x, nc = _block_decode(p, x, c, t, blk, cfg, ctx)
         new_postlude.append(nc)
 
     x = _norm_apply(params["final_norm"], x, cfg)

@@ -106,7 +106,9 @@ def test_device_histogram_matches_reference(rng, case):
 
 
 def test_device_histogram_refuses_several_gpus():
-    with pytest.raises(NotImplementedError):
+    """Several owners need a mesh (tests/test_torch_distributed.py runs
+    them across ranks): without one, ``ndev > 1`` names the argument."""
+    with pytest.raises(ValueError, match="mesh"):
         tds.device_histogram(np.zeros(4, np.int32), np.ones(4, np.int32), 2,
                              device=CPU)
 

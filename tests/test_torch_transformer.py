@@ -359,6 +359,76 @@ def test_recurrentgemma_window5_blocks_depart_only_in_rounding():
             x, caches[n] = jx, jc
 
 
+def test_recurrentgemma_decode_blocks_depart_only_in_rounding():
+    """``test_decode_matches_teacher_forced_forward[recurrentgemma-9b]``
+    block by block, on that test's own draw (the port alone, f32).  Each
+    block (the (R, R, L) periods and the postlude), given the forward's
+    input to it at every step, decodes the forward's output within 1e-5 of
+    its scale; and each block's forward over the decode's own inputs gives
+    the decode's outputs as closely.  So no block computes another
+    function: the whole model's departure at t = 2 is rounding (the
+    RG-LRU step against the scan's odd/even order, a few 1e-7 of scale)
+    that the first local-attention block amplifies most at that step."""
+    from repro_torch.models import transformer as tt
+    _, cfg = _cfgs("recurrentgemma-9b")
+    tp = init_params(model_defs(cfg), torch.Generator().manual_seed(1), "cpu",
+                     dtype=torch.float32)
+    T = 16
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, T)).astype(np.int32))
+    blocks = [(tt._period(tp["body"][j], i), blk)
+              for i in range(cfg.n_periods) for j, blk in enumerate(cfg.pattern)]
+    blocks += list(zip(tp["postlude"], cfg.postlude))
+    assert not cfg.prelude
+
+    def fresh_caches():
+        c = init_cache(cfg, 2, T, dtype=torch.float32, device="cpu")
+        return [tt._period(c["body"][j], i) for i in range(cfg.n_periods)
+                for j in range(len(cfg.pattern))] + c["postlude"]
+
+    def gap(got, want) -> float:
+        return float((got - want).abs().max() / want.abs().max())
+
+    with torch.no_grad():
+        # the forward, block by block
+        x = tt._frontend(tp, cfg, {"tokens": tokens})
+        f_in, f_out = [], []
+        for p, blk in blocks:
+            f_in.append(x)
+            x, _, _ = tt._block_apply(p, x, blk, cfg)
+            f_out.append(x)
+        # each block decoding the forward's own inputs
+        caches = fresh_caches()
+        for t in range(T):
+            for n, (p, blk) in enumerate(blocks):
+                y, caches[n] = tt._block_decode(p, f_in[n][:, t:t + 1], caches[n], t,
+                                                blk, cfg)
+                assert gap(y[:, 0], f_out[n][:, t]) < 1e-5, (n, blk.mixer, t)
+        # the decode chain, and each block's forward over its inputs
+        caches = fresh_caches()
+        d_in = [[] for _ in blocks]
+        d_out = [[] for _ in blocks]
+        for t in range(T):
+            x = tt._frontend(tp, cfg, {"tokens": tokens[:, t:t + 1]})
+            for n, (p, blk) in enumerate(blocks):
+                d_in[n].append(x)
+                x, caches[n] = tt._block_decode(p, x, caches[n], t, blk, cfg)
+                d_out[n].append(x)
+        d_in = [torch.cat(v, 1) for v in d_in]
+        d_out = [torch.cat(v, 1) for v in d_out]
+        for n, (p, blk) in enumerate(blocks):
+            y, _, _ = tt._block_apply(p, d_in[n], blk, cfg)
+            assert gap(y, d_out[n]) < 1e-5, (n, blk.mixer)
+    # where it departs at t = 2: the gain of each block along the chain
+    t = 2
+    gains = [gap(d_out[n][:, t], f_out[n][:, t])
+             / max(gap(d_in[n][:, t], f_in[n][:, t]), 1e-30)
+             for n in range(1, len(blocks))]
+    first_local = [blk.mixer for _, blk in blocks].index("local")
+    assert gap(d_in[first_local][:, t], f_in[first_local][:, t]) < 1e-6
+    assert 1 + int(np.argmax(gains)) == first_local and max(gains) > 5, gains
+
+
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "deepseek-v2-lite-16b",
                                   "dbrx-132b"])
 def test_decode_matches_teacher_forced_forward(arch):
