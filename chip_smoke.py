@@ -236,7 +236,16 @@ another sm_90a card).  It builds the port's CUDA kernels from
    in f32 (2e-4 abs and rel, the reference's own limit) and in bf16
    (relative L2 2e-2 against the dense path in f32); the process group
    is gone afterwards.  No time across cards is measured;
-18. prints a ``kernels`` JSON line: each kernel's launches on its path
+18. the sharded train step at world size 1 (``phase_sharded_train``): NCCL,
+   a (1, 1) mesh, qwen2.5-3b at full width cut to 4 layers, 3 steps of 2
+   sequences of 4096 in 2 microbatches, bf16, remat "full":
+   ``make_train_step(mesh=...)`` with ``zero1`` off and on and with
+   ``compress_grads``, each against ``mesh=None`` from the same drawn
+   parameters and batches: losses and grad norms within 1e-6 relative,
+   the parameters within 1e-6 relative L2, whether they are bit-equal,
+   the flash forward and backward launches a step equal to the
+   one-process step's, each run's peak memory and seconds; at most 40 s;
+19. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
@@ -3580,7 +3589,7 @@ def dbrx_path_shapes(dev, seed: int, cfg, prompt_len: int, steps: int) -> tuple:
     return flash, decode
 
 
-# -- phase 17: sharding over torch.distributed at world size 1 -----------------
+# -- phases 17-18: sharding over torch.distributed at world size 1 ------------
 
 DIST_TOKENS = 1 << 24  # device_histogram through a mesh, Zipf(1.1) keys
 DIST_VOCAB = 32000
@@ -3694,6 +3703,139 @@ def phase_distributed(dev, seed: int, card: str) -> dict:
     free_card()
     out["s"] = time.perf_counter() - t0
     emit("dist_done", s=out["s"], group_left=False)
+    print(card, flush=True)
+    print("no multi-GPU time measured", flush=True)
+    return out
+
+
+SHARD_LAYERS = 4  # qwen2.5-3b at full width, its 36 layers cut to 4
+SHARD_BATCH = 2  # sequences of TRAIN_SEQ, in SHARD_MICROBATCHES
+SHARD_MICROBATCHES = 2
+SHARD_STEPS = 3
+SHARD_TOL = 1e-6  # relative: losses, grad norms, the parameters' L2
+SHARD_LIMIT_S = 40.0  # the phase's own time limit
+
+
+def phase_sharded_train(dev, seed: int, card: str) -> dict:
+    """Phase 18, the sharded train step at world size 1: NCCL through a
+    file rendezvous, a (1, 1) mesh over ("data", "model"), qwen2.5-3b at
+    full width cut to SHARD_LAYERS layers, SHARD_STEPS steps of
+    SHARD_BATCH sequences of TRAIN_SEQ in SHARD_MICROBATCHES, remat
+    "full", bf16 compute.  ``make_train_step(mesh=...)`` with ``zero1``
+    off and on, and with ``compress_grads``, each from the same drawn
+    parameters and batches as ``mesh=None`` (with compression for the
+    compressed run): losses and grad norms within SHARD_TOL relative,
+    the final parameters within SHARD_TOL relative L2 (whole tree), and
+    whether they are the same bits; the flash forward and backward
+    launches a step equal to the one-process step's, inside
+    :class:`_NoPlain`.  Prints each run's peak memory and seconds.  The
+    group is destroyed on the way out, also on failure.  One card: no
+    time across cards is measured."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, make_batch
+    from repro_torch.launch import make_mesh_compat, make_train_step, process_group
+    from repro_torch.models import ShapeConfig
+    from repro_torch.optim import AdamWConfig, adamw_init, ef_init
+    from repro_torch.parallel.sharding import param_pspecs, shard_tree, unshard_tree
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    cfg = replace(get_config(TRAIN_MODEL), n_periods=SHARD_LAYERS)
+    params0 = _draw_train_params(cfg, seed, dev)
+    shape = ShapeConfig(name="train_4k_sharded", kind="train", seq_len=TRAIN_SEQ,
+                        global_batch=SHARD_BATCH, microbatches=SHARD_MICROBATCHES,
+                        q_chunk=512, kv_chunk=1024, loss_chunk=512, remat="full")
+    pipe = PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=SHARD_BATCH)
+    batches = [make_batch(pipe, s) for s in range(SHARD_STEPS)]
+    (fwd, bwd), names = _kernel_pair(cfg)
+    body, rest = _path_layers(cfg)
+    want_launches = ((2 * body + rest) * SHARD_MICROBATCHES,
+                     (body + rest) * SHARD_MICROBATCHES)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, weight_decay=0.0)
+
+    def run(mesh, zero1: bool, compress: bool):
+        params = tree_map(torch.clone, params0)
+        specs = None
+        if mesh is not None:
+            specs = param_pspecs(cfg, mesh)
+            params = shard_tree(params, specs, mesh)
+        opt = adamw_init(params)
+        ef = ef_init(params) if compress else None
+        fn = make_train_step(cfg, shape, opt_cfg, compress_grads=compress, device=dev,
+                             mesh=mesh, zero1=zero1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, per_step = [], [], []
+        t = time.perf_counter()
+        for step in range(SHARD_STEPS):
+            before = (fwd.launches, bwd.launches)
+            out = fn(params, opt, batches[step], *((ef,) if compress else ()))
+            params, opt, m = out[:3]
+            ef = out[3] if compress else None
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            per_step.append((fwd.launches - before[0], bwd.launches - before[1]))
+        row = {"mesh": None if mesh is None else [1, 1], "zero1": zero1,
+               "compress_grads": compress, "losses": losses, "grad_norms": norms,
+               f"{names[0]}_launches_per_step": [n for n, _ in per_step],
+               f"{names[1]}_launches_per_step": [n for _, n in per_step],
+               "steps_s": time.perf_counter() - t,
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del opt, ef, out, m
+        if mesh is not None:
+            params = unshard_tree(params, specs, mesh)
+        check(all(p == want_launches for p in per_step),
+              f"sharded step {row['mesh']}: launches a step {per_step}, want "
+              f"{want_launches}")
+        return row, params
+
+    out = {"model": cfg.name, "layers": cfg.n_layers, "seq": TRAIN_SEQ,
+           "batch": SHARD_BATCH, "microbatches": SHARD_MICROBATCHES,
+           "steps": SHARD_STEPS, "dtype": "bfloat16", "tol": SHARD_TOL, "runs": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as workdir:
+        with process_group(0, 1, os.path.join(workdir, "rdzv")), _NoPlain():
+            mesh = make_mesh_compat((1, 1), ("data", "model"))
+            fwd.launches = bwd.launches = 0  # the sharded step's path starts here
+            base = {False: run(None, False, False), True: run(None, False, True)}
+            for zero1, compress in ((False, False), (True, False), (False, True)):
+                row, params = run(mesh, zero1, compress)
+                want, want_params = base[compress]
+                got_p, want_p = tree_leaves(params), tree_leaves(want_params)
+                diff = math.sqrt(sum(float((a.double() - b.double()).square().sum())
+                                     for a, b in zip(got_p, want_p)))
+                norm = math.sqrt(sum(float(b.double().square().sum()) for b in want_p))
+                row.update(
+                    loss_rel=max(abs(a - b) / abs(b)
+                                 for a, b in zip(row["losses"], want["losses"])),
+                    grad_norm_rel=max(abs(a - b) / abs(b) for a, b in
+                                      zip(row["grad_norms"], want["grad_norms"])),
+                    params_rel_l2=diff / norm,
+                    bit_equal=(row["losses"] == want["losses"]
+                               and row["grad_norms"] == want["grad_norms"]
+                               and all(torch.equal(a, b) for a, b in zip(got_p, want_p))),
+                    one_process=want)
+                del params, got_p, want_p
+                emit("sharded_train_run", **row)
+                check(all(math.isfinite(x) for x in row["losses"] + row["grad_norms"])
+                      and row["loss_rel"] <= SHARD_TOL
+                      and row["grad_norm_rel"] <= SHARD_TOL
+                      and row["params_rel_l2"] <= SHARD_TOL,
+                      f"sharded step (zero1={zero1}, compress={compress}) departs "
+                      f"from the one-process step: loss {row['loss_rel']}, grad norm "
+                      f"{row['grad_norm_rel']}, parameters {row['params_rel_l2']}")
+                out["runs"].append(row)
+            out["launches"] = {names[0]: fwd.launches, names[1]: bwd.launches}
+            del base, mesh
+        check(not dist.is_initialized(), "a process group outlived the phase")
+    del params0
+    free_card()
+    out["s"] = time.perf_counter() - t0
+    emit("sharded_train", card=card, **{k: v for k, v in out.items() if k != "runs"},
+         bit_equal=[r["bit_equal"] for r in out["runs"]])
+    check(out["s"] <= SHARD_LIMIT_S, f"phase 18 took {out['s']} s, over its "
+          f"{SHARD_LIMIT_S} s")
     print(card, flush=True)
     print("no multi-GPU time measured", flush=True)
     return out
@@ -4009,6 +4151,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_distributed(dev, args.seed, card)
     emit("phase_done", name="distributed", s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_sharded_train(dev, args.seed, card)
+    emit("phase_done", name="sharded_train", s=time.perf_counter() - t0)
 
     def path_row(m, launches):
         return {"shape": m["shape"], "launches": launches, "ms": m["kernel_ms"],

@@ -1,40 +1,67 @@
 """Step factories: the train step (f32 masters, bf16 compute, microbatched
-gradient accumulation, optional int8 gradient compression, AdamW), and
-the prefill and decode steps.
+gradient accumulation, optional int8 gradient compression, AdamW), on one
+card or sharded over a mesh, and the prefill and decode steps.
 
-The port of ``repro/launch/steps.py`` for one card.  The reference's
-factories return a ``StepBundle`` (the step, its shardings and argument
-stand-ins for the dry-run); here each returns the step itself, a plain
-callable on one device, with no shardings.  For the train step the
-reference builds a jitted, sharded step and casts the whole f32 tree to
-bf16 once per step; here the step runs eagerly, and the weights are cast
-inside each checkpointed layer period (``models.transformer.forward``'s
-``dtype``), so no bf16 copy of the tree stays resident: at qwen2.5-3b's
-full width the f32 masters, the two moments and the f32 gradients take
-54 GB of the card's 80.  Each microbatch's ``backward()`` accumulates its
-gradients into one f32 buffer, which is divided by the number of
-microbatches, optionally compressed, and handed to AdamW, which updates
-the masters and moments in place.  There is no mesh and no sharding (no
-``zero1``).  ``make_prefill_step`` and ``make_decode_step`` are the
-reference's serving steps (the serve launcher's prefill and greedy
-decode), and ``make_step`` picks one by ``shape.kind``.  ``make_ctx`` builds the
-layers' mesh context; the step factories stay unsharded.
+The port of ``repro/launch/steps.py``.  The reference's factories return
+a ``StepBundle`` (the step, its shardings and argument stand-ins for the
+dry-run, partitioned by GSPMD); here each returns the step itself, a
+plain callable that runs eagerly.  The reference casts the whole f32 tree
+to bf16 once per step; here the weights are cast inside each checkpointed
+layer period (``models.transformer.forward``'s ``dtype``), so no bf16
+copy of the tree stays resident: at qwen2.5-3b's full width the f32
+masters, the two moments and the f32 gradients take 54 GB of the card's
+80.  Each microbatch's ``backward()`` accumulates its gradients into one
+f32 buffer, which is divided by the number of microbatches, optionally
+compressed, and handed to AdamW, which updates the masters and moments in
+place.
+
+With ``mesh`` (a ``DeviceMesh`` over ``torch.distributed``, one process
+per rank) the train step is the reference's FSDP×TP step, with its
+collectives written out: every rank holds its own shard of every leaf
+(``parallel.sharding.param_pspecs``: FSDP over "data", TP over "model"),
+and so do the moments, the gradients and the error-feedback residual.
+Inside each period a leaf's bf16 weight is gathered over "data"
+(``models.transformer.Shard``; again in remat's recompute), and its f32
+gradient reduce-scattered back in the backward pass; with ``zero1`` the
+weights are gathered once a step, in the TP-only layout, and each
+microbatch's gradient still reduce-scatters to the FSDP layout.
+Attention, the dense MLP and the loss run tensor-parallel over "model".
+Microbatch rows split over the data axes (replicated where they do not
+divide), the loss of a rank's rows is its CE sum over the microbatch's
+global count of valid tokens, and the gradients of leaves replicated
+over the data axes are all-reduced over them, of FSDP leaves over "pod".
+Both run one step body: without a mesh its layout (``_Layout``) takes
+every row, keeps the leaves whole and reduces nothing, and an axis of
+one rank is skipped the same way, so a (1, 1) mesh computes as one card.
+TP inside the SSM, RG-LRU and MLA mixers, MoE on data axes of more than
+one rank, the expert-parallel backward and the prefill and decode steps
+on a mesh wait for ROADMAP A11c and are refused.
+
+``make_prefill_step`` and ``make_decode_step`` are the reference's
+serving steps (the serve launcher's prefill and greedy decode), and
+``make_step`` picks one by ``shape.kind``.  ``make_ctx`` builds the
+layers' mesh context.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import ModelConfig, ShapeConfig, decode_step, forward, logits_fn
+from repro_torch.models import attention, moe
 from repro_torch.models.ctx import ShardCtx
 from repro_torch.models.layers import chunked_ce_loss
 from repro_torch.models.param import default_device
-from repro_torch.models.transformer import Periods, cast_weights
+from repro_torch.models.transformer import Periods, Shard, cast_weights
 from repro_torch.optim.adamw import AdamWConfig, OptState, adamw_update
 from repro_torch.optim.compression import EFState, compress_decompress
-from repro_torch.parallel.sharding import mesh_axes
+from repro_torch.parallel.collectives import LeafReducer, all_gather
+from repro_torch.parallel.sharding import (
+    _map_specs, mesh_axes, mesh_shape, param_pspecs, spec_axes, spec_leaves)
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step", "make_step",
@@ -83,6 +110,8 @@ def make_train_step(
     aux_coef: float = 0.01,
     compress_grads: bool = False,
     device: Any = None,
+    mesh=None,
+    zero1: bool = False,
 ) -> Callable:
     """A step ``(params, opt_state, batch[, ef]) -> (params, opt_state,
     metrics[, ef])`` over f32 ``params`` on ``device`` (default: the
@@ -92,43 +121,55 @@ def make_train_step(
     mean CE loss over the microbatches, ``tokens`` counted, the gradient
     norm before clipping, the new ``step``, and with compression the mean
     quantization error; all 0-dim tensors on the device (reading one
-    synchronizes)."""
+    synchronizes).
+
+    With ``mesh`` the step is sharded (module docstring): ``params``,
+    ``opt_state``'s moments and ``ef`` hold this rank's shards by
+    ``param_pspecs(cfg, mesh)`` (``parallel.sharding.shard_tree`` cuts
+    them), ``batch`` is the whole batch on every rank, and ``metrics``
+    are global, the same on every rank.  ``zero1`` gathers the weights
+    once a step instead of in every period."""
     device = default_device(device)
     n_mb = shape.microbatches
     B = shape.global_batch
     if B % n_mb:
         raise ValueError(f"global batch {B} does not split into {n_mb} microbatches")
+    if zero1 and mesh is None:
+        raise ValueError("zero1 shards the optimizer state: it needs a mesh")
+    lay = _Layout(cfg, B // n_mb, mesh, zero1)
 
     def train_step(params: Dict[str, Any], opt_state: OptState,
                    batch: Dict[str, Any], ef_state: Optional[EFState] = None):
         grads = tree_map(
             lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
             params)
-        leaves = autograd_leaves(params, grads)
+        leaves = lay.shards(params, autograd_leaves(params, grads))
         mbs = {k: _to_device(v, device).chunk(n_mb) for k, v in batch.items()}
         losses, counts = [], []
         for i in range(n_mb):
-            inputs = {k: v[i] for k, v in mbs.items() if k != "labels"}
+            labels = mbs["labels"][i]
+            inputs = {k: v[i][lay.rows] for k, v in mbs.items() if k != "labels"}
             h, aux = forward(leaves, cfg, inputs, remat=shape.remat,
-                             dtype=COMPUTE_DTYPE)
+                             dtype=COMPUTE_DTYPE, ctx=lay.ctx)
+            unembed = cast_weights(leaves["unembed"], COMPUTE_DTYPE)
             loss, n = chunked_ce_loss(
-                h, cast_weights(leaves["unembed"], COMPUTE_DTYPE),
-                mbs["labels"][i], t_chunk=shape.loss_chunk,
-                logit_softcap=cfg.final_softcap)
+                h, unembed, labels[lay.rows], t_chunk=shape.loss_chunk,
+                logit_softcap=cfg.final_softcap, tp_group=lay.tp_group(unembed),
+                n_total=lay.n_total(labels))
             (loss + aux_coef * aux).backward()
             losses.append(loss.detach())
             counts.append(n)
-            del h, aux, loss
+            del h, aux, loss, unembed
         del leaves
-        for g in tree_leaves(grads):
-            g.div_(n_mb)
+        lay.reduce_grads(grads, n_mb)
         metrics: Dict[str, torch.Tensor] = {}
         new_ef = ef_state
         if compress_grads and ef_state is not None:
-            grads, new_ef, qerr = compress_decompress(grads, ef_state)
+            grads, new_ef, qerr = compress_decompress(grads, ef_state, lay.across)
             metrics["compression_err"] = qerr
-        params, opt_state, gnorm = adamw_update(params, grads, opt_state, opt_cfg)
-        metrics.update(loss=torch.stack(losses).mean(),
+        params, opt_state, gnorm = adamw_update(params, grads, opt_state, opt_cfg,
+                                                across=lay.across)
+        metrics.update(loss=lay.loss_sum(torch.stack(losses)).mean(),
                        tokens=torch.stack(counts).sum(), grad_norm=gnorm,
                        step=opt_state.step)
         out = (params, opt_state, metrics)
@@ -137,14 +178,160 @@ def make_train_step(
     return train_step
 
 
+def _refuse_on_mesh(cfg: ModelConfig, ctx: ShardCtx) -> None:
+    """The layers the sharded step does not cut yet (ROADMAP A11c)."""
+    blocks = (*cfg.prelude, *cfg.pattern, *cfg.postlude)
+    if any(b.ffn == "moe" for b in blocks):
+        if ctx.dp_size() > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE on data axes of {ctx.dp_size()} ranks waits for "
+                "ROADMAP A11c (capacity, queue positions and the balance loss "
+                "over the whole microbatch, not each rank's rows)")
+        if moe._expert_parallel(ctx.mesh, ctx.tp_axis, cfg.moe.n_experts):
+            raise NotImplementedError(
+                f"{cfg.name}: the expert-parallel MoE backward waits for "
+                "ROADMAP A11c")
+    mixers = sorted({b.mixer for b in blocks} & {"ssm", "rglru", "mla"})
+    if mixers and ctx.tp_size() > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism inside the {'/'.join(mixers)} "
+            f"mixer waits for ROADMAP A11c (model axis of {ctx.tp_size()})")
+
+
+def _fsdp_dim(spec, axis: Optional[str]) -> Optional[int]:
+    """The dim ``spec`` shards over the FSDP ``axis``, or None."""
+    for d, e in enumerate(spec):
+        if axis is not None and axis in (e if isinstance(e, tuple) else (e,)):
+            return d
+    return None
+
+
+def _tp_partial_flags(cfg: ModelConfig, specs: Dict[str, Any], tp: int):
+    """``specs``' tree with True at the leaves each TP rank uses only in
+    part (:func:`models.attention.tp_partial`), False elsewhere."""
+    names = attention.tp_partial(cfg, tp)
+    flags = _map_specs(lambda s: False, specs)
+    for part, blocks in (("prelude", cfg.prelude), ("body", cfg.pattern),
+                         ("postlude", cfg.postlude)):
+        for tree, blk in zip(flags[part], blocks):
+            if blk.mixer in ("attn", "local"):
+                for n in names:
+                    tree["mixer"][n] = True
+    return flags
+
+
+class _Layout:
+    """Where the train step's work lies on ``mesh``: this rank's rows of a
+    microbatch, its FSDP leaves, the axes each gradient is summed over.
+    Without a mesh every rule is the one-card step's: all rows, whole
+    leaves, nothing reduced.  An axis of one rank costs nothing: a block
+    over it is the whole leaf, so its leaves stay plain tensors."""
+
+    def __init__(self, cfg: ModelConfig, rows_per_mb: int, mesh, zero1: bool):
+        self.mesh, self.zero1 = mesh, zero1
+        self.rows, self.replicas = slice(None), 1
+        self.ctx = self.across = self.fsdp_axis = self.fsdp_group = None
+        self.specs, self.axes, self.loss_axes = None, None, ()
+        if mesh is None:
+            return
+        self.cfg = cfg
+        self.ctx = dataclasses.replace(make_ctx(mesh), zero1=zero1)
+        _refuse_on_mesh(cfg, self.ctx)
+        sizes = mesh_shape(mesh)
+        dp_axes = tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
+        dp = self.ctx.dp_size()
+        if rows_per_mb % dp:  # every data rank runs the whole microbatch
+            self.replicas = dp
+        elif dp > 1:  # each data rank its own rows, in (pod, data) order
+            row0 = 0
+            for a in dp_axes:
+                row0 = row0 * sizes[a] + mesh.get_local_rank(a)
+            n = rows_per_mb // dp
+            self.rows, self.loss_axes = slice(row0 * n, (row0 + 1) * n), dp_axes
+        _, fsdp, _ = mesh_axes(mesh)
+        if fsdp is not None and sizes[fsdp] > 1:
+            self.fsdp_axis, self.fsdp_group = fsdp, mesh.get_group(fsdp)
+        self.specs = param_pspecs(cfg, mesh)
+        spec_list = spec_leaves(self.specs)
+        partial = tree_leaves(_tp_partial_flags(cfg, self.specs, self.ctx.tp_size()))
+        tp = ("model",) if sizes.get("model", 1) > 1 else ()
+        # FSDP leaves were reduce-scattered over the FSDP axis in backward;
+        # a leaf each TP rank used in part sums over TP too
+        self.axes = [tuple(a for a in dp_axes if _fsdp_dim(sp, self.fsdp_axis) is None
+                           or a != self.fsdp_axis) + (tp if pt else ())
+                     for sp, pt in zip(spec_list, partial)]
+        self.across = LeafReducer(mesh, [spec_axes(sp) for sp in spec_list])
+
+    def shards(self, params: Dict[str, Any], leaves: Dict[str, Any]) -> Dict[str, Any]:
+        """``leaves`` (:func:`autograd_leaves` of ``params``) with each FSDP
+        leaf a :class:`Shard`; with ``zero1`` its bf16 weight is gathered
+        here, once a step, in the TP-only layout."""
+        if self.fsdp_axis is None:
+            return leaves
+        group = self.fsdp_group
+
+        def wrap(k):
+            def fn(p, v, spec):
+                d = _fsdp_dim(spec, self.fsdp_axis)
+                if d is None:
+                    return v
+                full = None
+                if self.zero1:
+                    with torch.no_grad():
+                        full = all_gather(p.to(COMPUTE_DTYPE), group, d)
+                if k != "body":
+                    return Shard(v, d, group, full)
+                return Periods(Shard(x, d - 1, group, None if full is None else full[i])
+                               for i, x in enumerate(v))
+            return fn
+
+        return {k: tree_map(wrap(k), params[k], leaves[k], self.specs[k])
+                for k in params}
+
+    def tp_group(self, unembed: torch.Tensor):
+        """The loss's TP group: vocab-parallel where ``unembed`` is cut."""
+        if self.ctx is None:
+            return None
+        return self.ctx.tp_group(unembed.shape[-1], self.cfg.vocab)
+
+    def n_total(self, labels: torch.Tensor) -> Optional[torch.Tensor]:
+        """The microbatch's valid tokens over every rank (None: the loss
+        counts its own, which are all of them)."""
+        if self.mesh is None:
+            return None
+        return torch.clamp((labels >= 0).sum(), min=1)
+
+    def reduce_grads(self, grads: Dict[str, Any], n_mb: int) -> None:
+        """Sum each accumulated gradient over the axes its backward did not,
+        then average it over the microbatches (and over the data ranks that
+        all ran the same rows), in place."""
+        flat = tree_leaves(grads)
+        for g, axes in zip(flat, self.axes or [()] * len(flat)):
+            for a in axes:
+                dist.all_reduce(g, group=self.mesh.get_group(a))
+            g.div_(n_mb * self.replicas)
+
+    def loss_sum(self, losses: torch.Tensor) -> torch.Tensor:
+        """Each microbatch's loss over the ranks that split its rows."""
+        for a in self.loss_axes:
+            dist.all_reduce(losses, group=self.mesh.get_group(a))
+        return losses
+
+
+def _refuse_mesh(mesh, what: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"the {what} step on a mesh waits for ROADMAP A11c")
+
+
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
-                      cache_len: Optional[int] = None) -> Callable:
+                      cache_len: Optional[int] = None, mesh=None) -> Callable:
     """The prefill step ``(params, batch) -> (logits, caches)``: the
     softcapped f32 logits of each sequence's last token, ``(B, V)``, and
     the cache tree of ``forward(collect_cache=True)``, ``cache_len`` rows
     long (default: the prompt's; more leaves decode headroom).  It runs
     where ``params`` and the batch's ``tokens`` lie, in the weights' own
-    type."""
+    type.  A ``mesh`` is refused (ROADMAP A11c)."""
+    _refuse_mesh(mesh, "prefill")
 
     def prefill_step(params: Dict[str, Any], batch: Dict[str, Any]):
         h, _aux, caches = forward(params, cfg, batch, collect_cache=True,
@@ -154,11 +341,12 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, shape: ShapeConfig) -> Callable:
+def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> Callable:
     """The greedy decode step ``(params, tokens (B, 1), cache, t) ->
     (next tokens (B, 1) int32, cache)``: one ``decode_step`` at position
     ``t`` (the cache's layers are written in place) and the argmax of its
-    logits."""
+    logits.  A ``mesh`` is refused (ROADMAP A11c)."""
+    _refuse_mesh(mesh, "decode")
 
     def serve_step(params: Dict[str, Any], tokens: torch.Tensor,
                    cache: Dict[str, Any], t: int):
@@ -169,7 +357,8 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeConfig) -> Callable:
 
 
 def make_step(cfg: ModelConfig, shape: ShapeConfig, **kw) -> Callable:
-    """The step of ``shape.kind``: "train", "prefill", or else decode."""
+    """The step of ``shape.kind``: "train", "prefill", or else decode
+    (``mesh`` and the other keywords passed through)."""
     if shape.kind == "train":
         return make_train_step(cfg, shape, **kw)
     if shape.kind == "prefill":

@@ -63,6 +63,18 @@ class ShardCtx:
         """This rank's coordinate along ``axis``."""
         return self.mesh.get_local_rank(axis)
 
+    def tp_group(self, local: int, whole: int):
+        """The TP process group when a weight dim the model sizes ``whole``
+        arrives cut to ``local`` (the sharded train step hands the layers
+        their TP shards), else None (one card, or whole weights as the
+        forward-only expert-parallel paths take them)."""
+        if self.tp_size() == 1 or local == whole:
+            return None
+        if local * self.tp_size() != whole:
+            raise ValueError(f"a dim of {whole} arrived as {local} on TP "
+                             f"{self.tp_size()}")
+        return self.group(self.tp_axis)
+
 
 def constrain(x: torch.Tensor, ctx: Optional[ShardCtx], *entries) -> torch.Tensor:
     """Pin ``x`` to a layout given per-dim entries:

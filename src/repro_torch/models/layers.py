@@ -8,7 +8,9 @@ computes attention with XLA twins of its Pallas kernels
 the hand-written kernels through :mod:`repro_torch.kernels.ops`, which take
 the plain PyTorch versions only for tensors on the CPU.  Norms, RoPE and
 the MLP are plain torch ops, as the reference leaves them to XLA; so is
-the training loss, :func:`chunked_ce_loss`.
+the training loss, :func:`chunked_ce_loss`.  Given a TP process group,
+the MLP runs column-parallel over ``d_ff`` and row-parallel back, and the
+loss vocab-parallel over ``unembed``'s TP shard (the sharded train step).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.param import FSDP, TP, ParamDef
+from repro_torch.parallel.collectives import all_reduce, copy_to_tp, reduce_from_tp
 
 __all__ = [
     "rms_norm",
@@ -155,53 +158,81 @@ _ACTS = {
 
 
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
-              act: str = "silu") -> torch.Tensor:
+              act: str = "silu", tp_group=None) -> torch.Tensor:
+    """The MLP; with ``tp_group`` the weights are this rank's TP shards
+    over ``d_ff`` (column- then row-parallel, one all-reduce)."""
     act_fn = _ACTS[act]
+    if tp_group is not None:
+        x = copy_to_tp(x, tp_group)
     if "wi_gate" in p:
         h = act_fn(x @ p["wi_gate"]) * (x @ p["wi_up"])
     else:
         h = act_fn(x @ p["wi"])
-    return h @ p["wo"]
+    out = h @ p["wo"]
+    return out if tp_group is None else reduce_from_tp(out, tp_group)
 
 
 # -- loss ---------------------------------------------------------------
 
 def _chunk_ce(xb: torch.Tensor, unembed: torch.Tensor, lb: torch.Tensor,
-              logit_softcap: Optional[float]):
-    """Summed CE and valid count of one T-chunk."""
+              logit_softcap: Optional[float], tp_group=None):
+    """Summed CE and valid count of one T-chunk.  With ``tp_group``,
+    ``unembed`` is this rank's block of the vocab: the max and the sum of
+    the exponentials are taken over the group, and the target's logit
+    comes from the rank that holds it."""
     logits = softcap((xb @ unembed).float(), logit_softcap)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, lb.clamp(min=0).long()[..., None],
-                              dim=-1)[..., 0]
     valid = lb >= 0
+    if tp_group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.take_along_dim(logits, lb.clamp(min=0).long()[..., None],
+                                  dim=-1)[..., 0]
+        return torch.where(valid, lse - ll, 0.0).sum(), valid.sum()
+    Vl = logits.shape[-1]
+    local = lb.long() - torch.distributed.get_rank(tp_group) * Vl
+    mine = valid & (local >= 0) & (local < Vl)
+    m = all_reduce(logits.detach().amax(dim=-1), tp_group, "max")
+    lse = m + torch.log(reduce_from_tp(torch.exp(logits - m[..., None]).sum(dim=-1),
+                                       tp_group))
+    ll = torch.take_along_dim(logits, local.clamp(0, Vl - 1)[..., None],
+                              dim=-1)[..., 0]
+    ll = reduce_from_tp(torch.where(mine, ll, 0.0), tp_group)
     return torch.where(valid, lse - ll, 0.0).sum(), valid.sum()
 
 
 def chunked_ce_loss(
     x: torch.Tensor,  # (B, T, D) final hidden states
-    unembed: torch.Tensor,  # (D, V)
+    unembed: torch.Tensor,  # (D, V), or this rank's (D, V / tp) with tp_group
     labels: torch.Tensor,  # (B, T) int; -100 = ignore
     *,
     t_chunk: int = 512,
     logit_softcap: Optional[float] = None,
+    tp_group=None,
+    n_total: Optional[torch.Tensor] = None,
 ):
     """Mean CE over valid tokens, computed in T-chunks so the (.., V)
     logits tensor never exists at full sequence length.  Returns
     ``(loss, n_valid)``.  Under autograd each chunk is checkpointed, so
-    the backward pass too holds one chunk's logits at a time."""
+    the backward pass too holds one chunk's logits at a time (a chunk's
+    collectives run again in its recompute, in the same order on every
+    rank).  ``tp_group``: vocab-parallel over ``unembed``'s TP shard.
+    ``n_total``: divide the sum by this count instead of the valid
+    tokens of ``labels`` (a rank's rows of a microbatch whose mean is
+    over every rank's)."""
     B, T, _ = x.shape
     t_chunk = min(t_chunk, T)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.int64, device=x.device)
     grad = torch.is_grad_enabled() and (x.requires_grad or unembed.requires_grad)
+    if tp_group is not None:
+        x = copy_to_tp(x, tp_group)
     for t0 in range(0, T, t_chunk):
         xb, lb = x[:, t0:t0 + t_chunk], labels[:, t0:t0 + t_chunk]
         if grad:
-            s, n = checkpoint(_chunk_ce, xb, unembed, lb, logit_softcap,
+            s, n = checkpoint(_chunk_ce, xb, unembed, lb, logit_softcap, tp_group,
                               use_reentrant=False)
         else:
-            s, n = _chunk_ce(xb, unembed, lb, logit_softcap)
+            s, n = _chunk_ce(xb, unembed, lb, logit_softcap, tp_group)
         total = total + s
         count = count + n
-    n = torch.clamp(count, min=1)
+    n = torch.clamp(count, min=1) if n_total is None else n_total
     return total / n, n

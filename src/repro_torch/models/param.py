@@ -1,26 +1,45 @@
-"""Parameter definition trees: one source of truth for shape and init.
+"""Parameter definition trees: one source of truth for shape, sharding
+and init.
 
 A model is described by a tree (dicts and lists) of :class:`ParamDef`
-leaves; :func:`init_params` materializes it.  The reference package also
-derives sharding specs from the same tree; on one card there is nothing
-to shard, so ``spec`` is kept as plain data (the logical axis names
-``"tp"``/``"fsdp"``) and ignored.
+leaves.  From it come :func:`init_params` (materialized tensors) and
+:func:`param_specs` (the :class:`PartitionSpec` of every leaf on a mesh).
+
+Sharding axis conventions (DESIGN.md §4): ``tp`` is the tensor-parallel
+mesh axis ('model'), ``fsdp`` the fully-sharded-data-parallel axis
+('data').  Specs are written with these *logical* names and resolved
+against a concrete mesh's axis names and sizes, so one model def serves
+the one-card mesh, the 16×16 pod and the 2×16×16 multi-pod.  Everything
+here is pure: no process group is needed.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["ParamDef", "default_device", "init_params", "leaf_dtype",
-           "stack_defs", "tree_map_defs"]
+__all__ = ["ParamDef", "PartitionSpec", "default_device", "init_params",
+           "leaf_dtype", "param_specs", "resolve_spec", "stack_defs",
+           "tree_map_defs"]
 
-#: logical axis names used in ParamDef specs (kept for parity, unused)
+#: logical axis names used in ParamDef specs
 TP = "tp"
 FSDP = "fsdp"
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: a mesh axis name, a tuple of names, or
+    None (replicated): the reference's ``PartitionSpec`` entries letter
+    for letter."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
 
 
 def default_device(device: Any = None) -> torch.device:
@@ -34,7 +53,7 @@ class ParamDef:
     """Declarative parameter: shape + logical sharding + init."""
 
     shape: Tuple[int, ...]
-    #: logical spec: entries in {"tp", "fsdp", None, ...}; ignored on one card
+    #: logical spec: tuple with entries in {"tp", "fsdp", None, ("tp","fsdp"), ...}
     spec: Tuple[Any, ...] = ()
     dtype: torch.dtype = torch.bfloat16
     #: stddev of truncated-normal init; 0.0 -> zeros; None -> fan-in default
@@ -110,9 +129,77 @@ def init_params(
     return walk(defs)
 
 
+def resolve_spec(
+    logical: Tuple[Any, ...],
+    tp_axis: Optional[str],
+    fsdp_axis: Optional[Any],
+) -> PartitionSpec:
+    """Map a logical spec to a mesh :class:`PartitionSpec`.
+
+    ``fsdp_axis`` may be a string, a tuple of axes, or None (replicate).
+    """
+
+    def resolve_entry(e):
+        if e is None:
+            return None
+        if isinstance(e, tuple):
+            parts: list = []
+            for sub in e:
+                r = resolve_entry(sub)
+                if r is None:
+                    continue
+                if isinstance(r, tuple):
+                    parts.extend(r)
+                else:
+                    parts.append(r)
+            return tuple(parts) if parts else None
+        if e == TP:
+            return tp_axis
+        if e == FSDP:
+            return fsdp_axis
+        raise ValueError(f"unknown logical axis {e!r}")
+
+    return PartitionSpec(*(resolve_entry(e) for e in logical))
+
+
+def param_specs(
+    defs: Any,
+    tp_axis: Optional[str] = "model",
+    fsdp_axis: Optional[Any] = "data",
+    axis_sizes: Optional[Dict[str, int]] = None,
+) -> Any:
+    """The :class:`PartitionSpec` tree of ``defs`` resolved against
+    concrete mesh axis names.
+
+    With ``axis_sizes`` (mesh axis -> size), any entry whose dim does not
+    divide the axis product is dropped to replication (e.g. hubert's
+    504-entry vocab against TP 16)."""
+
+    def entry_size(e) -> int:
+        if e is None or axis_sizes is None:
+            return 1
+        if isinstance(e, tuple):
+            n = 1
+            for sub in e:
+                n *= entry_size(sub)
+            return n
+        return axis_sizes.get(e, 1)
+
+    def per_leaf(pd: ParamDef) -> PartitionSpec:
+        spec = resolve_spec(pd.spec, tp_axis, fsdp_axis)
+        if axis_sizes is None:
+            return spec
+        entries = list(spec) + [None] * (len(pd.shape) - len(spec))
+        return PartitionSpec(*(
+            e if e is None or dim % entry_size(e) == 0 else None
+            for dim, e in zip(pd.shape, entries)))
+
+    return tree_map_defs(per_leaf, defs)
+
+
 def stack_defs(defs: Any, n: int) -> Any:
     """Prepend a stacked-layers dim of size ``n`` (the period axis the
-    model loops over)."""
+    model loops over).  The stacked dim is never sharded."""
     return tree_map_defs(
         lambda pd: ParamDef(
             shape=(n,) + pd.shape,

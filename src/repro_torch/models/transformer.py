@@ -22,6 +22,15 @@ outlives its period.  A body leaf may come as :class:`Periods` (one
 tensor per period) rather than stacked: indexing a stacked leaf that
 requires grad would make autograd build a zero tensor of the whole stack
 for every period's gradient.
+
+On a mesh (the sharded train step) a leaf may come as :class:`Shard`, this
+rank's FSDP block of a weight: :func:`cast_weights` gathers it over the
+data axis where it casts, so a checkpointed period gathers its weights
+again in its recompute (ZeRO-3), as the reference does per layer per
+microbatch.  The attention and MLP layers and the loss then see TP
+shards and run tensor-parallel (``ctx``); the SSM, RG-LRU and MLA mixers
+and the MoE FFN run on whole weights, so the step refuses them on a mesh
+that would cut those (ROADMAP A11c).
 """
 
 from __future__ import annotations
@@ -43,10 +52,11 @@ from repro_torch.models.ctx import ShardCtx
 from repro_torch.models.layers import layer_norm, mlp_apply, mlp_defs, rms_norm, softcap
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device, stack_defs
 from repro_torch.models.quant_cache import init_quant_cache
+from repro_torch.parallel.collectives import gather_shard
 from repro_torch.tree import tree_map
 
 __all__ = ["model_defs", "forward", "logits_fn", "decode_step", "init_cache",
-           "Periods", "REMAT_POLICIES", "cast_weights", "shard_moe_params"]
+           "Periods", "Shard", "REMAT_POLICIES", "cast_weights", "shard_moe_params"]
 
 #: remat policies per layer period, the reference's ``shape.remat``
 REMAT_POLICIES = ("none", "full", "dots", "save_block_out")
@@ -136,6 +146,26 @@ class Periods(list):
     tensor (the training step's per-period autograd leaves)."""
 
 
+class Shard:
+    """A weight held as this rank's block along ``dim`` over the data
+    axis's process ``group`` (FSDP), gathered whole by
+    :func:`cast_weights`; ``gathered`` is that gather made once a step
+    beforehand (ZeRO-1), or None."""
+
+    __slots__ = ("t", "dim", "group", "gathered")
+
+    def __init__(self, t: torch.Tensor, dim: int, group,
+                 gathered: Optional[torch.Tensor] = None):
+        self.t, self.dim, self.group, self.gathered = t, dim, group, gathered
+
+    def gather(self, dtype: torch.dtype) -> torch.Tensor:
+        """The whole weight in ``dtype`` where the master is f32 (as
+        :func:`cast_weights` casts), else in the master's type."""
+        if self.t.dtype != torch.float32:
+            dtype = self.t.dtype
+        return gather_shard(self.t, dtype, self.dim, self.group, self.gathered)
+
+
 def _period(tree: Any, i: int) -> Any:
     """Period ``i`` of a stacked parameter or cache tree (views, no copy)."""
     if isinstance(tree, (torch.Tensor, Periods)):
@@ -177,11 +207,18 @@ def shard_moe_params(params: Dict[str, Any], cfg: ModelConfig,
 
 def cast_weights(tree: Any, dtype: Optional[torch.dtype]) -> Any:
     """``tree`` with every f32 leaf of rank >= 1 cast to ``dtype`` (None:
-    as it is), as the reference's train step casts its f32 masters."""
+    as it is), as the reference's train step casts its f32 masters, and
+    every :class:`Shard` gathered (the sharded step always gives a
+    ``dtype``)."""
     if dtype is None:
         return tree
-    return tree_map(lambda t: t.to(dtype) if t.dtype == torch.float32
-                    and t.dim() > 0 else t, tree)
+
+    def cast(t):
+        if isinstance(t, Shard):
+            return t.gather(dtype)
+        return t.to(dtype) if t.dtype == torch.float32 and t.dim() > 0 else t
+
+    return tree_map(cast, tree)
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -234,12 +271,13 @@ def _frontend(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor]):
 
 
 def _mixer_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
-                 collect_cache: bool = False, cache_len=None):
+                 collect_cache: bool = False, cache_len=None,
+                 ctx: Optional[ShardCtx] = None):
     if blk.mixer in ("attn", "local"):
         out = attention.attn_apply(
             p, x, cfg,
             window=blk.window if blk.mixer == "local" else None,
-            collect_cache=collect_cache, cache_len=cache_len,
+            collect_cache=collect_cache, cache_len=cache_len, ctx=ctx,
         )
     elif blk.mixer == "mla":
         out = mla.mla_apply(p, x, cfg, collect_cache=collect_cache,
@@ -257,7 +295,8 @@ def _ffn_apply(p, x, blk: BlockSpec, cfg: ModelConfig, ctx: Optional[ShardCtx] =
     """The FFN's output and its aux loss (None but for MoE)."""
     if blk.ffn == "dense":
         act = "gelu" if cfg.act == "gelu_plain" else cfg.act
-        return mlp_apply(p, x, act), None
+        group = None if ctx is None else ctx.tp_group(p["wo"].shape[0], cfg.d_ff)
+        return mlp_apply(p, x, act, group), None
     if blk.ffn == "moe":
         if ctx is None:
             return moe.moe_apply(p, x, cfg)
@@ -299,7 +338,7 @@ def _block_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
     ``p``: directly, or checkpointed under "save_block_out"."""
     def mixer(q, x_):
         return _mixer_apply(q["mixer"], _norm_apply(q["norm1"], x_, cfg), blk,
-                            cfg, collect_cache, cache_len)
+                            cfg, collect_cache, cache_len, ctx)
 
     h, cache = half(mixer, {"norm1": p["norm1"], "mixer": p["mixer"]}, x)
     x, aux = _finish_block(p, x, h, blk, cfg, half, ctx)
@@ -340,7 +379,10 @@ def forward(
     (:func:`cast_weights`); None computes in the weights' own types.
     ``ctx`` (a :class:`ShardCtx` with a mesh) runs the MoE layers expert-
     parallel over it, forward only, with their parameters as
-    :func:`shard_moe_params` cuts them; None computes on one device."""
+    :func:`shard_moe_params` cuts them, and the attention and dense MLP
+    layers tensor-parallel where their weights arrive as TP shards
+    (:class:`Shard` leaves are gathered over FSDP where they are cast);
+    None computes on one device."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat policy {remat!r} not in {REMAT_POLICIES}")
     if collect_cache or not torch.is_grad_enabled():

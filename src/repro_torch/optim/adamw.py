@@ -9,6 +9,12 @@ f32 masters and moments does not fit on the card beside the first (3.4 B
 parameters: 13.6 GB of masters, 27.2 GB of moments).  Large leaves are
 updated in slices, so a step's temporaries stay small.  Parameters are
 stored f32 and cast to the compute type inside the step.
+
+On a mesh each rank updates its own shards of the parameters, moments and
+gradients; the global norm takes ``across`` (a
+:class:`~repro_torch.parallel.collectives.LeafReducer`), which sums each
+leaf's squares over the ranks its shards lie on, so every element counts
+once.
 """
 
 from __future__ import annotations
@@ -55,24 +61,28 @@ def adamw_init(params: Any) -> OptState:
     )
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, across=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32, summed in leaf
-    order."""
-    total = None
-    for leaf in tree_leaves(tree):
-        sq = torch.linalg.vector_norm(leaf, dtype=torch.float32).square()
-        total = sq if total is None else total + sq
-    if total is None:
+    order; with ``across``, each leaf's squares summed over its shards
+    first."""
+    squares = [torch.linalg.vector_norm(leaf, dtype=torch.float32).square()
+               for leaf in tree_leaves(tree)]
+    if not squares:
         return torch.zeros((), dtype=torch.float32)
+    if across is not None:
+        squares = across.sum(squares)
+    total = squares[0]
+    for sq in squares[1:]:
+        total = total + sq
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Any, max_norm: float,
-                        in_place: bool = False) -> Tuple[Any, torch.Tensor]:
+def clip_by_global_norm(grads: Any, max_norm: float, in_place: bool = False,
+                        across=None) -> Tuple[Any, torch.Tensor]:
     """Scale ``grads`` to global norm at most ``max_norm``; returns (the
     scaled tree, the norm before scaling).  ``in_place`` scales the given
-    tensors."""
-    norm = global_norm(grads)
+    tensors; ``across`` as for :func:`global_norm`."""
+    norm = global_norm(grads, across)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     if in_place:
         for g in tree_leaves(grads):
@@ -92,15 +102,18 @@ def adamw_update(
     state: OptState,
     cfg: AdamWConfig,
     lr: Optional[Union[float, torch.Tensor]] = None,
+    across=None,
 ) -> Tuple[Any, OptState, torch.Tensor]:
     """One AdamW step, in place on ``params``, ``state``'s moments and
     ``grads`` (clipped when ``cfg.grad_clip`` is set).  Returns
     ``(params, new_state, grad_norm)``: the same parameter and moment
-    tensors, a new step count, and the norm before clipping."""
+    tensors, a new step count, and the norm before clipping (global over
+    the shards with ``across``, as for :func:`global_norm`)."""
     if cfg.grad_clip is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, in_place=True)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, in_place=True,
+                                           across=across)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, across)
     step = state.step + 1
     lr_t = cfg.lr if lr is None else lr
     s32 = step.float()

@@ -6,18 +6,26 @@ over the data axes (``('pod','data')`` multi-pod), heads/ffn/experts over
 ``model``, FSDP over ``data``.  Dims that don't divide the axis size fall
 back to replication (e.g. global_batch=1 in long_500k).
 
-The functions are pure: they read only the mesh's axis names and sizes,
-so ``mesh`` is a :class:`DeviceMesh` or a plain ``(names, sizes)`` pair,
-and the specs of a 16×16 pod come out without 256 ranks.  A spec is a
-:class:`PartitionSpec`, a tuple with one entry per tensor dim (an axis
-name, a tuple of names, or None), the reference's ``PartitionSpec``
+The spec functions are pure: they read only the mesh's axis names and
+sizes, so ``mesh`` is a :class:`DeviceMesh` or a plain ``(names, sizes)``
+pair, and the specs of a 16×16 pod come out without 256 ranks.  A spec
+is a :class:`PartitionSpec`, a tuple with one entry per tensor dim (an
+axis name, a tuple of names, or None), the reference's ``PartitionSpec``
 entries letter for letter.  :func:`named` turns specs into ``DTensor``
-placements over the mesh's dims.
+placements over the mesh's dims.  :func:`param_pspecs` is the reference's
+``_pspec_tree``: the parameters' specs, FSDP×TP or TP only.
+
+:func:`shard_tree` cuts whole tensors into a rank's blocks and
+:func:`unshard_tree` puts the blocks together again: over a
+``DeviceMesh`` for this rank (the gather is a collective every rank
+calls), over a ``(names, sizes)`` pair for any rank with no process group
+(the blocks of every rank given as a list).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -25,9 +33,13 @@ from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.models.attention import AttnCache
 from repro_torch.models.config import BlockSpec, ModelConfig, ShapeConfig
 from repro_torch.models.mla import MLACache
+from repro_torch.models.param import PartitionSpec, param_specs
 from repro_torch.models.quant_cache import QuantAttnCache
 from repro_torch.models.rglru import RGLRUCache
 from repro_torch.models.ssm import SSMCache
+from repro_torch.models.transformer import model_defs
+from repro_torch.parallel.collectives import all_gather
+from repro_torch.tree import tree_map
 
 __all__ = [
     "PartitionSpec",
@@ -39,18 +51,12 @@ __all__ = [
     "input_shardings",
     "cache_pspecs",
     "named",
+    "param_pspecs",
+    "spec_axes",
+    "spec_leaves",
+    "shard_tree",
+    "unshard_tree",
 ]
-
-
-class PartitionSpec(tuple):
-    """One entry per tensor dim: an axis name, a tuple of names, or None."""
-
-    def __new__(cls, *entries):
-        return super().__new__(cls, entries)
-
-    def __repr__(self) -> str:
-        return f"P{tuple.__repr__(self)}"
-
 
 P = PartitionSpec
 
@@ -202,3 +208,108 @@ def named(mesh, spec_tree: Any) -> Any:
         return tuple(out)
 
     return _map_specs(placements, spec_tree)
+
+
+# -- parameters ---------------------------------------------------------------
+
+def param_pspecs(cfg: ModelConfig, mesh, fsdp: Any = Ellipsis) -> Any:
+    """The spec tree of ``cfg``'s parameters on ``mesh``: FSDP over
+    "data" and TP over "model" where the mesh has them and the dims
+    divide; ``fsdp`` overrides the FSDP axis (None: the TP-only layout
+    ZeRO-1 computes in)."""
+    _, fsdp_axis, tp = mesh_axes(mesh)
+    if fsdp is not Ellipsis:
+        fsdp_axis = fsdp
+    return param_specs(model_defs(cfg), tp_axis=tp, fsdp_axis=fsdp_axis,
+                       axis_sizes=mesh_shape(mesh))
+
+
+def spec_leaves(specs: Any) -> List[PartitionSpec]:
+    """The specs of a spec tree in the order of its tensors' leaves
+    (``tree_leaves`` would split each spec into its entries)."""
+    out: List[PartitionSpec] = []
+    tree_map(lambda _, spec: out.append(spec), _map_specs(lambda s: 0, specs), specs)
+    return out
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec: PartitionSpec) -> Tuple[str, ...]:
+    """The mesh axes ``spec`` shards a tensor over."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def _coords(mesh, rank: Optional[int]) -> Dict[str, int]:
+    """Axis name -> coordinate: this rank's on a ``DeviceMesh``, else those
+    of ``rank`` (row-major) in a ``(names, sizes)`` mesh."""
+    if isinstance(mesh, DeviceMesh):
+        return {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+    shape = mesh_shape(mesh)
+    if rank is None or not 0 <= rank < math.prod(shape.values()):
+        raise ValueError(f"rank {rank} is not one of the mesh {shape}'s")
+    out = {}
+    for a, n in reversed(list(shape.items())):
+        rank, out[a] = divmod(rank, n)
+    return out
+
+
+def _block_of(t: torch.Tensor, spec: PartitionSpec, shape: Dict[str, int],
+              coords: Dict[str, int]) -> torch.Tensor:
+    for d, e in enumerate(spec):
+        idx, n = 0, 1
+        for a in _entry_axes(e):
+            idx, n = idx * shape[a] + coords[a], n * shape[a]
+        if n > 1:
+            if t.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                                 f"over {e} ({n} ranks)")
+            b = t.shape[d] // n
+            t = t.narrow(d, idx * b, b)
+    return t
+
+
+def shard_tree(tree: Any, specs: Any, mesh, rank: Optional[int] = None) -> Any:
+    """Each leaf of ``tree`` (whole tensors) cut to a rank's block by its
+    spec in ``specs`` (a tree of the same structure): this rank's on a
+    ``DeviceMesh``, ``rank``'s on a ``(names, sizes)`` pair.  The blocks
+    are contiguous copies: the whole tensors can be dropped."""
+    shape, coords = mesh_shape(mesh), _coords(mesh, rank)
+    return tree_map(lambda t, s: _block_of(t, s, shape, coords).clone(
+        memory_format=torch.contiguous_format), tree, specs)
+
+
+def unshard_tree(local: Union[Any, List[Any]], specs: Any, mesh) -> Any:
+    """The inverse of :func:`shard_tree`.  On a ``DeviceMesh``, ``local``
+    is this rank's tree and every rank gets the whole tensors back (each
+    leaf gathered in turn: call it on every rank).  On a ``(names,
+    sizes)`` pair, ``local`` is the list of every rank's tree in rank
+    order, put together with no collective."""
+    if isinstance(mesh, DeviceMesh):
+        def gather(t, spec):
+            for d, e in enumerate(spec):
+                for a in reversed(_entry_axes(e)):
+                    t = all_gather(t, mesh.get_group(a), d)
+            return t
+
+        return tree_map(gather, local, specs)
+    shape = mesh_shape(mesh)
+    n_ranks = math.prod(shape.values())
+    if len(local) != n_ranks:
+        raise ValueError(f"{len(local)} trees for a mesh of {n_ranks} ranks")
+
+    def assemble(*blocks_and_spec):
+        *blocks, spec = blocks_and_spec
+        size = list(blocks[0].shape)
+        for d, e in enumerate(spec):
+            for a in _entry_axes(e):
+                size[d] *= shape[a]
+        whole = blocks[0].new_empty(size)
+        for r, b in enumerate(blocks):
+            _block_of(whole, spec, shape, _coords(mesh, r)).copy_(b)
+        return whole
+
+    return tree_map(assemble, *local, specs)
