@@ -38,6 +38,21 @@ temporary directory, and every rank checks:
    held: with it the (4, 1) mesh, pure data parallelism, departs as far
    as (2, 2) does.
 
+4. the sharded step of the other mixers and of MoE on a mesh, in f32
+   from the training phases' draw, 2 steps of TRAIN_SHAPE (recurrentgemma
+   at half its batch and sequence) against the one-process step on the
+   rank's own card (``MIXER_CASES``): mamba2-2.7b
+   cut to 2 layers on (1, 4) and (2, 2) (TP over the SSM heads),
+   recurrentgemma-9b at one (R, R, L) period on (2, 2) (TP over the
+   RG-LRU width, attention over heads), deepseek-v2-lite-16b at its
+   prelude and 1 MoE period on (4, 1) at capacity factor 1.25 (MoE routed
+   over the whole microbatch from each rank's rows) and on (2, 2) where
+   no entry drops and with no balance loss (the a2a path, MLA over
+   heads): losses and grad norms within 1e-5 relative, the update within
+   2e-3 relative L2, each path's kernels launched.  On (4, 1) it also
+   prints how many routed entries take another expert or another keep
+   than the one-process step's route of the same rows.
+
 ``--witness`` runs on one card with no process group: check 3's
 one-process step, from both draws, against itself at 4 and 8
 microbatches (the rows a forward that a rank of (2, 2) and of (4, 1)
@@ -77,6 +92,33 @@ TRAIN_STEPS = 2
 LOSS_LIMIT = 1e-5  # losses and grad norms, relative
 UPDATE_LIMIT = 2e-3  # the update p2 - p0, relative L2 over the whole tree
 WITNESS_MICROBATCHES = (4, 8)  # --witness: 2 and 1 rows a forward
+#: check 4: (name, model, body periods, mesh, capacity factor or None,
+#: balance loss coefficient, (global batch, sequence length) on the card).
+#: recurrentgemma-9b's one-process f32 step holds 52 GB of masters,
+#: gradients and moments: at half TRAIN_SHAPE's batch and sequence its
+#: activations fit beside them (2 rows of 512 a microbatch)
+MIXER_CASES = (
+    ("mamba2_1x4", "mamba2-2.7b", 2, (1, 4), None, 0.01, TRAIN_SHAPE[:2]),
+    ("mamba2_2x2", "mamba2-2.7b", 2, (2, 2), None, 0.01, TRAIN_SHAPE[:2]),
+    ("recurrentgemma_2x2", "recurrentgemma-9b", 1, (2, 2), None, 0.01, (4, 512)),
+    ("deepseek_4x1", "deepseek-v2-lite-16b", 1, (4, 1), 1.25, 0.01, TRAIN_SHAPE[:2]),
+    ("deepseek_a2a_2x2", "deepseek-v2-lite-16b", 1, (2, 2), 8.0, 0.0, TRAIN_SHAPE[:2]),
+)
+
+
+#: (shape, device type) -> the (data, model) mesh over it: each new mesh
+#: makes new NCCL communicators, whose buffers stay on the card
+_MESHES: dict = {}
+
+
+def _mesh(shape, device_type: str):
+    """The ("data", "model") mesh of ``shape``, made once a run."""
+    from repro_torch.launch import make_mesh_compat
+
+    key = (tuple(shape), device_type)
+    if key not in _MESHES:
+        _MESHES[key] = make_mesh_compat(shape, ("data", "model"), device_type)
+    return _MESHES[key]
 
 
 def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -108,7 +150,7 @@ def _rank(rank: int, seed: int, device_type: str, rdzv: str) -> None:
         dev = torch.device("cuda", torch.cuda.current_device()) \
             if device_type == "cuda" else torch.device("cpu")
         meshes = {"4": make_mesh_compat((4,), ("data",), device_type),
-                  "2x2": make_mesh_compat((2, 2), ("data", "model"), device_type)}
+                  "2x2": _mesh((2, 2), device_type)}
         n = TOKENS if device_type == "cuda" else 1 << 16
         g = torch.Generator().manual_seed(seed)
         cdf = torch.cumsum(torch.arange(1, VOCAB + 1, dtype=torch.float64) ** -1.1, 0)
@@ -185,6 +227,7 @@ def _rank(rank: int, seed: int, device_type: str, rdzv: str) -> None:
                 report("moe_apply", ok, T=T_call, path=path, max_abs_err=err)
         del p32, x32, p16, x16, local, want, want16
         _sharded_train(rank, seed, device_type, dev, report)
+        _sharded_mixers(rank, seed, device_type, dev, report)
 
 
 def _train_setup(device_type: str):
@@ -223,23 +266,25 @@ def _draws(cfg, seed: int, dev):
             ("shared_init", lambda: init_state(cfg, dev, seed + 2)[0]))
 
 
-def _train_run(cfg, shape, opt_cfg, batches, params0, dev, mesh=None):
+def _train_run(cfg, shape, opt_cfg, batches, params0, dev, mesh=None,
+               aux_coef: float = 0.01):
     """The steps of ``batches`` from a copy of ``params0`` (sharded on
     ``mesh``, or one process); returns (losses, grad norms, the whole final
-    parameters, flash forward and backward launches)."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_attention_bwd as fb
+    parameters, the path's forward and backward kernel launches: the SSD
+    chunk's for Mamba-2, flash attention's otherwise)."""
+    import chip_smoke
     from repro_torch.launch import make_train_step
     from repro_torch.optim import adamw_init
     from repro_torch.parallel.sharding import param_pspecs, shard_tree, unshard_tree
     from repro_torch.tree import tree_map
 
-    params = tree_map(torch.clone, params0)
+    params = tree_map(lambda t: t.to(dev, copy=True), params0)
     specs = None if mesh is None else param_pspecs(cfg, mesh)
     if specs is not None:
         params = shard_tree(params, specs, mesh)
     opt = adamw_init(params)
-    fn = make_train_step(cfg, shape, opt_cfg, device=dev, mesh=mesh)
+    fn = make_train_step(cfg, shape, opt_cfg, aux_coef=aux_coef, device=dev, mesh=mesh)
+    (fa, fb), _ = chip_smoke._kernel_pair(cfg)
     launches = (fa.launches, fb.launches)
     losses, norms = [], []
     for batch in batches:
@@ -258,20 +303,24 @@ def _compare(got, want, p0) -> dict:
     :func:`_train_run`'s result) that started from ``p0``."""
     from repro_torch.tree import tree_leaves
 
-    def rel_l2(a_list, b_list) -> float:
-        diff = sum(float((a.double() - b.double()).square().sum())
-                   for a, b in zip(a_list, b_list))
-        return (diff / sum(float(b.double().square().sum()) for b in b_list)) ** 0.5
+    def rel_l2(pairs) -> float:
+        """Relative L2 over the whole tree, leaf by leaf (a whole tree of
+        differences at once would not fit beside two runs' results)."""
+        diff = norm = 0.0
+        for a, b in pairs:
+            diff += float((a.double() - b.double()).square().sum())
+            norm += float(b.double().square().sum())
+        return (diff / norm) ** 0.5
 
-    p0 = tree_leaves(p0)
+    p0 = tree_leaves(p0)  # on the card or on the host
     got_p, want_p = tree_leaves(got[2]), tree_leaves(want[2])
     return dict(
         losses=got[0], want_losses=want[0], grad_norms=got[1], want_grad_norms=want[1],
         loss_rel=max(abs(a - b) / abs(b) for a, b in zip(got[0], want[0])),
         grad_norm_rel=[abs(a - b) / abs(b) for a, b in zip(got[1], want[1])],
-        update_rel_l2=rel_l2([a - b for a, b in zip(got_p, p0)],
-                             [a - b for a, b in zip(want_p, p0)]),
-        params_rel_l2=rel_l2(got_p, want_p))
+        update_rel_l2=rel_l2((a - p.to(a.device), b - p.to(a.device))
+                             for a, b, p in zip(got_p, want_p, p0)),
+        params_rel_l2=rel_l2(zip(got_p, want_p)))
 
 
 def _sharded_train(rank: int, seed: int, device_type: str, dev, report) -> None:
@@ -285,7 +334,7 @@ def _sharded_train(rank: int, seed: int, device_type: str, dev, report) -> None:
         params0 = make()
         want = _train_run(cfg, shape, opt_cfg, batches, params0, dev)
         for name, mesh_shape in (("2x2", (2, 2)), ("4x1", (4, 1))):
-            mesh = make_mesh_compat(mesh_shape, ("data", "model"), device_type)
+            mesh = _mesh(mesh_shape, device_type)
             got = _train_run(cfg, shape, opt_cfg, batches, params0, dev, mesh)
             gap = _compare(got, want, params0)
             launches = got[3]
@@ -298,6 +347,115 @@ def _sharded_train(rank: int, seed: int, device_type: str, dev, report) -> None:
                 flash_launches=launches[0], flash_bwd_launches=launches[1], **gap)
             del got
         del params0, want
+
+
+class _RouteLog:
+    """Within it, every MoE route records its experts (N, k) and which
+    entries its capacity keeps, in entry order (``moe._top_k`` and
+    ``moe._pack_by_group`` wrapped), call by call."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.calls = moe, []
+        self.saved = (moe._top_k, moe._pack_by_group)
+        top_k, pack = self.saved
+
+        def logged_top_k(*a, **k):
+            res = top_k(*a, **k)
+            self.calls.append({"experts": res[2]})
+            return res
+
+        def logged_pack(groups, *a, **k):
+            order, gs, pos, keep = res = pack(groups, *a, **k)
+            if self.calls and "keep" not in self.calls[-1]:
+                entry = torch.empty_like(keep)
+                entry[order] = keep
+                self.calls[-1]["keep"] = entry
+            return res
+
+        moe._top_k, moe._pack_by_group = logged_top_k, logged_pack
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k, self.moe._pack_by_group = self.saved
+        return False
+
+
+def _route_departures(got: list, want: list, rank: int, n_ranks: int) -> int:
+    """Routed entries of this rank's rows (the ``rank``-th of ``n_ranks``
+    blocks of each one-process call's) whose expert or keep differs, summed
+    over the calls."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} MoE routes against {len(want)}")
+    n = 0
+    for g, w in zip(got, want):
+        rows = w["experts"].shape[0] // n_ranks
+        we = w["experts"][rank * rows:(rank + 1) * rows]
+        k = we.shape[1]
+        wk = w["keep"][rank * rows * k:(rank + 1) * rows * k].view(rows, k)
+        n += int(((g["experts"] != we) | (g["keep"].view(rows, k) != wk)).sum())
+    return n
+
+
+def _sharded_mixers(rank: int, seed: int, device_type: str, dev, report) -> None:
+    """Check 4: the sharded step of the SSM, RG-LRU and MLA/MoE
+    configurations against the one-process step, in f32."""
+    import chip_smoke
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced_for_smoke
+    from repro_torch.tree import tree_map
+
+    _, shape_of, _, opt_cfg = _train_setup(device_type)
+    for name, model, periods, mesh_shape, cf, aux, (batch, seq) in MIXER_CASES:
+        shape = replace(shape_of(TRAIN_SHAPE[2]), global_batch=batch,
+                        seq_len=seq if device_type == "cuda" else 32)
+        cfg = replace(get_config(model), n_periods=periods)
+        if device_type != "cuda":
+            cfg = reduced_for_smoke(cfg)
+        if cf is not None:
+            cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=cf))
+        batches = _batches(cfg, shape)
+        # on the host: recurrentgemma-9b's period holds 13 GB of f32 masters,
+        # and a one-process run adds as much in gradients and twice in moments
+        params0 = tree_map(lambda t: t.cpu(),
+                           chip_smoke._draw_train_params(cfg, seed + 3, dev))
+        mesh = _mesh(mesh_shape, device_type)
+        with _RouteLog() as want_routes:
+            want = _train_run(cfg, shape, opt_cfg, batches, params0, dev, aux_coef=aux)
+        with _RouteLog() as got_routes:
+            got = _train_run(cfg, shape, opt_cfg, batches, params0, dev, mesh,
+                             aux_coef=aux)
+        gap = _compare(got, want, params0)
+        extra = {}
+        if mesh_shape == (4, 1) and cfg.moe is not None:
+            moved = torch.tensor(_route_departures(
+                got_routes.calls, want_routes.calls, rank, 4), device=dev)
+            dist.all_reduce(moved)
+            extra["route_departures"] = int(moved)
+        launches = got[3]
+        report("sharded_mixers_f32", gap["loss_rel"] <= LOSS_LIMIT
+               and max(gap["grad_norm_rel"]) <= LOSS_LIMIT
+               and gap["update_rel_l2"] <= UPDATE_LIMIT
+               and (device_type != "cuda" or min(launches) > 0),
+               case=name, model=cfg.name, layers=cfg.n_layers, seq=shape.seq_len,
+               batch=batch,
+               mesh=list(mesh_shape), capacity_factor=cfg.moe.capacity_factor
+               if cfg.moe is not None else None, aux_coef=aux,
+               kernel_launches=list(launches), **extra, **gap)
+        del got, want, params0, want_routes, got_routes
+        chip_smoke.free_card()
+
+
+def _batches(cfg, shape) -> list:
+    """TRAIN_STEPS batches of ``shape`` for ``cfg``'s vocabulary."""
+    from repro_torch.data import PipelineConfig, make_batch
+
+    pipe = PipelineConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                          global_batch=shape.global_batch)
+    return [make_batch(pipe, s) for s in range(TRAIN_STEPS)]
 
 
 def _witness(seed: int, device_type: str) -> None:
@@ -342,6 +500,9 @@ def main(argv=None) -> int:
     import torch.multiprocessing as mp
 
     if args.device == "cuda":  # once, before the ranks load the kernels
+        # check 4 fills a card with recurrentgemma-9b's f32 step: fewer
+        # fragments between its gigabyte leaves
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
         sys.path.insert(0, str(ROOT / "src"))
         from repro_torch.kernels import _build
         _build.build()

@@ -158,7 +158,7 @@ another sm_90a card).  It builds the port's CUDA kernels from
    through the kernels and through the plain versions, each parameter's
    gradient within relative L2 1e-3; then trains qwen2.5-3b at full width
    (36 layers, f32 masters, bf16 compute, 4 sequences of 4096 tokens in 4
-   microbatches a step, remat "full", AdamW lr 3e-4) for 6 steps through
+   microbatches a step, remat "full", AdamW lr 3e-4) for 4 steps through
    ``make_train_step``: every loss and grad norm finite, the last loss
    below the first, the forward and backward kernels launched 288 and
    144 times a step, no plain version reached; it prints each step's
@@ -166,7 +166,7 @@ another sm_90a card).  It builds the port's CUDA kernels from
    step's device ms split into GEMMs, flash forward and backward and the
    rest, AdamW's and the loss's ms; then the training loop of
    ``launch.train`` (``train``) over the model cut to 2 layers, straight
-   through 4 steps and again with a checkpoint to a PMEM tier at step 2
+   through 3 steps and again with a checkpoint to a PMEM tier at step 2
    and a crash at step 3: the replayed losses must equal the
    uninterrupted run's (checkpoint bytes, staging, drain and restore
    times printed);
@@ -183,13 +183,13 @@ another sm_90a card).  It builds the port's CUDA kernels from
    "full") through both SSD kernels and through their plain versions,
    every gradient within relative L2 1e-3 and the launches exactly 2 a
    layer forward and 1 backward; then trains mamba2-2.7b at full width
-   (64 layers, 4 x 4096 tokens a step in 4 microbatches, remat "full",
-   bf16 compute, AdamW lr 3e-4, Mamba-2's published dt and A) for 4
-   steps and recurrentgemma-9b at full width cut to one period (5
-   blocks) for 3, each as phase 14 trains qwen2.5-3b: finite losses and
-   grad norms, the last loss below the first, ``ssd_chunk`` launched 512
-   times a step forward and its backward 256 (recurrentgemma: flash 8 and
-   4), no plain version reached, one profiled step's device ms split
+   cut to 16 of its 64 layers (4 x 4096 tokens a step in 4 microbatches,
+   remat "full", bf16 compute, AdamW lr 3e-4, Mamba-2's published dt and
+   A) for 3 steps and recurrentgemma-9b at full width cut to one period
+   (5 blocks) for 2, each as phase 14 trains qwen2.5-3b: finite losses
+   and grad norms, the last loss below the first, ``ssd_chunk`` launched
+   128 times a step forward and its backward 64 (recurrentgemma: flash 8
+   and 4), no plain version reached, one profiled step's device ms split
    into GEMMs, the flash and SSD kernels and the rest; and times the
    flash backward (route ``wgmma``, its device ms below SDPA's forward
    and backward) and forward at recurrentgemma's local training shape
@@ -214,7 +214,7 @@ another sm_90a card).  It builds the port's CUDA kernels from
    raise; then trains deepseek-v2-lite-16b at full width (d_model 2048,
    MLA kv_lora 512, 64 experts top-6 and 2 shared, vocab 102400) cut to
    the dense prelude and 4 MoE periods (2.84 B parameters) as phase 14
-   trains qwen2.5-3b: 4 steps of 4 x 4096 tokens in 4 microbatches,
+   trains qwen2.5-3b: 3 steps of 4 x 4096 tokens in 4 microbatches,
    remat "full", bf16 compute, AdamW lr 3e-4; finite losses and grad
    norms, the last loss below the first, flash launched 36 times a step
    forward (the prelude once, each MoE period's layer twice under remat,
@@ -245,7 +245,16 @@ another sm_90a card).  It builds the port's CUDA kernels from
    the parameters within 1e-6 relative L2, whether they are bit-equal,
    the flash forward and backward launches a step equal to the
    one-process step's, each run's peak memory and seconds; at most 40 s;
-19. prints a ``kernels`` JSON line: each kernel's launches on its path
+19. the sharded train step of the other mixers at world size 1
+   (``phase_sharded_mixers``): NCCL, a (1, 1) mesh, mamba2-2.7b cut to 2
+   layers at 4096, recurrentgemma-9b at one (R, R, L) period and
+   deepseek-v2-lite-16b at its prelude and 1 MoE period at 2048, 2 steps
+   of 2 sequences in 2 microbatches each, bf16, remat "full", against
+   ``mesh=None`` from the same drawn parameters and batches: losses, grad
+   norms and parameters bit-equal, the SSD chunk's or flash attention's
+   forward and backward launches a step equal to the one-process step's,
+   each run's peak memory and seconds; at most 30 s;
+20. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
@@ -2586,7 +2595,7 @@ TRAIN_MODEL = "qwen2.5-3b"  # full width: 36 layers, d_model 2048, 3.40 B parame
 TRAIN_SEQ = 4096  # the reference's train_4k length
 TRAIN_BATCH = 4  # train_4k's global batch of 256 in 8 microbatches, cut to 4 in 4
 TRAIN_MICROBATCHES = 4
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4
 #: AdamW's rate.  3e-3 (the reference launcher's default, sized for its
 #: reduced models) diverges at full width: AdamW's first steps move every
 #: weight by about the rate, and the loss rose from 12.33 to 13.61 over 6
@@ -2597,7 +2606,7 @@ GRAD_SEQ = 1024
 GRAD_TOL = 1e-3  # relative L2 per parameter, kernels against plain versions, f32
 CRASH_LAYERS = 2  # crash and restore: full width, 2 layers (see phase_crash_restore)
 CRASH_SEQ = 1024
-CRASH_STEPS, CRASH_EVERY, CRASH_AT = 4, 2, 3
+CRASH_STEPS, CRASH_EVERY, CRASH_AT = 3, 2, 3
 #: the backward kernel against its plain version (run in f32): relative L2
 #: of dq, dk, dv; the bf16/f16 limit is the forward's
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -2605,9 +2614,10 @@ LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 SSD_BWD_TOL = 1e-4  # relative L2 per gradient: 3xTF32 products against the plain version
 #: a 4096-token mamba2-2.7b microbatch: BC = 4096 / 256 chunks, Q, H, P, N
 SSD_TRAIN_SHAPE = (16, 256, 80, 64, 128)
-SSM_TRAIN_STEPS = 4
+SSM_TRAIN_PERIODS = 16  # mamba2-2.7b's 64 layers cut to 16 (the run's time limit)
+SSM_TRAIN_STEPS = 3
 RG_TRAIN_PERIODS = 1  # recurrentgemma-9b's 12 (R, R, L) periods cut to 1: 5 blocks
-RG_TRAIN_STEPS = 3
+RG_TRAIN_STEPS = 2
 SSD_BWD_KERNELS_PER_CALL = 3  # pair_kernel, head_kernel, group_kernel
 
 
@@ -3178,7 +3188,7 @@ def phase_crash_restore(dev, seed: int, workdir: Path) -> dict:
     clean = [(h["step"], h["loss"]) for h in runs["clean"]["history"]]
     crash = [(h["step"], h["loss"]) for h in runs["crash"]["history"]]
     replay = crash[CRASH_AT:]
-    check([s for s, _ in crash] == [1, 2, 3, 3, 4],
+    check([s for s, _ in crash] == [1, 2, 3, 3],
           f"crash run stepped {[s for s, _ in crash]}")
     check(crash[:CRASH_AT] == clean[:CRASH_AT] and replay == clean[CRASH_EVERY:],
           f"replayed losses {replay} differ from the uninterrupted run's "
@@ -3349,7 +3359,7 @@ class _PlainSSD(torch.autograd.Function):
 MLA_HEAD_DIMS = (192, 128)  # deepseek-v2's q/k (128 "nope" + 64 rotary) and v
 MLA_GRAD_PERIODS = 1  # the gradient check: the dense prelude and one MoE period
 MLA_TRAIN_PERIODS = 4  # deepseek-v2-lite-16b's 26 MoE periods cut to 4: 2.84 B
-MLA_TRAIN_STEPS = 4
+MLA_TRAIN_STEPS = 3
 EXAMPLE_STEPS = 20
 EXAMPLE_BATCH, EXAMPLE_SEQ = 8, 128  # the example's defaults
 EXAMPLE_HELD = 3  # batches whose loss is read before and after training
@@ -3841,6 +3851,165 @@ def phase_sharded_train(dev, seed: int, card: str) -> dict:
     return out
 
 
+# -- phase 19: the sharded step of the other mixers at world size 1 ------------
+
+#: (model, body periods, sequence length): mamba2-2.7b at 2 of its 64
+#: layers, recurrentgemma-9b at one (R, R, L) period (and its 2 trailing
+#: RG-LRU blocks), deepseek-v2-lite-16b at its dense prelude and 1 MoE period
+MIXER_SHARD_CONFIGS = ((SSM_MODEL, 2, 4096), (RG_MODEL, 1, 2048), (MLA_MODEL, 1, 2048))
+MIXER_SHARD_BATCH = 2  # sequences, in MIXER_SHARD_MICROBATCHES
+MIXER_SHARD_MICROBATCHES = 2
+MIXER_SHARD_STEPS = 2
+MIXER_SHARD_LIMIT_S = 30.0  # the phase's own time limit
+MIXER_SHARD_MARGIN = 4 << 30  # free bytes beyond a run's peak to keep a result on the card
+
+
+def phase_sharded_mixers(dev, seed: int, card: str) -> dict:
+    """Phase 19, the sharded train step of the SSM, RG-LRU and MLA/MoE
+    configurations at world size 1: NCCL through a file rendezvous, a
+    (1, 1) mesh over ("data", "model"), each of MIXER_SHARD_CONFIGS at
+    full width, MIXER_SHARD_STEPS steps of MIXER_SHARD_BATCH sequences in
+    MIXER_SHARD_MICROBATCHES, remat "full", bf16 compute, from the
+    training phases' draw.  ``make_train_step(mesh=...)`` against
+    ``mesh=None`` from the same parameters and batches: losses, grad norms
+    and the parameters' relative L2, held to the same bits (an axis of one
+    rank skips every collective and every cut, so the two steps run the
+    same code); the SSD chunk's (Mamba-2) or flash attention's forward
+    and backward launches a step, each equal to the one-process step's,
+    inside :class:`_NoPlain`.  Prints each run's peak memory and seconds.
+    The group is destroyed on the way out, also on failure.  One card: no
+    time across cards is measured."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, make_batch
+    from repro_torch.launch import make_mesh_compat, make_train_step, process_group
+    from repro_torch.models import ShapeConfig
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel.sharding import param_pspecs, shard_tree, unshard_tree
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, weight_decay=0.0)
+    out = {"batch": MIXER_SHARD_BATCH, "microbatches": MIXER_SHARD_MICROBATCHES,
+           "steps": MIXER_SHARD_STEPS, "dtype": "bfloat16", "models": []}
+
+    def run(cfg, shape, params0, batches, mesh, kernels):
+        """The steps from an f32 copy of ``params0`` (dropped once copied) on
+        ``mesh`` (None: one process); returns the row and the final
+        parameters."""
+        fwd, bwd = kernels
+        t_run = time.perf_counter()
+        params = tree_map(lambda t: t.to(torch.float32, copy=True), params0)
+        del params0
+        specs = None
+        if mesh is not None:
+            specs = param_pspecs(cfg, mesh)
+            params = shard_tree(params, specs, mesh)
+        opt = adamw_init(params)
+        fn = make_train_step(cfg, shape, opt_cfg, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, per_step = [], [], []
+        t = time.perf_counter()
+        for batch in batches:
+            before = (fwd.launches, bwd.launches)
+            params, opt, m = fn(params, opt, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            per_step.append([fwd.launches - before[0], bwd.launches - before[1]])
+        row = {"losses": losses, "grad_norms": norms, "launches_per_step": per_step,
+               "steps_s": time.perf_counter() - t,
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del opt, m
+        if mesh is not None:
+            params = unshard_tree(params, specs, mesh)
+        free_card()
+        row["run_s"] = time.perf_counter() - t_run
+        return row, params
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mixers_") as workdir:
+        with process_group(0, 1, os.path.join(workdir, "rdzv")), _NoPlain():
+            mesh = make_mesh_compat((1, 1), ("data", "model"))
+            for model, periods, seq in MIXER_SHARD_CONFIGS:
+                cfg = replace(get_config(model), n_periods=periods)
+                shape = ShapeConfig(name="train_sharded_mixers", kind="train",
+                                    seq_len=seq, global_batch=MIXER_SHARD_BATCH,
+                                    microbatches=MIXER_SHARD_MICROBATCHES,
+                                    q_chunk=512, kv_chunk=1024, loss_chunk=512,
+                                    remat="full")
+                pipe = PipelineConfig(vocab=cfg.vocab, seq_len=seq,
+                                      global_batch=MIXER_SHARD_BATCH)
+                batches = [make_batch(pipe, s) for s in range(MIXER_SHARD_STEPS)]
+                # each run from an f32 copy of the training phases' draw (bf16,
+                # drawn again for the second run); the one-process run's result
+                # stays on the card where the second run's peak still fits
+                # beside it, else it waits on the host (recurrentgemma-9b's
+                # period holds 13 GB of f32 masters, and a run adds as much in
+                # gradients and twice in moments)
+                draw = draw_ssm_params if cfg.ssm is not None else draw_params
+                kernels, names = _kernel_pair(cfg)
+                t = time.perf_counter()
+                want, want_params = run(cfg, shape, draw(cfg, seed, dev), batches,
+                                        None, kernels)
+                kept = (torch.cuda.mem_get_info(dev)[0]
+                        >= want["peak_allocated_bytes"] + MIXER_SHARD_MARGIN)
+                if not kept:
+                    want_params = tree_map(lambda t: t.cpu(), want_params)
+                    free_card()
+                row, params = run(cfg, shape, draw(cfg, seed, dev), batches, mesh,
+                                  kernels)
+                runs_s = time.perf_counter() - t
+                t = time.perf_counter()
+                same, diff2, norm2 = [], 0.0, 0.0
+                for a, b in zip(tree_leaves(params), tree_leaves(want_params)):
+                    b = b.to(dev)
+                    same.append(torch.equal(a, b))
+                    if not same[-1]:
+                        diff2 += float((a - b).norm()) ** 2
+                    norm2 += float(b.norm()) ** 2
+                    del b
+                row.update(
+                    model=cfg.name, layers=cfg.n_layers, seq=seq, mesh=[1, 1],
+                    kernels=list(names),
+                    loss_rel=max(abs(a - b) / abs(b)
+                                 for a, b in zip(row["losses"], want["losses"])),
+                    grad_norm_rel=max(abs(a - b) / abs(b) for a, b in
+                                      zip(row["grad_norms"], want["grad_norms"])),
+                    params_rel_l2=math.sqrt(diff2 / norm2),
+                    bit_equal=(row["losses"] == want["losses"]
+                               and row["grad_norms"] == want["grad_norms"]
+                               and all(same)),
+                    kept_on_card=kept, runs_s=runs_s, compare_s=time.perf_counter() - t,
+                    one_process=want)
+                del params, want_params
+                free_card()
+                emit("sharded_mixers_run", **row)
+                check(all(math.isfinite(x) for x in row["losses"] + row["grad_norms"]),
+                      f"{cfg.name}: the sharded step's losses or grad norms are not finite")
+                check(row["bit_equal"], f"{cfg.name}: the (1, 1) mesh step departs from "
+                      f"the one-process step: loss {row['loss_rel']}, grad norm "
+                      f"{row['grad_norm_rel']}, parameters {row['params_rel_l2']}")
+                check(row["launches_per_step"] == want["launches_per_step"]
+                      and all(min(n) > 0 for n in row["launches_per_step"]),
+                      f"{cfg.name}: {names} launches a step {row['launches_per_step']}, "
+                      f"one process {want['launches_per_step']}")
+                out["models"].append(row)
+            del mesh
+        check(not dist.is_initialized(), "a process group outlived the phase")
+    out["s"] = time.perf_counter() - t0
+    emit("sharded_mixers", card=card, s=out["s"],
+         bit_equal=[r["bit_equal"] for r in out["models"]],
+         launches_per_step={r["model"]: r["launches_per_step"][0] for r in out["models"]},
+         peak_allocated_bytes={r["model"]: r["peak_allocated_bytes"]
+                               for r in out["models"]})
+    check(out["s"] <= MIXER_SHARD_LIMIT_S, f"phase 19 took {out['s']} s, over its "
+          f"{MIXER_SHARD_LIMIT_S} s")
+    print(card, flush=True)
+    print("no multi-GPU time measured", flush=True)
+    return out
+
+
 def _cast_moe(tree, dtype):
     """``tree`` with every floating leaf but the f32 router cast to ``dtype``."""
     return {k: _cast_moe(v, dtype) if isinstance(v, dict)
@@ -4090,7 +4259,8 @@ def main(argv=None) -> int:
     emit("phase_done", name="ssd_backward", s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_grad_check(dev, args.seed, SSM_MODEL)
-    ssm_train = phase_training(dev, args.seed, SSM_MODEL, SSM_TRAIN_STEPS)
+    ssm_train = phase_training(dev, args.seed, SSM_MODEL, SSM_TRAIN_STEPS,
+                               n_periods=SSM_TRAIN_PERIODS)
     emit("phase_done", name="mamba2_training", s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     rg_cfg = get_config(RG_MODEL)
@@ -4154,6 +4324,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_sharded_train(dev, args.seed, card)
     emit("phase_done", name="sharded_train", s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_sharded_mixers(dev, args.seed, card)
+    emit("phase_done", name="sharded_mixers", s=time.perf_counter() - t0)
 
     def path_row(m, launches):
         return {"shape": m["shape"], "launches": launches, "ms": m["kernel_ms"],

@@ -33,9 +33,21 @@ over the data axes are all-reduced over them, of FSDP leaves over "pod".
 Both run one step body: without a mesh its layout (``_Layout``) takes
 every row, keeps the leaves whole and reduces nothing, and an axis of
 one rank is skipped the same way, so a (1, 1) mesh computes as one card.
-TP inside the SSM, RG-LRU and MLA mixers, MoE on data axes of more than
-one rank, the expert-parallel backward and the prefill and decode steps
-on a mesh wait for ROADMAP A11c and are refused.
+Every mixer runs tensor-parallel over "model" (attention, MLA and SSM
+over heads, RG-LRU over its width).  A leaf replicated over TP whose
+per-rank gradient is partial, because each rank uses it only for its
+own heads or tokens, has that gradient summed over TP
+(:func:`_tp_partial_flags`): attention's replicated kv projections,
+SSM's ``wB``, ``wC``, ``conv_w`` and ``conv_b``, MLA's ``wkv_a`` and
+``kv_norm``, and the router of the a2a MoE path.  A replicated leaf used
+whole on identical activations (a norm's scale, the gather path's
+router) is not summed.  The MoE layers route over the step's rows
+(``ShardCtx.row_axes``): the dense path routes the whole microbatch from
+each rank's block of it, as the reference's GSPMD layout does, and the
+expert-parallel paths route each (data block, TP slice) on its own, as
+the reference's ``shard_map`` bodies do, their balance losses averaged
+over the ranks.  The prefill and decode steps on a mesh wait for
+ROADMAP A11d and are refused.
 
 ``make_prefill_step`` and ``make_decode_step`` are the reference's
 serving steps (the serve launcher's prefill and greedy decode), and
@@ -52,7 +64,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models import ModelConfig, ShapeConfig, decode_step, forward, logits_fn
-from repro_torch.models import attention, moe
+from repro_torch.models import attention, mla, moe, ssm
 from repro_torch.models.ctx import ShardCtx
 from repro_torch.models.layers import chunked_ce_loss
 from repro_torch.models.param import default_device
@@ -136,7 +148,7 @@ def make_train_step(
         raise ValueError(f"global batch {B} does not split into {n_mb} microbatches")
     if zero1 and mesh is None:
         raise ValueError("zero1 shards the optimizer state: it needs a mesh")
-    lay = _Layout(cfg, B // n_mb, mesh, zero1)
+    lay = _Layout(cfg, B // n_mb, shape.seq_len, mesh, zero1)
 
     def train_step(params: Dict[str, Any], opt_state: OptState,
                    batch: Dict[str, Any], ef_state: Optional[EFState] = None):
@@ -178,26 +190,6 @@ def make_train_step(
     return train_step
 
 
-def _refuse_on_mesh(cfg: ModelConfig, ctx: ShardCtx) -> None:
-    """The layers the sharded step does not cut yet (ROADMAP A11c)."""
-    blocks = (*cfg.prelude, *cfg.pattern, *cfg.postlude)
-    if any(b.ffn == "moe" for b in blocks):
-        if ctx.dp_size() > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE on data axes of {ctx.dp_size()} ranks waits for "
-                "ROADMAP A11c (capacity, queue positions and the balance loss "
-                "over the whole microbatch, not each rank's rows)")
-        if moe._expert_parallel(ctx.mesh, ctx.tp_axis, cfg.moe.n_experts):
-            raise NotImplementedError(
-                f"{cfg.name}: the expert-parallel MoE backward waits for "
-                "ROADMAP A11c")
-    mixers = sorted({b.mixer for b in blocks} & {"ssm", "rglru", "mla"})
-    if mixers and ctx.tp_size() > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism inside the {'/'.join(mixers)} "
-            f"mixer waits for ROADMAP A11c (model axis of {ctx.tp_size()})")
-
-
 def _fsdp_dim(spec, axis: Optional[str]) -> Optional[int]:
     """The dim ``spec`` shards over the FSDP ``axis``, or None."""
     for d, e in enumerate(spec):
@@ -206,17 +198,27 @@ def _fsdp_dim(spec, axis: Optional[str]) -> Optional[int]:
     return None
 
 
-def _tp_partial_flags(cfg: ModelConfig, specs: Dict[str, Any], tp: int):
-    """``specs``' tree with True at the leaves each TP rank uses only in
-    part (:func:`models.attention.tp_partial`), False elsewhere."""
-    names = attention.tp_partial(cfg, tp)
+def _tp_partial_flags(cfg: ModelConfig, specs: Dict[str, Any], tp: int,
+                      seq_len: int):
+    """``specs``' tree with True at the leaves replicated over TP whose
+    per-rank gradient is partial (each mixer's ``tp_partial``, the MoE
+    router's by ``seq_len``), False elsewhere."""
+    attn = attention.tp_partial(cfg, tp)
+    partial = {"attn": attn, "local": attn}
+    if cfg.mla is not None:
+        partial["mla"] = mla.tp_partial(cfg, tp)
+    if cfg.ssm is not None:
+        partial["ssm"] = ssm.tp_partial(cfg, tp)
+    router = moe.tp_partial(cfg, tp, seq_len) if cfg.moe is not None else ()
     flags = _map_specs(lambda s: False, specs)
     for part, blocks in (("prelude", cfg.prelude), ("body", cfg.pattern),
                          ("postlude", cfg.postlude)):
         for tree, blk in zip(flags[part], blocks):
-            if blk.mixer in ("attn", "local"):
-                for n in names:
-                    tree["mixer"][n] = True
+            for n in partial.get(blk.mixer, ()):
+                tree["mixer"][n] = True
+            if blk.ffn == "moe":
+                for n in router:
+                    tree["ffn"][n] = True
     return flags
 
 
@@ -227,7 +229,8 @@ class _Layout:
     leaves, nothing reduced.  An axis of one rank costs nothing: a block
     over it is the whole leaf, so its leaves stay plain tensors."""
 
-    def __init__(self, cfg: ModelConfig, rows_per_mb: int, mesh, zero1: bool):
+    def __init__(self, cfg: ModelConfig, rows_per_mb: int, seq_len: int, mesh,
+                 zero1: bool):
         self.mesh, self.zero1 = mesh, zero1
         self.rows, self.replicas = slice(None), 1
         self.ctx = self.across = self.fsdp_axis = self.fsdp_group = None
@@ -235,11 +238,9 @@ class _Layout:
         if mesh is None:
             return
         self.cfg = cfg
-        self.ctx = dataclasses.replace(make_ctx(mesh), zero1=zero1)
-        _refuse_on_mesh(cfg, self.ctx)
         sizes = mesh_shape(mesh)
         dp_axes = tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
-        dp = self.ctx.dp_size()
+        dp = make_ctx(mesh).dp_size()
         if rows_per_mb % dp:  # every data rank runs the whole microbatch
             self.replicas = dp
         elif dp > 1:  # each data rank its own rows, in (pod, data) order
@@ -248,12 +249,15 @@ class _Layout:
                 row0 = row0 * sizes[a] + mesh.get_local_rank(a)
             n = rows_per_mb // dp
             self.rows, self.loss_axes = slice(row0 * n, (row0 + 1) * n), dp_axes
+        self.ctx = dataclasses.replace(make_ctx(mesh), zero1=zero1,
+                                       row_axes=self.loss_axes)
         _, fsdp, _ = mesh_axes(mesh)
         if fsdp is not None and sizes[fsdp] > 1:
             self.fsdp_axis, self.fsdp_group = fsdp, mesh.get_group(fsdp)
         self.specs = param_pspecs(cfg, mesh)
         spec_list = spec_leaves(self.specs)
-        partial = tree_leaves(_tp_partial_flags(cfg, self.specs, self.ctx.tp_size()))
+        partial = tree_leaves(_tp_partial_flags(cfg, self.specs, self.ctx.tp_size(),
+                                                seq_len))
         tp = ("model",) if sizes.get("model", 1) > 1 else ()
         # FSDP leaves were reduce-scattered over the FSDP axis in backward;
         # a leaf each TP rank used in part sums over TP too
@@ -320,7 +324,8 @@ class _Layout:
 
 def _refuse_mesh(mesh, what: str) -> None:
     if mesh is not None:
-        raise NotImplementedError(f"the {what} step on a mesh waits for ROADMAP A11c")
+        raise NotImplementedError(f"the {what} step on a mesh waits for ROADMAP A11d "
+                                  "(the sequence-sharded KV cache of cache_pspecs)")
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
@@ -330,7 +335,7 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
     the cache tree of ``forward(collect_cache=True)``, ``cache_len`` rows
     long (default: the prompt's; more leaves decode headroom).  It runs
     where ``params`` and the batch's ``tokens`` lie, in the weights' own
-    type.  A ``mesh`` is refused (ROADMAP A11c)."""
+    type.  A ``mesh`` is refused (ROADMAP A11d)."""
     _refuse_mesh(mesh, "prefill")
 
     def prefill_step(params: Dict[str, Any], batch: Dict[str, Any]):
@@ -345,7 +350,7 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> Callabl
     """The greedy decode step ``(params, tokens (B, 1), cache, t) ->
     (next tokens (B, 1) int32, cache)``: one ``decode_step`` at position
     ``t`` (the cache's layers are written in place) and the argmax of its
-    logits.  A ``mesh`` is refused (ROADMAP A11c)."""
+    logits.  A ``mesh`` is refused (ROADMAP A11d)."""
     _refuse_mesh(mesh, "decode")
 
     def serve_step(params: Dict[str, Any], tokens: torch.Tensor,

@@ -18,15 +18,16 @@ as a Marvel-style stateful application:
 Every token-frontend configuration trains: dense attention and MLA on
 the flash backward kernel (MLA at q/k 192 against v 128), Mamba-2 on the
 SSD chunk's backward kernel, RG-LRU as a scan of torch ops, MoE through
-its dense path (deterministic under ``backward()``).
+its dense path (deterministic under ``backward()``), or expert-parallel on
+a mesh whose TP divides the experts.
 
 ``--mesh D M`` trains on a (data, model) mesh of D·M ranks spawned on this
 host (``torch.multiprocessing``, ``spawn``), which meet through a
 rendezvous file: NCCL with rank r on card r, or gloo with ``--device
 cpu``; the sharded step of ``launch.steps`` (the reference's FSDP×TP
-step).  ``--full-mesh`` asks for the production 16×16 mesh: 256 ranks,
-one card each, refused where the host has fewer cards and always with
-``--device cpu``.  Checkpoints keep the
+step), for every ``--arch``.  ``--full-mesh`` asks for the production
+16×16 mesh: 256 ranks, one card each, refused where the host has fewer
+cards and always with ``--device cpu``.  Checkpoints keep the
 one-process blob format (the reference's leaves): rank 0 writes the whole
 tree, gathered one leaf at a time, and every rank restores it by reading
 the checkpoint and keeping its own blocks, so a checkpoint written on one

@@ -39,7 +39,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.ctx import ShardCtx
+from repro_torch.models.ctx import ShardCtx, gather_whole
 from repro_torch.models.layers import apply_rope, chunked_attention, decode_attention
 from repro_torch.models.param import FSDP, TP, ParamDef
 from repro_torch.models.quant_cache import (
@@ -47,7 +47,7 @@ from repro_torch.models.quant_cache import (
     quant_decode_attention,
     quantize_kv,
 )
-from repro_torch.parallel.collectives import copy_to_tp, gather_from_tp, reduce_from_tp
+from repro_torch.parallel.collectives import copy_to_tp, reduce_from_tp
 
 __all__ = ["AttnCache", "attn_defs", "attn_apply", "attn_decode",
            "init_attn_cache", "tp_partial", "DEFAULT_TP"]
@@ -131,19 +131,6 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
                  for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
 
 
-def _whole_over_tp(p, cfg: ModelConfig, ctx: ShardCtx):
-    """``p`` with every leaf cut over TP gathered whole (head_dim mode)."""
-    defs = attn_defs(cfg)
-    group = ctx.group(ctx.tp_axis)
-    out = {}
-    for name, t in p.items():
-        for d, (n, whole) in enumerate(zip(t.shape, defs[name].shape)):
-            if n < whole:
-                t = gather_from_tp(t, group, d)
-        out[name] = t
-    return out
-
-
 def _heads_tp(p, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx, group):
     """q, k, v of this rank's q heads, TP over heads (see the module
     docstring), and the first of those heads."""
@@ -208,7 +195,7 @@ def attn_apply(
         q, k, v, h0 = _heads_tp(p, x, cfg, ctx, group)
     else:
         if ctx is not None and ctx.tp_size() > 1:
-            p = _whole_over_tp(p, cfg, ctx)
+            p = gather_whole(p, attn_defs(cfg), ctx)
         q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)

@@ -5,7 +5,8 @@ The port of ``repro/models/ctx.py``.  The mesh is a
 :class:`torch.distributed.device_mesh.DeviceMesh` (or None on one
 device).  The context also hands out each axis's process group and this
 rank's coordinate on it, which the layers that write their collectives
-explicitly (the MoE expert-parallel paths) need.
+explicitly (every sharded layer of the train step) need, and the train
+step's row layout (``row_axes``), which the MoE layers route over.
 
 ``constrain`` follows the reference's rules; for a ``DTensor`` it
 redistributes to the placements they give, and it leaves a plain tensor
@@ -17,12 +18,14 @@ whole value, with no layout to steer).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-__all__ = ["ShardCtx", "constrain"]
+from repro_torch.parallel.collectives import gather_from_tp
+
+__all__ = ["ShardCtx", "constrain", "gather_whole"]
 
 
 @dataclass(frozen=True)
@@ -36,6 +39,13 @@ class ShardCtx:
     #: weights arrive pre-gathered (TP-only layout) — ZeRO-1 step layout;
     #: MoE then skips its FSDP gathers
     zero1: bool = False
+    #: None: the layers take whole inputs, the same on every rank (the
+    #: expert-parallel paths called on their own block them); else the
+    #: sharded train step's layout: each rank's input rows are its own
+    #: block of the microbatch over these data axes (() where every data
+    #: rank holds the whole microbatch), and its weights arrive gathered
+    #: over FSDP
+    row_axes: Optional[Tuple[str, ...]] = None
 
     def _has(self, axis: str) -> bool:
         return self.mesh is not None and axis in self.mesh.mesh_dim_names
@@ -67,13 +77,28 @@ class ShardCtx:
         """The TP process group when a weight dim the model sizes ``whole``
         arrives cut to ``local`` (the sharded train step hands the layers
         their TP shards), else None (one card, or whole weights as the
-        forward-only expert-parallel paths take them)."""
+        expert-parallel paths take them when called on their own)."""
         if self.tp_size() == 1 or local == whole:
             return None
         if local * self.tp_size() != whole:
             raise ValueError(f"a dim of {whole} arrived as {local} on TP "
                              f"{self.tp_size()}")
         return self.group(self.tp_axis)
+
+
+def gather_whole(p: Dict[str, Any], defs: Dict[str, Any], ctx: ShardCtx):
+    """``p`` with every leaf that arrived cut over TP (smaller than its
+    ``defs`` shape) gathered whole along that dim (``gather_from_tp``:
+    every TP rank then repeats the layer on the whole).  A mixer whose
+    TP layout does not hold on this mesh runs so."""
+    group = ctx.group(ctx.tp_axis)
+    out = {}
+    for name, t in p.items():
+        for d, (n, whole) in enumerate(zip(t.shape, defs[name].shape)):
+            if n < whole:
+                t = gather_from_tp(t, group, d)
+        out[name] = t
+    return out
 
 
 def constrain(x: torch.Tensor, ctx: Optional[ShardCtx], *entries) -> torch.Tensor:

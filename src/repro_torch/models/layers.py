@@ -19,12 +19,14 @@ import functools
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.param import FSDP, TP, ParamDef
-from repro_torch.parallel.collectives import all_reduce, copy_to_tp, reduce_from_tp
+from repro_torch.parallel.collectives import (
+    all_reduce, copy_to_tp, reduce_from_tp, reduce_partial)
 
 __all__ = [
     "rms_norm",
@@ -43,10 +45,16 @@ __all__ = [
 # -- norms ---------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
-             plus_one: bool = False) -> torch.Tensor:
-    """RMSNorm in fp32; ``plus_one`` uses the gemma ``(1 + scale)`` form."""
+             plus_one: bool = False, tp_group=None) -> torch.Tensor:
+    """RMSNorm in fp32; ``plus_one`` uses the gemma ``(1 + scale)`` form.
+    With ``tp_group`` the last dim (and ``scale``) is this rank's block of
+    channels cut over TP: the mean square is taken over every rank's."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if tp_group is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ss = reduce_partial(torch.sum(xf * xf, dim=-1, keepdim=True), tp_group)
+        var = ss / (xf.shape[-1] * dist.get_world_size(tp_group))
     normed = xf * torch.rsqrt(var + eps)
     s = scale.float()
     if plus_one:

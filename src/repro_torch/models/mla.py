@@ -9,6 +9,17 @@ calls its XLA twin of the Pallas kernel here).  ``k_pe`` is broadcast to
 every head by the concatenation, so K is one contiguous tensor whose
 strides TMA takes.
 
+In the sharded train step (``ctx`` with a TP axis of more than one rank
+dividing the heads) the block runs tensor-parallel over the heads, as the
+parameter specs lay it out: ``wq``, ``wk_b`` and ``wv_b`` this rank's
+heads, ``wo`` row-parallel (``reduce_from_tp``), the flash kernel on the
+rank's ``H/tp`` heads with ``k_pe`` expanded to those heads only.
+``wkv_a`` and ``kv_norm`` stay whole: every rank computes the latents,
+and uses them only for its own heads.  The input passes ``copy_to_tp``,
+so those two leaves' gradients are partial there (:func:`tp_partial`),
+and the train step sums them over TP.  Where TP does not divide the
+heads, the cut leaves are gathered whole and every rank runs every head.
+
 Decode uses the *absorbed* form, as torch ops, as the reference computes
 it outside any kernel: queries are projected into the latent space, so
 attention runs over the ``(B, S, kv_lora_rank + rope_dim)`` cache in f32.
@@ -25,10 +36,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ctx import ShardCtx, gather_whole
 from repro_torch.models.layers import apply_rope, chunked_attention, rms_norm
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device
+from repro_torch.parallel.collectives import copy_to_tp, reduce_from_tp
 
-__all__ = ["mla_defs", "mla_apply", "mla_decode", "init_mla_cache", "MLACache"]
+__all__ = ["mla_defs", "mla_apply", "mla_decode", "init_mla_cache", "MLACache",
+           "tp_partial"]
 
 MASK_VALUE = -1e30
 
@@ -45,6 +59,14 @@ def mla_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
         "wv_b": ParamDef((m.kv_lora_rank, H, m.v_head_dim), (None, TP, None)),
         "wo": ParamDef((H, m.v_head_dim, D), (TP, None, FSDP)),
     }
+
+
+def tp_partial(cfg: ModelConfig, tp: int) -> Tuple[str, ...]:
+    """The leaves replicated over a TP axis of ``tp`` ranks that each rank
+    uses only for its own heads: their gradients sum over TP."""
+    if tp == 1 or cfg.n_heads % tp:
+        return ()
+    return ("wkv_a", "kv_norm")
 
 
 def _scale(cfg: ModelConfig) -> float:
@@ -71,15 +93,22 @@ def mla_apply(
     *,
     collect_cache: bool = False,
     cache_len: Optional[int] = None,
+    ctx: Optional[ShardCtx] = None,
 ):
     """Expanded-form MLA (prefill), through the flash kernel.
 
     With ``collect_cache`` also returns the compressed ``(c_kv, k_pe)``
-    cache the absorbed-form decode reads, ``cache_len`` rows long."""
+    cache the absorbed-form decode reads, ``cache_len`` rows long.  With
+    ``ctx`` the weights may arrive as TP shards (module docstring)."""
     m = cfg.mla
     B, T, D = x.shape
-    H = cfg.n_heads
     r, dr = m.kv_lora_rank, m.qk_rope_head_dim
+    group = None if ctx is None else ctx.tp_group(p["wq"].shape[1], cfg.n_heads)
+    if group is None and ctx is not None and ctx.tp_size() > 1:
+        p = gather_whole(p, mla_defs(cfg), ctx)
+    if group is not None:
+        x = copy_to_tp(x, group)
+    H = p["wq"].shape[1]  # this rank's heads
     pos = torch.arange(T, device=x.device)[None, :]
     q = _heads(x, p["wq"])  # (B, T, H, dq)
     q_nope, q_pe = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
@@ -96,6 +125,8 @@ def mla_apply(
     o = chunked_attention(q_full, k, v, causal=cfg.causal, scale=_scale(cfg))
     wo = p["wo"]  # (H, dv, D)
     out = o.reshape(B, T, -1) @ wo.reshape(-1, wo.shape[-1])
+    if group is not None:
+        out = reduce_from_tp(out, group)
     if not collect_cache:
         return out
     pad = (cache_len or T) - T

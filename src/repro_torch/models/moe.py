@@ -16,14 +16,20 @@ EP dispatch *is* the paper's shuffle (``core/device_shuffle.py``): tokens
 are intermediate data routed to their owner, the expert.  The reference
 writes the sharded paths as ``shard_map`` bodies; here each rank runs the
 body on its block with the collectives over the mesh axes' process
-groups.  Outside the MoE layer activations are replicated on every rank:
-a sharded path takes the whole ``x``, works on the rank's block as the
-reference's ``in_specs`` lay it out, and all-gathers its output back to
-``(B, T, D)``.  Each rank holds only its ``E/tp`` experts, sliced over the
+groups, each an autograd Function (``parallel.collectives``), so every
+path trains.  Called on their own, the sharded paths take the whole
+``x``, replicated on every rank, work on the rank's block as the
+reference's ``in_specs`` lay it out, and all-gather their output back to
+``(B, T, D)``; each rank holds only its ``E/tp`` experts, sliced over the
 last data axis too unless ``zero1`` (:func:`shard_params` cuts them), and
 gathers the FSDP slices inside the layer, as the reference's manual
-ZeRO-3 gather does.  The sharded paths run forward only: plain
-``all_to_all_single`` carries no gradient, so they refuse autograd.
+ZeRO-3 gather does.  In the sharded train step (``row_axes``) each rank
+already holds its own rows of the microbatch and its experts gathered
+over FSDP, so the layer neither blocks nor gathers over the data axes.
+There the dense path, on data axes of more than one rank, routes the
+whole microbatch, as the reference's GSPMD layout of it does
+(:func:`_route_global`): only the per-expert entry counts and the
+probabilities' sums cross the ranks.
 
 The dispatch is the reference's, so the same tokens reach the same
 experts and the same ones are dropped: a stable sort of the (token, slot)
@@ -62,20 +68,20 @@ the reference.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import mlp_apply, mlp_defs
 from repro_torch.models.param import FSDP, TP, ParamDef
-from repro_torch.parallel.collectives import all_gather, mesh_axis, pmean
-from repro_torch.tree import tree_leaves
+from repro_torch.parallel.collectives import (
+    all_gather, all_to_all, copy_to_tp, gather_from_tp, gather_shard, mesh_axis,
+    reduce_from_tp)
 
 __all__ = ["moe_defs", "moe_apply", "moe_apply_dense", "moe_apply_a2a",
-           "moe_apply_gather", "shard_params"]
+           "moe_apply_gather", "shard_params", "tp_partial"]
 
 
 def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -92,9 +98,9 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return defs
 
 
-def _route(xf: torch.Tensor, router: torch.Tensor, m: MoEConfig):
-    """Top-k routing.  Returns (weights (N, k) f32, experts (N, k) int64,
-    aux).  The top k are taken by a stable descending sort, so equal
+def _top_k(xf: torch.Tensor, router: torch.Tensor, m: MoEConfig):
+    """(probabilities (N, E) f32, weights (N, k) f32, experts (N, k)
+    int64).  The top k are taken by a stable descending sort, so equal
     probabilities rank by expert id, as ``jax.lax.top_k`` ranks them."""
     logits = xf.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
@@ -102,6 +108,13 @@ def _route(xf: torch.Tensor, router: torch.Tensor, m: MoEConfig):
     w, idx = w[:, : m.top_k], idx[:, : m.top_k]
     if m.normalize_top_k:
         w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    return probs, w, idx
+
+
+def _route(xf: torch.Tensor, router: torch.Tensor, m: MoEConfig):
+    """Top-k routing (:func:`_top_k`).  Returns (weights (N, k) f32,
+    experts (N, k) int64, aux)."""
+    probs, w, idx = _top_k(xf, router, m)
     # load-balance aux (Switch-style): E * sum_e f_e * p_e
     E = probs.shape[-1]
     f = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
@@ -125,17 +138,22 @@ def _pack_by_group(
     groups: torch.Tensor,  # (M,) int group id, or a larger sentinel for none
     n_groups: int,
     capacity: int,
+    ahead: Optional[torch.Tensor] = None,
 ):
     """Sort-based capacity packing.  Returns (order, grp_sorted, pos, keep):
     the stable order by group, the sorted group ids, each sorted entry's
-    position in its group's run, and whether it fits the capacity."""
+    position in its group's run, and whether it fits the capacity.
+    ``ahead`` (n_groups,) counts the entries queued in each group before
+    these (earlier ranks' rows): an entry's place in the queue is that
+    plus its position."""
     order = torch.argsort(groups, stable=True)
     gs = groups[order]
     starts = torch.searchsorted(
         gs, torch.arange(n_groups + 1, dtype=gs.dtype, device=gs.device))
     pos = torch.arange(groups.shape[0], device=gs.device) \
         - starts[torch.clamp(gs, max=n_groups)]
-    keep = (pos < capacity) & (gs < n_groups)
+    queue = pos if ahead is None else pos + ahead[torch.clamp(gs, max=n_groups - 1)]
+    keep = (queue < capacity) & (gs < n_groups)
     return order, gs, pos, keep
 
 
@@ -198,20 +216,61 @@ class _Combine(torch.autograd.Function):
         return gy[: ctx.n_slots], None, None
 
 
+def _route_global(xf: torch.Tensor, router: torch.Tensor, m: MoEConfig, mesh,
+                  row_axes: Tuple[str, ...]):
+    """The reference's dense route of the whole microbatch, from this rank's
+    block of its rows (``xf``, the ranks' blocks in ``row_axes`` order, the
+    first the major one): one capacity over every token, each entry's
+    place in its expert's queue in global (token, slot) order (the
+    entries of the ranks before this one first), and the balance loss over
+    every token.  Returns (weights, experts, aux, capacity, the pack of
+    :func:`_pack_by_group`).  Only the per-expert entry counts cross the
+    ranks, and the probabilities' sums: those through ``reduce_from_tp``,
+    so each rank's gradient of the loss reaches its own rows."""
+    probs, w, idx = _top_k(xf, router, m)
+    E, M = probs.shape[-1], idx.numel()
+    counts = torch.bincount(idx.reshape(M), minlength=E)[None]
+    me = 0
+    for a in row_axes:
+        size, _, coord = mesh_axis(mesh, a)
+        me = me * size + coord
+    for a in reversed(row_axes):
+        counts = all_gather(counts, mesh_axis(mesh, a)[1], 0)
+    n_all = xf.shape[0] * counts.shape[0]  # tokens of the microbatch
+    cap = max(1, int(math.ceil(n_all * m.top_k / E * m.capacity_factor)))
+    pack = _pack_by_group(idx.reshape(M), E, cap, counts[:me].sum(dim=0))
+    p_sum = probs.sum(dim=0)
+    for a in row_axes:
+        p_sum = reduce_from_tp(p_sum, mesh_axis(mesh, a)[1])
+    f = counts.sum(dim=0).float() / n_all
+    aux = E * torch.sum(f * (p_sum / n_all))
+    return w, idx, aux, cap, pack
+
+
 def moe_apply_dense(
-    p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
+    p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, mesh=None,
+    row_axes: Tuple[str, ...] = (), shared_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-packed per-expert compute on one device.  x: (B, T, D) ->
-    (out (B, T, D), aux loss)."""
+    (out (B, T, D), aux loss).  With ``row_axes`` (axes of ``mesh``), ``x``
+    is this rank's block of a microbatch's rows split over them, routed as
+    the whole microbatch (:func:`_route_global`); each rank runs its own
+    kept entries through the experts.  ``shared_group``: the TP group the
+    shared expert's weights are cut over, or None."""
     m = cfg.moe
     B, T, D = x.shape
     N = B * T
     k, E = m.top_k, m.n_experts
     xf = x.reshape(N, D)
-    w, idx, aux = _route(xf, p["router"], m)
     M = N * k
-    cap = max(1, int(math.ceil(M / E * m.capacity_factor)))
-    order, gs, pos, keep = _pack_by_group(idx.reshape(M), E, cap)
+    row_axes = tuple(a for a in row_axes if mesh_axis(mesh, a)[0] > 1)
+    if row_axes:
+        w, idx, aux, cap, (order, gs, pos, keep) = _route_global(
+            xf, p["router"], m, mesh, row_axes)
+    else:
+        w, idx, aux = _route(xf, p["router"], m)
+        cap = max(1, int(math.ceil(M / E * m.capacity_factor)))
+        order, gs, pos, keep = _pack_by_group(idx.reshape(M), E, cap)
     # each sorted entry's row of the experts' (E·cap) slots, E·cap where
     # dropped (a mask by index, not by a boolean selection: no
     # device-to-host sync)
@@ -223,9 +282,13 @@ def moe_apply_dense(
     per_slot = _Combine.apply(y.reshape(E * cap, D), order, slot)
     per_slot = per_slot * w.reshape(M, 1).to(y.dtype)
     out = per_slot.reshape(N, k, D).sum(dim=1).reshape(B, T, D).to(x.dtype)
-    if m.n_shared:
-        out = out + mlp_apply(p["shared"], x, cfg.act)
-    return out, aux
+    return _add_shared(out, p, x, cfg, shared_group), aux
+
+
+def _add_shared(out, p, x, cfg: ModelConfig, shared_group):
+    if not cfg.moe.n_shared:
+        return out
+    return out + mlp_apply(p["shared"], x, cfg.act, shared_group)
 
 
 # -- sharded paths ---------------------------------------------------------
@@ -244,14 +307,6 @@ def _block(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return t.narrow(dim, idx * b, b)
 
 
-def _unblock(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
-    """The inverse of :func:`_block`: the blocks of every rank along
-    ``axes`` gathered back along ``dim``."""
-    for a in reversed(tuple(axes)):
-        t = all_gather(t, mesh_axis(mesh, a)[1], dim)
-    return t
-
-
 def _expert_parallel(mesh, tp_axis: str, n_experts: int) -> bool:
     """The reference's rule: experts are split over TP only with a TP axis
     of more than one rank that divides them; else the dense path runs."""
@@ -259,6 +314,15 @@ def _expert_parallel(mesh, tp_axis: str, n_experts: int) -> bool:
         return False
     tp = mesh_axis(mesh, tp_axis)[0]
     return tp > 1 and n_experts % tp == 0
+
+
+def tp_partial(cfg: ModelConfig, tp: int, seq_len: int) -> Tuple[str, ...]:
+    """The leaves replicated over a TP axis of ``tp`` ranks whose gradient
+    each rank computes only in part at sequence length ``seq_len``: the
+    router on the a2a path, which routes each TP rank's own tokens."""
+    if tp > 1 and cfg.moe.n_experts % tp == 0 and seq_len % tp == 0:
+        return ("router",)
+    return ()
 
 
 def shard_params(p: Dict[str, torch.Tensor], mesh, dp_axes=("data",),
@@ -283,30 +347,57 @@ def shard_params(p: Dict[str, torch.Tensor], mesh, dp_axes=("data",),
     return out
 
 
-def _gather_experts(p, mesh, fsdp_axes):
-    """Manual ZeRO gather of the router and expert weights over the FSDP
-    axis/axes."""
-    router, wg, wu, wd = p["router"], p["w_gate"], p["w_up"], p["w_down"]
-    for ax in fsdp_axes:
-        group = mesh_axis(mesh, ax)[1]
-        router = all_gather(router, group, 0)
-        wg = all_gather(wg, group, 1)
-        wu = all_gather(wu, group, 1)
-        wd = all_gather(wd, group, 2)
-    return router, wg, wu, wd
+def _ep_inputs(p, x: torch.Tensor, mesh, dp_axes, tp_axis: str, zero1: bool,
+               row_axes, router_over_tp: bool):
+    """(this rank's rows of ``x``, the router, the experts' three weights,
+    the data axes the rows are split over) for an expert-parallel path.
+
+    In the train step (``row_axes`` given) ``x`` is already the rank's
+    rows and the weights arrive gathered over FSDP.  Else ``x`` is the
+    whole input on every rank and ``p`` holds :func:`shard_params`'s
+    slices: the rank takes its block of rows, gathers the FSDP slices
+    (``gather_shard``: the gradient reduce-scattered back), and the
+    gradients of ``x`` and of the weights sum over the data ranks whose
+    rows they served (over TP too for the router, ``router_over_tp``, when
+    each TP rank routes its own tokens): ``copy_to_tp`` over those axes."""
+    experts = (p["w_gate"], p["w_up"], p["w_down"])
+    if row_axes is not None:
+        return x, p["router"], experts, tuple(row_axes)
+    fsdp = () if zero1 else tuple(dp_axes[-1:])
+    others = tuple(a for a in dp_axes if a not in fsdp)
+    for a in dp_axes:
+        x = copy_to_tp(x, mesh_axis(mesh, a)[1])
+
+    def whole(t, dim, over=()):
+        for a in others + over:
+            t = copy_to_tp(t, mesh_axis(mesh, a)[1])
+        for a in fsdp:
+            t = gather_shard(t, t.dtype, dim, mesh_axis(mesh, a)[1])
+        return t
+
+    router = whole(p["router"], 0, (tp_axis,) if router_over_tp else ())
+    experts = tuple(whole(t, d) for t, d in zip(experts, (1, 1, 2)))
+    return _block(x, mesh, dp_axes, 0), router, experts, tuple(dp_axes)
 
 
-def _refuse_autograd(p, x: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and (
-            x.requires_grad or any(t.requires_grad for t in tree_leaves(p))):
-        raise NotImplementedError(
-            "the expert-parallel MoE paths run forward only: their "
-            "all_to_all_single carries no gradient (run under torch.no_grad)")
+def _ep_output(out: torch.Tensor, mesh, dp_axes, row_axes) -> torch.Tensor:
+    """The path's output for its caller: this rank's rows in the train step,
+    else every rank's blocks gathered back to the whole (the backward keeps
+    the rank's block: every rank computes the same loss from the whole)."""
+    if row_axes is not None:
+        return out
+    for a in reversed(tuple(dp_axes)):
+        out = gather_from_tp(out, mesh_axis(mesh, a)[1], 0)
+    return out
 
 
 def _aux_mean(aux: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The mean of the ranks' balance losses over ``axes``; each rank's
+    gradient reaches its own share (``reduce_from_tp``)."""
     for a in axes:
-        aux = pmean(aux, mesh_axis(mesh, a)[1])
+        size, group, _ = mesh_axis(mesh, a)
+        if size > 1:
+            aux = reduce_from_tp(aux, group) / size
     return aux
 
 
@@ -318,11 +409,18 @@ def moe_apply_a2a(
     dp_axes: Tuple[str, ...],
     tp_axis: str,
     zero1: bool = False,
+    row_axes: Optional[Tuple[str, ...]] = None,
+    shared_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """EP via two all-to-alls; tokens sequence-sharded along TP.  ``p``
-    holds this rank's slices (:func:`shard_params`); ``x`` is the whole
-    (B, T, D) input, and so is the output, on every rank."""
-    _refuse_autograd(p, x)
+    """EP via two all-to-alls; tokens sequence-sharded along TP.  Without
+    ``row_axes``, ``p`` holds this rank's slices (:func:`shard_params`)
+    and ``x`` is the whole (B, T, D) input, and so is the output, on every
+    rank; with them (the train step) ``x`` and the output are this rank's
+    rows and ``p`` its experts gathered over FSDP (:func:`_ep_inputs`).
+    Each TP rank routes its ``T/tp`` tokens: its slice of an input every
+    TP rank holds whole, so the input's gradient sums over TP
+    (``copy_to_tp``), and the slices' outputs are gathered back along
+    ``T`` (``gather_from_tp``)."""
     m = cfg.moe
     B, T, D = x.shape
     k, E = m.top_k, m.n_experts
@@ -331,9 +429,9 @@ def moe_apply_a2a(
         raise ValueError(f"the a2a MoE path needs {E} experts and seq {T} "
                          f"divisible by TP {tp}")
     E_loc = E // tp
-    fsdp_axes = () if zero1 else tuple(dp_axes[-1:])
-    router, wg, wu, wd = _gather_experts(p, mesh, fsdp_axes)
-    xl = _block(_block(x, mesh, dp_axes, 0), mesh, (tp_axis,), 1)
+    xl, router, (wg, wu, wd), axes = _ep_inputs(p, x, mesh, dp_axes, tp_axis,
+                                                zero1, row_axes, True)
+    xl = _block(copy_to_tp(xl, tp_group), mesh, (tp_axis,), 1)
     Bl, Tl, _ = xl.shape
     N = Bl * Tl
     M = N * k
@@ -346,38 +444,29 @@ def moe_apply_a2a(
     # ---- dispatch pack (by owner column); dropped entries to a spare row
     order, gs, pos, keep = _pack_by_group(e_flat // E_loc, tp, cap_s)
     slot = torch.where(keep, gs * cap_s + pos, tp * cap_s)
-    send_x = xf.new_zeros((tp * cap_s + 1, D))
-    send_x[slot] = xf[torch.div(order, k, rounding_mode="floor")]
+    send_x = _Dispatch.apply(xf, order, slot, k, tp * cap_s)
     send_e = torch.full((tp * cap_s + 1,), -1, dtype=torch.int64, device=x.device)
     send_e[slot] = e_flat[order]
-    recv_x = torch.empty_like(send_x[:-1])
-    recv_e = torch.empty_like(send_e[:-1])
-    dist.all_to_all_single(recv_x, send_x[:-1], group=tp_group)
-    dist.all_to_all_single(recv_e, send_e[:-1], group=tp_group)
+    recv_x = all_to_all(send_x, tp_group)
+    recv_e = all_to_all(send_e[:-1], tp_group)
 
     # ---- local expert grouping
     le = torch.where(recv_e >= 0, recv_e - my_col * E_loc, E_loc)
     order2, gs2, pos2, keep2 = _pack_by_group(le, E_loc, cap_e)
     slot2 = torch.where(keep2, gs2 * cap_e + pos2, E_loc * cap_e)
-    gx = xf.new_zeros((E_loc * cap_e + 1, D))
-    gx[slot2] = recv_x[order2]
-    y = _expert_ffn(gx[:-1].view(E_loc, cap_e, D), wg, wu, wd, cfg.act)
-    ret = torch.empty_like(recv_x)
-    ret[order2] = _rows(y.reshape(E_loc * cap_e, D), slot2).to(x.dtype)
-    back = torch.empty_like(ret)
-    dist.all_to_all_single(back, ret, group=tp_group)
+    gx = _Dispatch.apply(recv_x, order2, slot2, 1, E_loc * cap_e)
+    y = _expert_ffn(gx.view(E_loc, cap_e, D), wg, wu, wd, cfg.act)
+    ret = _Combine.apply(y.reshape(E_loc * cap_e, D), order2, slot2).to(x.dtype)
+    back = all_to_all(ret, tp_group)
 
     # ---- combine at source: each entry's row (0 where dropped), weighted,
     # summed over a token's k slots in a fixed order
-    got = xf.new_empty((M, D))
-    got[order] = _rows(back, slot)
+    got = _Combine.apply(back, order, slot)
     out = (got * w.reshape(M, 1).to(got.dtype)).view(N, k, D).sum(dim=1)
-    out = _unblock(_unblock(out.view(Bl, Tl, D), mesh, (tp_axis,), 1),
-                   mesh, dp_axes, 0)
-    aux = _aux_mean(aux, mesh, (tp_axis,) + tuple(dp_axes))
-    if m.n_shared:
-        out = out + mlp_apply(p["shared"], x, cfg.act)
-    return out, aux
+    out = gather_from_tp(out.view(Bl, Tl, D), tp_group, 1)
+    out = _ep_output(out, mesh, dp_axes, row_axes)
+    aux = _aux_mean(aux, mesh, (tp_axis,) + axes)
+    return _add_shared(out, p, x, cfg, shared_group), aux
 
 
 def moe_apply_gather(
@@ -388,11 +477,15 @@ def moe_apply_gather(
     dp_axes: Tuple[str, ...],
     tp_axis: str,
     zero1: bool = False,
+    row_axes: Optional[Tuple[str, ...]] = None,
+    shared_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """EP for decode-size T: tokens replicated over TP, each TP rank runs
-    its own experts, and an all-reduce over TP sums them.  ``p`` and ``x``
-    as for :func:`moe_apply_a2a`."""
-    _refuse_autograd(p, x)
+    its own experts, and an all-reduce over TP sums them.  ``p``, ``x``
+    and ``row_axes`` as for :func:`moe_apply_a2a`.  Every TP rank routes
+    the same tokens, so the router's gradient and the balance loss's are
+    whole on each; the gradients its own experts give the tokens and the
+    combine weights are its share, summed over TP (``copy_to_tp``)."""
     m = cfg.moe
     B, T, D = x.shape
     k, E = m.top_k, m.n_experts
@@ -400,9 +493,8 @@ def moe_apply_gather(
     if E % tp:
         raise ValueError(f"{E} experts do not split over TP {tp}")
     E_loc = E // tp
-    fsdp_axes = () if zero1 else tuple(dp_axes[-1:])
-    router, wg, wu, wd = _gather_experts(p, mesh, fsdp_axes)
-    xl = _block(x, mesh, dp_axes, 0)
+    xl, router, (wg, wu, wd), axes = _ep_inputs(p, x, mesh, dp_axes, tp_axis,
+                                                zero1, row_axes, False)
     Bl = xl.shape[0]
     N = Bl * T
     M = N * k
@@ -413,19 +505,14 @@ def moe_apply_gather(
     cap_e = max(1, int(math.ceil(M / E * m.capacity_factor)))
     order, gs, pos, keep = _pack_by_group(le, E_loc, cap_e)
     slot = torch.where(keep, gs * cap_e + pos, E_loc * cap_e)
-    gx = xf.new_zeros((E_loc * cap_e + 1, D))
-    gx[slot] = xf[torch.div(order, k, rounding_mode="floor")]
-    y = _expert_ffn(gx[:-1].view(E_loc, cap_e, D), wg, wu, wd, cfg.act)
-    vals = _rows(y.reshape(E_loc * cap_e, D), slot)
-    per = torch.empty_like(vals)
-    per[order] = vals * w.reshape(M)[order, None].to(vals.dtype)
-    contrib = per.view(N, k, D).sum(dim=1)
-    dist.all_reduce(contrib, op=dist.ReduceOp.SUM, group=tp_group)
-    out = _unblock(contrib.view(Bl, T, D).to(x.dtype), mesh, dp_axes, 0)
-    aux = _aux_mean(aux, mesh, dp_axes)
-    if m.n_shared:
-        out = out + mlp_apply(p["shared"], x, cfg.act)
-    return out, aux
+    gx = _Dispatch.apply(copy_to_tp(xf, tp_group), order, slot, k, E_loc * cap_e)
+    y = _expert_ffn(gx.view(E_loc, cap_e, D), wg, wu, wd, cfg.act)
+    per = _Combine.apply(y.reshape(E_loc * cap_e, D), order, slot)
+    per = per * copy_to_tp(w, tp_group).reshape(M, 1).to(per.dtype)
+    contrib = reduce_from_tp(per.view(N, k, D).sum(dim=1), tp_group)
+    out = _ep_output(contrib.view(Bl, T, D).to(x.dtype), mesh, dp_axes, row_axes)
+    aux = _aux_mean(aux, mesh, axes)
+    return _add_shared(out, p, x, cfg, shared_group), aux
 
 
 def moe_apply(
@@ -436,13 +523,17 @@ def moe_apply(
     dp_axes: Tuple[str, ...] = ("data",),
     tp_axis: str = "model",
     zero1: bool = False,
+    row_axes: Optional[Tuple[str, ...]] = None,
+    shared_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatching wrapper, the reference's rules: dense with no mesh, no
     TP axis, TP 1 or experts that TP does not divide; a2a when TP divides
     the sequence; gather otherwise.  ``p`` is what :func:`shard_params`
-    gives for the same mesh."""
+    gives for the same mesh, or with ``row_axes`` the train step's layout
+    (:class:`~repro_torch.models.ctx.ShardCtx`'s ``row_axes``), where
+    the dense path routes the whole microbatch over them."""
     if not _expert_parallel(mesh, tp_axis, cfg.moe.n_experts):
-        return moe_apply_dense(p, x, cfg)
-    if x.shape[1] % mesh_axis(mesh, tp_axis)[0] == 0:
-        return moe_apply_a2a(p, x, cfg, mesh, dp_axes, tp_axis, zero1)
-    return moe_apply_gather(p, x, cfg, mesh, dp_axes, tp_axis, zero1)
+        return moe_apply_dense(p, x, cfg, mesh, row_axes or (), shared_group)
+    path = moe_apply_a2a if x.shape[1] % mesh_axis(mesh, tp_axis)[0] == 0 \
+        else moe_apply_gather
+    return path(p, x, cfg, mesh, dp_axes, tp_axis, zero1, row_axes, shared_group)

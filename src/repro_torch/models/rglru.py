@@ -16,17 +16,30 @@ state into the cache it is given (the period views of the stacked body
 cache), as the port's other mixers do.
 The conv1d front and the gated-GeLU output (the tanh approximation, which
 is ``jax.nn.gelu``'s default) mirror Griffin's recurrent block.
+
+In the sharded train step (``ctx`` with a TP axis of more than one rank)
+the block runs tensor-parallel over the LRU width ``W``, as the
+parameter specs lay it out: ``wx_in`` and ``wg_in`` column-parallel,
+``conv_w``, ``conv_b`` and ``lam`` this rank's channels, ``wo``
+row-parallel (``reduce_from_tp``).  The gates ``wa`` and ``wi`` are cut
+over their output columns, each of which reads the whole post-conv
+``xb``: it is gathered over TP with ``gather_partial``, whose backward
+sums the rank's partial gradient over TP.  The scan runs on the rank's
+``W/tp`` channels in the same order as on one card.  No leaf is
+replicated over TP, so none needs its gradient summed there.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ctx import ShardCtx, gather_whole
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device
+from repro_torch.parallel.collectives import copy_to_tp, gather_partial, reduce_from_tp
 
 __all__ = ["rglru_defs", "rglru_apply", "rglru_decode", "init_rglru_cache",
            "RGLRUCache"]
@@ -71,10 +84,14 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return (out + b.float()).to(u.dtype)
 
 
-def _gates(p, xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a_t (f32), gated input (f32). xb: (B, T, W) post-conv."""
-    r = torch.sigmoid((xb @ p["wa"]).float())
-    i = torch.sigmoid((xb @ p["wi"]).float())
+def _gates(p, xb: torch.Tensor, xb_all: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a_t (f32), gated input (f32). xb: (B, T, W) post-conv; under TP
+    ``xb`` is the rank's channels and ``xb_all`` every rank's, which the
+    gates' column blocks read."""
+    xg = xb if xb_all is None else xb_all
+    r = torch.sigmoid((xg @ p["wa"]).float())
+    i = torch.sigmoid((xg @ p["wi"]).float())
     a = torch.exp(-C * F.softplus(p["lam"]) * r)  # (B, T, W)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xb.float())
     return a, gated
@@ -130,16 +147,27 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> RGLRUC
 
 
 def rglru_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
-                collect_cache: bool = False):
+                collect_cache: bool = False, ctx: Optional[ShardCtx] = None):
     """Full-sequence RG-LRU (prefill) through the log-depth scan.
-    x: (B, T, D)."""
+    x: (B, T, D).  With ``ctx`` the weights may arrive as TP shards
+    (module docstring)."""
+    group = None if ctx is None else ctx.tp_group(p["lam"].shape[0], _width(cfg))
+    if group is None and ctx is not None and ctx.tp_size() > 1:
+        p = gather_whole(p, rglru_defs(cfg), ctx)
+    if group is not None:
+        if collect_cache:
+            raise NotImplementedError("the RG-LRU cache of TP shards waits for "
+                                      "ROADMAP A11d")
+        x = copy_to_tp(x, group)
     xb_pre = x @ p["wx_in"]
     gate = x @ p["wg_in"]
     xb = _causal_conv(xb_pre, p["conv_w"], p["conv_b"])
-    a, gated = _gates(p, xb)
+    a, gated = _gates(p, xb, None if group is None else gather_partial(xb, group, -1))
     h = _linear_scan(a, gated)
     y = (h * _gelu(gate.float())).to(x.dtype)
     out = y @ p["wo"]
+    if group is not None:
+        out = reduce_from_tp(out, group)
     if not collect_cache:
         return out
     # the reference's slice: for a prompt shorter than K-1 its start is

@@ -13,6 +13,22 @@ backward kernel (``kernels/ssd_scan_bwd.py``), which sums each group's
 gradient over its heads; ``dA_cs = cumsum(dt * A)`` and the inter-chunk
 recurrence stay torch ops, which autograd differentiates.
 
+In the sharded train step (``ctx`` with a TP axis of more than one rank
+and the heads cut over it) the block runs tensor-parallel over the SSM
+heads, as the parameter specs lay it out: ``wz``, ``wx`` and ``wdt``
+column-parallel, ``A_log``, ``Dskip``, ``dt_bias`` and ``norm`` this
+rank's heads or channels, ``wo`` row-parallel (``reduce_from_tp``).
+``wB``, ``wC``, ``conv_w`` and ``conv_b`` stay whole: each rank convolves
+its own ``x`` channels (its columns of ``conv_w``'s first ``d_inner``) and
+all of B and C, which reach its heads by group.  The chunk kernels run on
+the rank's ``H/tp`` heads.  The gated RMSNorm's mean square sums over
+every rank's channels (``layers.rms_norm(tp_group=)``).  The input passes
+``copy_to_tp``, so every leaf each rank uses only for its own heads has a
+partial gradient there: ``wB``, ``wC``, ``conv_w`` and ``conv_b``
+(:func:`tp_partial`), which the train step sums over TP.  Where TP does
+not divide the heads, the cut leaves are gathered whole and the block
+runs on every head on every rank.
+
 Decode state is ``(B, H, P, N)`` f32, constant in sequence length.
 :func:`ssm_decode` writes the new conv window and state into the cache it
 is given (the period views of the stacked body cache), so a decode step
@@ -29,10 +45,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan_bwd import head_view
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ctx import ShardCtx, gather_whole
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device
+from repro_torch.parallel.collectives import copy_to_tp, reduce_from_tp
 
-__all__ = ["ssm_defs", "ssm_apply", "ssm_decode", "init_ssm_cache", "SSMCache"]
+__all__ = ["ssm_defs", "ssm_apply", "ssm_decode", "init_ssm_cache", "SSMCache",
+           "tp_partial"]
 
 
 def ssm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -56,6 +75,15 @@ def ssm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
         "norm": ParamDef((di,), (TP,), init_value=1.0),
         "wo": ParamDef((di, D), (TP, FSDP)),
     }
+
+
+def tp_partial(cfg: ModelConfig, tp: int) -> Tuple[str, ...]:
+    """The leaves replicated over a TP axis of ``tp`` ranks that each rank
+    uses only for its own heads (module docstring): their gradients sum
+    over TP."""
+    if tp == 1 or cfg.ssm.n_heads(cfg.d_model) % tp:
+        return ()
+    return ("wB", "wC", "conv_w", "conv_b")
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -158,9 +186,10 @@ def _project(p, x, cfg):
     return z, u, dt_raw
 
 
-def _split_conv(u, cfg):
+def _split_conv(u, cfg, di: Optional[int] = None):
+    """(x, B, C) of the conv channels; ``di`` x channels (default: all)."""
     s = cfg.ssm
-    di = s.d_inner(cfg.d_model)
+    di = s.d_inner(cfg.d_model) if di is None else di
     GN = s.n_groups * s.d_state
     return u[..., :di], u[..., di : di + GN], u[..., di + GN :]
 
@@ -176,29 +205,61 @@ def _group_heads(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return t.reshape(*lead, H, N)
 
 
+def _rank_heads(p, cfg: ModelConfig, ctx: Optional[ShardCtx]):
+    """(p, TP group or None, this rank's first head, its number of heads):
+    the heads cut over TP, or every head (the cut leaves gathered whole
+    where the heads do not split)."""
+    H = cfg.ssm.n_heads(cfg.d_model)
+    group = None if ctx is None else ctx.tp_group(p["wdt"].shape[-1], H)
+    if group is None:
+        if ctx is not None and ctx.tp_size() > 1:
+            p = gather_whole(p, ssm_defs(cfg), ctx)
+        return p, None, 0, H
+    Hl = p["wdt"].shape[-1]
+    return p, group, ctx.local_rank(ctx.tp_axis) * Hl, Hl
+
+
 def ssm_apply(
     p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
-    collect_cache: bool = False,
+    collect_cache: bool = False, ctx: Optional[ShardCtx] = None,
 ):
-    """Full-sequence SSD (prefill). x: (B, T, D)."""
+    """Full-sequence SSD (prefill). x: (B, T, D).  With ``ctx`` the
+    weights may arrive as TP shards (module docstring)."""
     s = cfg.ssm
     B_, T, D = x.shape
     H = s.n_heads(D)
     P = s.head_dim
-    z, u_pre, dt_raw = _project(p, x, cfg)
-    u = _causal_conv(u_pre, p["conv_w"], p["conv_b"])
-    xs, Bp, Cp = _split_conv(u, cfg)
-    xh = xs.reshape(B_, T, H, P)
     G, N = s.n_groups, s.d_state
+    p, group, h0, Hl = _rank_heads(p, cfg, ctx)
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if group is not None:
+        if collect_cache:
+            raise NotImplementedError("the SSM cache of TP shards waits for "
+                                      "ROADMAP A11d")
+        x = copy_to_tp(x, group)
+        di = s.d_inner(D)
+        cols = lambda t: torch.cat(  # noqa: E731  this rank's x columns, all B/C
+            (t[..., h0 * P:(h0 + Hl) * P], t[..., di:]), dim=-1)
+        conv_w, conv_b = cols(conv_w), cols(conv_b)
+    z, u_pre, dt_raw = _project(p, x, cfg)
+    u = _causal_conv(u_pre, conv_w, conv_b)
+    xs, Bp, Cp = _split_conv(u, cfg, Hl * P)
+    xh = xs.reshape(B_, T, Hl, P)
     Bm = Bp.float().reshape(B_, T, G, N)
     Cm = Cp.float().reshape(B_, T, G, N)
+    hpg = H // G  # heads per group
+    Gl = max(1, Hl // hpg)
+    if Gl < G:  # the groups this rank's heads read
+        Bm, Cm = (t.narrow(2, h0 // hpg, Gl) for t in (Bm, Cm))
     dt = F.softplus(dt_raw + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, h_final = _ssd_chunked(xh.float(), dt, A, Bm, Cm, s.chunk)
     y = y + p["Dskip"][None, None, :, None] * xh.float()
-    y = y.reshape(B_, T, H * P).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"])
+    y = y.reshape(B_, T, Hl * P).to(x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"], tp_group=group)
     out = y @ p["wo"]
+    if group is not None:
+        out = reduce_from_tp(out, group)
     if not collect_cache:
         return out
     # conv state = raw (pre-conv) inputs of the last K-1 positions

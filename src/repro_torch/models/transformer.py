@@ -27,10 +27,10 @@ On a mesh (the sharded train step) a leaf may come as :class:`Shard`, this
 rank's FSDP block of a weight: :func:`cast_weights` gathers it over the
 data axis where it casts, so a checkpointed period gathers its weights
 again in its recompute (ZeRO-3), as the reference does per layer per
-microbatch.  The attention and MLP layers and the loss then see TP
-shards and run tensor-parallel (``ctx``); the SSM, RG-LRU and MLA mixers
-and the MoE FFN run on whole weights, so the step refuses them on a mesh
-that would cut those (ROADMAP A11c).
+microbatch.  Every mixer, the MLP and the loss then see TP shards and run
+tensor-parallel (``ctx``), and the MoE FFN routes over the step's layout
+(``ShardCtx.row_axes``): the whole microbatch on the dense path, expert-
+parallel over TP where TP divides the experts.
 """
 
 from __future__ import annotations
@@ -281,11 +281,11 @@ def _mixer_apply(p, x, blk: BlockSpec, cfg: ModelConfig,
         )
     elif blk.mixer == "mla":
         out = mla.mla_apply(p, x, cfg, collect_cache=collect_cache,
-                            cache_len=cache_len)
+                            cache_len=cache_len, ctx=ctx)
     elif blk.mixer == "ssm":
-        out = ssm.ssm_apply(p, x, cfg, collect_cache=collect_cache)
+        out = ssm.ssm_apply(p, x, cfg, collect_cache=collect_cache, ctx=ctx)
     elif blk.mixer == "rglru":
-        out = rglru.rglru_apply(p, x, cfg, collect_cache=collect_cache)
+        out = rglru.rglru_apply(p, x, cfg, collect_cache=collect_cache, ctx=ctx)
     else:
         raise ValueError(blk.mixer)
     return out if collect_cache else (out, None)
@@ -300,8 +300,13 @@ def _ffn_apply(p, x, blk: BlockSpec, cfg: ModelConfig, ctx: Optional[ShardCtx] =
     if blk.ffn == "moe":
         if ctx is None:
             return moe.moe_apply(p, x, cfg)
+        shared = None
+        if cfg.moe.n_shared:  # the shared expert's weights may arrive cut over TP
+            shared = ctx.tp_group(p["shared"]["wo"].shape[0],
+                                  cfg.moe.n_shared * cfg.moe.d_expert)
         return moe.moe_apply(p, x, cfg, ctx.mesh, ctx.dp_axes, ctx.tp_axis,
-                             zero1=ctx.zero1)
+                             zero1=ctx.zero1, row_axes=ctx.row_axes,
+                             shared_group=shared)
     raise ValueError(blk.ffn)
 
 
@@ -378,9 +383,10 @@ def forward(
     ``dtype`` casts f32 weights to the compute type where they are used
     (:func:`cast_weights`); None computes in the weights' own types.
     ``ctx`` (a :class:`ShardCtx` with a mesh) runs the MoE layers expert-
-    parallel over it, forward only, with their parameters as
-    :func:`shard_moe_params` cuts them, and the attention and dense MLP
-    layers tensor-parallel where their weights arrive as TP shards
+    parallel over it where TP divides the experts, with their parameters
+    as :func:`shard_moe_params` cuts them (or, with ``ctx.row_axes``, as
+    the sharded train step hands them), and every mixer and the dense MLP
+    tensor-parallel where their weights arrive as TP shards
     (:class:`Shard` leaves are gathered over FSDP where they are cast);
     None computes on one device."""
     if remat not in REMAT_POLICIES:

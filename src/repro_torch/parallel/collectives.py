@@ -17,6 +17,15 @@ from, and the autograd Functions of the sharded train step:
   downstream: not used here.
 * :func:`gather_from_tp`: a TP-sharded tensor gathered whole for a
   computation every TP rank repeats; backward keeps the rank's slice.
+* the partial forms, where each rank uses the gathered or summed value
+  only in part downstream (its own gate columns, its own heads):
+  :func:`gather_partial` (all-gather forward; backward sums the
+  gradient over the group, then keeps the rank's slice) and
+  :func:`reduce_partial` (all-reduce both ways).  :func:`reduce_from_tp`
+  serves any group where every rank's downstream is its own share of one
+  loss, as the MoE balance loss's sums over the data axes are.
+* :func:`all_to_all`: ``all_to_all_single`` over a group in even splits;
+  backward is the same exchange of the gradient, which inverts it.
 
 :class:`LeafReducer` sums, maxima and means of per-leaf values (squared
 norms, the int8 scale, the quantization error) over the ranks that hold
@@ -35,7 +44,7 @@ import torch.distributed as dist
 
 __all__ = ["mesh_axis", "all_gather", "all_reduce", "reduce_scatter", "pmean",
            "gather_shard", "copy_to_tp", "reduce_from_tp", "gather_from_tp",
-           "LeafReducer"]
+           "gather_partial", "reduce_partial", "all_to_all", "LeafReducer"]
 
 # newer torch renames the *_tensor collectives; both work along dim 0
 _gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -62,8 +71,9 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 
 
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """The group's tensors reduced by ``op`` ("sum" or "max"), a new tensor."""
-    out = t.clone()
+    """The group's tensors reduced by ``op`` ("sum" or "max"), a new
+    contiguous tensor (NCCL takes no other)."""
+    out = t.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=_OPS[op], group=group)
     return out
 
@@ -156,7 +166,10 @@ def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over the TP ``group`` (the partial outputs of a
     row-parallel product); backward passes the gradient as it is, since
-    every rank computes the same loss from the sum."""
+    every rank computes the same loss from the sum.  Over a data axis
+    (the MoE balance loss's sums of each rank's rows), the same rule
+    holds: each rank's gradient reaches its own rows, and the train step
+    sums the weights' gradients over the data ranks."""
     return _ReduceFromTP.apply(x, group)
 
 
@@ -165,6 +178,45 @@ def gather_from_tp(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     computation every TP rank repeats on the whole; backward keeps this
     rank's slice of the (identical) gradient."""
     return _GatherFromTP.apply(x, group, dim)
+
+
+def gather_partial(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ``group``'s blocks of ``x`` gathered along ``dim`` for a
+    computation each rank makes a different part of (its own output
+    columns of a product with the whole); backward sums the gradient over
+    the group and keeps this rank's slice."""
+    return copy_to_tp(gather_from_tp(x, group, dim), group)
+
+
+def reduce_partial(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` where each rank uses the sum only in part
+    downstream (a norm's sum of squares over channels cut over TP):
+    backward sums the gradient over the group too."""
+    return copy_to_tp(reduce_from_tp(x, group), group)
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Rank ``j``'s ``i``-th block of ``x``'s rows to rank ``i``'s ``j``-th
+    block (``all_to_all_single`` in even splits).  Backward: the same
+    exchange of the gradient, which sends every block back."""
+    return _AllToAll.apply(x, group)
 
 
 class LeafReducer:

@@ -34,13 +34,18 @@ MESHES = {
     "d4": ((4,), ("data",)),
     "d2m2": ((2, 2), ("data", "model")),
     "d1m4": ((1, 4), ("data", "model")),
+    "d1m2": ((1, 2), ("data", "model")),
 }
 HIST_MESHES = ("d2", "d4", "d2m2")
 #: the port's worlds: size -> the meshes built over it
-WORLDS = {1: ("d1", "d1m1"), 2: ("d2",), 4: ("d4", "d2m2", "d1m4")}
+WORLDS = {1: ("d1", "d1m1"), 2: ("d1m2", "d2"), 4: ("d4", "d2m2", "d1m4")}
 #: MoE cases on the (2, 2) mesh: (path, capacity factor, zero1)
 MOE_CASES = tuple((path, cf, zero1) for path in ("a2a", "gather")
                   for cf in (16.0, 0.5) for zero1 in (False, True))
+#: the expert-parallel paths under autograd: (mesh, path, zero1), where
+#: nothing drops; the loss is ``sum(out * moe_grad_weights(...))``
+GRAD_CASES = tuple((mesh, path, zero1) for mesh in ("d1m2", "d2m2")
+                   for path in ("a2a", "gather") for zero1 in (False, True))
 #: moe_apply's dispatch: name -> (mesh, T, experts); the reference picks
 #: a2a, gather, dense (TP 1) and dense (TP does not divide the experts)
 DISPATCH_CASES = {"a2a": ("d2m2", 8, 8), "gather": ("d2m2", 3, 8),
@@ -73,6 +78,12 @@ def shard(a: np.ndarray, ndev: int, i: int) -> np.ndarray:
 
 def moe_x(T: int, d_model: int) -> np.ndarray:
     return np.random.default_rng(100 + T).standard_normal(
+        (MOE_B, T, d_model)).astype(np.float32)
+
+
+def moe_grad_weights(T: int, d_model: int) -> np.ndarray:
+    """The fixed weights of the gradient cases' loss, one per output."""
+    return np.random.default_rng(200 + T).standard_normal(
         (MOE_B, T, d_model)).astype(np.float32)
 
 
@@ -242,24 +253,6 @@ def _world(rank: int, world_size: int, out: str) -> None:
                 save(out, f"port_moe_{path}_{cf}_{zero1}_{tag}", out=y, aux=aux,
                      w_gate_shape=local["w_gate"].shape,
                      router_shape=local["router"].shape)
-            # forward only: each path refuses an input or a weight that
-            # requires grad while autograd records
-            refused = []
-            cfg = replace(base, moe=replace(base.moe, capacity_factor=16.0))
-            for fn in (moe.moe_apply_a2a, moe.moe_apply_gather):
-                for which in ("x", "param"):
-                    local = moe.shard_params(params[8], mesh)
-                    x = torch.from_numpy(moe_x(8, cfg.d_model))
-                    if which == "x":
-                        x.requires_grad_()
-                    else:
-                        local = {**local, "w_up": local["w_up"].clone().requires_grad_()}
-                    try:
-                        fn(local, x, cfg, mesh, ("data",), "model")
-                        refused.append(False)
-                    except NotImplementedError:
-                        refused.append(True)
-            save(out, f"port_autograd_{tag}", refused=refused)
             # constrain: a DTensor is redistributed by the reference's rules
             ctx = make_ctx(mesh)
             x = torch.arange(4 * 6 * 5, dtype=torch.float32).reshape(4, 6, 5)
@@ -291,6 +284,23 @@ def _world(rank: int, world_size: int, out: str) -> None:
                     steps.append(lg)
             save(out, f"port_model_{tag}", logits=logits_fn(tp, mcfg, h),
                  decode=torch.stack(steps, 1))
+        for m, path, zero1 in GRAD_CASES:
+            if m not in meshes:
+                continue
+            cfg = replace(base, moe=replace(base.moe, capacity_factor=16.0))
+            fn = moe.moe_apply_a2a if path == "a2a" else moe.moe_apply_gather
+            local = moe.shard_params(params[8], meshes[m], ("data",), "model", zero1)
+            local = {k: ({kk: vv.clone().requires_grad_() for kk, vv in v.items()}
+                         if isinstance(v, dict) else v.clone().requires_grad_())
+                     for k, v in local.items()}
+            x = torch.from_numpy(moe_x(8, cfg.d_model)).requires_grad_()
+            y, _ = fn(local, x, cfg, meshes[m], ("data",), "model", zero1)
+            (y * torch.from_numpy(moe_grad_weights(8, cfg.d_model))).sum().backward()
+            grads = {f"{k}/{kk}" if isinstance(v, dict) else k:
+                     (vv if isinstance(v, dict) else v).grad
+                     for k, v in local.items()
+                     for kk, vv in (v.items() if isinstance(v, dict) else [(None, v)])}
+            save(out, f"port_moe_grad_{m}_{path}_{zero1}_{tag}", x=x.grad, **grads)
         for name, (m, T, E) in DISPATCH_CASES.items():
             if m not in meshes:
                 continue

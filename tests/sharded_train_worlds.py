@@ -10,8 +10,8 @@ sides, each in a subprocess of its own.  Every step computes in f32 on
 both sides: the reference's ``launch.steps._cast_tree`` and the port's
 ``COMPUTE_DTYPE`` are patched here, in the subprocess, not in the
 packages.  Each run is 2 steps of the same batches; it writes its losses,
-grad norms and final parameters (whole, in leaf order) as
-``{ref,port,one}_{case}.npz``:
+grad norms, final parameters and the first moment after the first step
+(whole, in leaf order) as ``{ref,port,one}_{case}.npz``:
 
 * ``ref_*``: the reference's sharded ``make_train_step`` on a mesh of
   forced host devices (``REF_CASES``);
@@ -19,8 +19,8 @@ grad norms and final parameters (whole, in leaf order) as
   case of ``CASES``), and at world size 1 on a (1, 1) mesh (``W1_CASES``);
 * ``one_*``: the port's one-process step from the same state.
 
-The world of 2 records the refusals, and the launcher on a mesh: ``--mesh
-2 1`` runs with and without a crash (``launch_{clean,crash}.json``), the
+The world of 2 records the launcher on a mesh: ``--mesh 2 1`` runs with
+and without a crash (``launch_{clean,crash}.json``), the
 sharded ``train`` loop's final parameters beside its last checkpoint's
 one-process restore, and checkpoints restored on other meshes.  Ranks
 meet through rendezvous files in ``OUT``; a rank that fails makes the
@@ -83,11 +83,6 @@ W1_CASES = {
     "qwen_w1_zero1": ("qwen", (1, 1), DM, {"zero1": True, "remat": "full"}),
     "qwen_w1_compress": ("qwen", (1, 1), DM, {"compress": True}),
 }
-#: refused on a world of 2: case -> (arch, mesh shape)
-REFUSALS = {"deepseek_d2m1": ("deepseek-v2-lite-16b", (2, 1)),
-            "deepseek_d1m2": ("deepseek-v2-lite-16b", (1, 2)),
-            "mamba2_d1m2": ("mamba2-2.7b", (1, 2)),
-            "rg_d1m2": ("recurrentgemma-9b", (1, 2))}
 LAUNCH = ["--arch", "qwen2.5-3b", "--mesh", "2", "1", "--device", "cpu",
           "--steps", "8", "--batch", "4", "--seq", "32", "--microbatches", "2",
           "--checkpoint-every", "4", "--compress-grads"]
@@ -128,9 +123,10 @@ def save(out: str, name: str, **arrays) -> None:
              **{k: np.asarray(v) for k, v in arrays.items()})
 
 
-def save_run(out: str, name: str, losses, norms, errs, leaves) -> None:
+def save_run(out: str, name: str, losses, norms, errs, leaves, mu1=()) -> None:
     save(out, name, losses=losses, grad_norms=norms, compression_err=errs,
-         **{f"p{i}": x for i, x in enumerate(leaves)})
+         **{f"p{i}": x for i, x in enumerate(leaves)},
+         **{f"m{i}": x for i, x in enumerate(mu1)})
 
 
 def init_leaves(out: str, variant: str) -> list:
@@ -140,7 +136,11 @@ def init_leaves(out: str, variant: str) -> list:
 
 # -- the reference ----------------------------------------------------------
 
-def run_reference(out: str) -> None:
+def ref_run(out: str, spec, devices, make=make_cfg):
+    """2 steps of ``spec`` (a CASES entry) in the reference's sharded step on
+    a mesh of ``devices``, computing in f32; returns (losses, grad norms,
+    final leaves, the first moment's leaves after the first step).  ``make``
+    makes the configuration of ``spec``'s variant."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -152,38 +152,48 @@ def run_reference(out: str) -> None:
     from repro.optim.adamw import AdamWConfig, adamw_init
 
     steps._cast_tree = lambda tree, dtype: tree  # f32 compute, as the port's
+    variant, mesh_shape, axes, opts = spec
+    cfg = make(variant, get_config, reduced_for_smoke)
+    mesh = Mesh(devices.reshape(mesh_shape), axes)
+    treedef = jax.tree_util.tree_structure(abstract_params(model_defs(cfg)))
+    params = jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(x) for x in init_leaves(out, variant)])
+    fn = steps.make_train_step(cfg, ShapeConfig(**shape_kw(opts)), mesh,
+                               AdamWConfig(lr=LR, weight_decay=0.0),
+                               aux_coef=opts.get("aux", 0.01),
+                               zero1=opts.get("zero1", False)).jitted(mesh)
+    opt = adamw_init(params)
+    pipe = PipelineConfig(vocab=cfg.vocab, seq_len=SEQ,
+                          global_batch=opts.get("batch", BATCH))
+    losses, norms, mu1 = [], [], None
+    for step in range(STEPS):
+        batch = {k: jnp.asarray(v)
+                 for k, v in batch_of(make_batch, pipe, step, opts).items()}
+        params, opt, m = fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if mu1 is None:
+            mu1 = [np.asarray(x) for x in jax.tree_util.tree_leaves(opt.mu)]
+    return losses, norms, [np.asarray(x) for x in jax.tree_util.tree_leaves(params)], mu1
+
+
+def run_reference(out: str) -> None:
+    import jax
+
     devices = np.array(jax.devices())
     assert devices.size == 4, "run with 4 forced host devices"
     for case in REF_CASES:
-        variant, mesh_shape, axes, opts = CASES[case]
-        cfg = make_cfg(variant, get_config, reduced_for_smoke)
-        mesh = Mesh(devices.reshape(mesh_shape), axes)
-        treedef = jax.tree_util.tree_structure(abstract_params(model_defs(cfg)))
-        params = jax.tree_util.tree_unflatten(
-            treedef, [jnp.asarray(x) for x in init_leaves(out, variant)])
-        fn = steps.make_train_step(cfg, ShapeConfig(**shape_kw(opts)), mesh,
-                                   AdamWConfig(lr=LR, weight_decay=0.0),
-                                   zero1=opts.get("zero1", False)).jitted(mesh)
-        opt = adamw_init(params)
-        pipe = PipelineConfig(vocab=cfg.vocab, seq_len=SEQ,
-                          global_batch=opts.get("batch", BATCH))
-        losses, norms = [], []
-        for step in range(STEPS):
-            batch = {k: jnp.asarray(v)
-                     for k, v in batch_of(make_batch, pipe, step, opts).items()}
-            params, opt, m = fn(params, opt, batch)
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-        save_run(out, f"ref_{case}", losses, norms, [0.0] * STEPS,
-                 [np.asarray(x) for x in jax.tree_util.tree_leaves(params)])
+        losses, norms, leaves, mu1 = ref_run(out, CASES[case], devices)
+        save_run(out, f"ref_{case}", losses, norms, [0.0] * STEPS, leaves, mu1)
 
 
 # -- the port ---------------------------------------------------------------
 
-def _port_run(out: str, case: str, spec, mesh):
+def port_run(out: str, spec, mesh, make=make_cfg):
     """2 steps of ``spec`` (a CASES entry) on ``mesh`` (None: one process);
-    returns (losses, grad norms, compression errors, whole final leaves)
-    on every rank."""
+    returns (losses, grad norms, compression errors, whole final leaves,
+    whole first moments after the first step) on every rank.  ``make`` as
+    for :func:`ref_run`."""
     import torch
 
     from repro_torch.configs import get_config
@@ -196,7 +206,7 @@ def _port_run(out: str, case: str, spec, mesh):
     from repro_torch.tree import tree_leaves, tree_unflatten
 
     variant, _, _, opts = spec
-    cfg = make_cfg(variant, get_config, reduced_for_smoke)
+    cfg = make(variant, get_config, reduced_for_smoke)
     params = from_jax_params(tree_unflatten(_skeleton(cfg)[0], init_leaves(out, variant)),
                              cfg, "cpu")
     specs = None if mesh is None else param_pspecs(cfg, mesh)
@@ -206,12 +216,13 @@ def _port_run(out: str, case: str, spec, mesh):
     compress = opts.get("compress", False)
     ef = ef_init(params) if compress else None
     fn = make_train_step(cfg, ShapeConfig(**shape_kw(opts)),
-                         AdamWConfig(lr=LR, weight_decay=0.0), compress_grads=compress,
+                         AdamWConfig(lr=LR, weight_decay=0.0),
+                         aux_coef=opts.get("aux", 0.01), compress_grads=compress,
                          device="cpu", mesh=mesh,
                          zero1=mesh is not None and opts.get("zero1", False))
     pipe = PipelineConfig(vocab=cfg.vocab, seq_len=SEQ,
                           global_batch=opts.get("batch", BATCH))
-    losses, norms, errs = [], [], []
+    losses, norms, errs, mu1 = [], [], [], None
     for step in range(STEPS):
         res = fn(params, opt, batch_of(make_batch, pipe, step, opts),
                  *((ef,) if compress else ()))
@@ -221,9 +232,12 @@ def _port_run(out: str, case: str, spec, mesh):
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         errs.append(float(m.get("compression_err", torch.zeros(()))))
+        if mu1 is None:
+            mu1 = opt.mu if specs is None else unshard_tree(opt.mu, specs, mesh)
+            mu1 = [x.clone().numpy() for x in tree_leaves(mu1)]
     if specs is not None:
         params = unshard_tree(params, specs, mesh)
-    return losses, norms, errs, [x.numpy() for x in tree_leaves(params)]
+    return losses, norms, errs, [x.numpy() for x in tree_leaves(params)], mu1
 
 
 def _f32_compute() -> None:
@@ -243,7 +257,7 @@ def _world4(rank: int, out: str) -> None:
     with process_group(rank, 4, os.path.join(out, "rdzv4"), "cpu"):
         for case, spec in CASES.items():
             mesh = make_mesh_compat(spec[1], spec[2], "cpu")
-            res = _port_run(out, case, spec, mesh)
+            res = port_run(out, spec, mesh)
             if dist.get_rank() == 0:
                 save_run(out, f"port_{case}", *res)
 
@@ -253,7 +267,7 @@ def _world2(rank: int, out: str) -> None:
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.launch import make_mesh_compat, make_train_step, process_group
+    from repro_torch.launch import make_mesh_compat, process_group
     from repro_torch.launch.train import restore_state, train
     from repro_torch.models import ShapeConfig, reduced_for_smoke
     from repro_torch.optim import AdamWConfig
@@ -264,15 +278,6 @@ def _world2(rank: int, out: str) -> None:
     _f32_compute()
     shape = ShapeConfig(**shape_kw({}))
     with process_group(rank, 2, os.path.join(out, "rdzv2"), "cpu"):
-        refused = {}
-        for case, (arch, mesh_shape) in REFUSALS.items():
-            mesh = make_mesh_compat(mesh_shape, DM, "cpu")
-            try:
-                make_train_step(reduced_for_smoke(get_config(arch)), shape,
-                                device="cpu", mesh=mesh)
-                refused[case] = ""
-            except NotImplementedError as e:
-                refused[case] = str(e)
         cfg = reduced_for_smoke(get_config("qwen2.5-3b"))
         restored = {}
         # the launcher's (2, 1) checkpoint on a (1, 2) mesh, the reference's
@@ -308,7 +313,6 @@ def _world2(rank: int, out: str) -> None:
                 state = ckpt.restore()
             finally:
                 ckpt.close()
-            save(out, "port_refused", **refused)
             for name, leaves in restored.items():
                 save(out, f"port_restored_{name}", **{f"p{i}": x for i, x in
                                                       enumerate(leaves)})
@@ -326,9 +330,9 @@ def _world1(out: str) -> None:
     with process_group(0, 1, os.path.join(out, "rdzv1"), "cpu"):
         for case, spec in W1_CASES.items():
             save_run(out, f"port_{case}",
-                     *_port_run(out, case, spec, make_mesh_compat((1, 1), DM, "cpu")))
+                     *port_run(out, spec, make_mesh_compat((1, 1), DM, "cpu")))
     for case, spec in {**CASES, **W1_CASES}.items():
-        save_run(out, f"one_{case}", *_port_run(out, case, spec, None))
+        save_run(out, f"one_{case}", *port_run(out, spec, None))
 
 
 def _launch(out: str, name: str, extra: list) -> None:

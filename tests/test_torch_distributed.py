@@ -21,8 +21,10 @@ worlds of 1, 2 and 4 ranks, spawned, meeting through a rendezvous file,
   deepseek-v2-lite-16b (8 experts, top-2) in f32 at capacity factors 16
   and 0.5, ``zero1`` both ways: outputs within 2e-4 of the reference's
   same path, and of the port's dense path where no entry drops; ``aux``
-  within 1e-6 relative.  ``moe_apply`` picks the reference's path, and
-  both paths refuse autograd.
+  within 1e-6 relative.  ``moe_apply`` picks the reference's path.  Under
+  autograd, on the (1, 2) and (2, 2) meshes, both paths' gradients of
+  the input and of each rank's weight slices are the dense path's where
+  nothing drops, 2e-4.
 - A reduced deepseek-v2-lite-16b ``forward`` and ``decode_step`` with a
   ``ShardCtx`` on the (2, 2) mesh against the port's one-process run,
   2e-4; ``constrain`` on a ``DTensor``; the mesh builders' refusals.
@@ -180,9 +182,42 @@ def test_moe_apply_picks_the_reference_path(out, name):
                                 "indivisible": "moe_apply_dense"}[name]
 
 
-def test_moe_expert_parallel_refuses_autograd(out):
-    for r in _ranks("d2m2"):
-        assert _load(out, f"port_autograd_r{r}")["refused"].tolist() == [True] * 4
+def _block(t: np.ndarray, dim: int, n: int, i: int) -> np.ndarray:
+    return np.split(t, n, axis=dim)[i]
+
+
+@pytest.mark.parametrize("mesh,path,zero1", dw.GRAD_CASES,
+                         ids=[f"{m}-{p}-zero1_{z}" for m, p, z in dw.GRAD_CASES])
+def test_moe_expert_parallel_gradients_match_dense(out, mesh, path, zero1):
+    """The a2a and gather paths under autograd, each rank's gradients of the
+    whole input and of its slices of the weights (``shard_params``), for
+    the loss ``sum(out * W)``: those of ``moe_apply_dense`` on one process,
+    cut to the rank's blocks, where no entry drops."""
+    cfg = reduced_for_smoke(get_config(dw.ARCH))
+    cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=16.0))
+    p = dw.unflatten(dict(np.load(out / "moe_e8.npz")))
+    p = {k: to_tensor(v).requires_grad_() if not isinstance(v, dict)
+         else {kk: to_tensor(vv).requires_grad_() for kk, vv in v.items()}
+         for k, v in p.items()}
+    x = torch.from_numpy(dw.moe_x(8, cfg.d_model)).requires_grad_()
+    y, _ = moe.moe_apply_dense(p, x, cfg)
+    (y * torch.from_numpy(dw.moe_grad_weights(8, cfg.d_model))).sum().backward()
+    want = {"x": x.grad.numpy(), "router": p["router"].grad.numpy(),
+            **{n: p[n].grad.numpy() for n in ("w_gate", "w_up", "w_down")},
+            **{f"shared/{n}": t.grad.numpy() for n, t in p["shared"].items()}}
+    (n_data, tp), _ = dw.MESHES[mesh]
+    for r in _ranks(mesh):
+        d, col = divmod(r, tp)
+        got = _load(out, f"port_moe_grad_{mesh}_{path}_{zero1}_r{r}")
+        cut = dict(want)
+        fsdp, d = (1, 0) if zero1 else (n_data, d)  # zero1: whole over data
+        cut["router"] = _block(want["router"], 0, fsdp, d)
+        for n, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
+            cut[n] = _block(_block(want[n], 0, tp, col), dim, fsdp, d)
+        assert sorted(got) == sorted(cut)
+        for n in cut:
+            assert got[n].shape == cut[n].shape, n
+            np.testing.assert_allclose(got[n], cut[n], atol=TOL, rtol=TOL, err_msg=n)
 
 
 def test_sharded_model_forward_and_decode_match_one_process(out):
