@@ -53,6 +53,27 @@ temporary directory, and every rank checks:
    prints how many routed entries take another expert or another keep
    than the one-process step's route of the same rows.
 
+5. prefill and decode on a mesh (``make_prefill_step`` and
+   ``make_decode_step(mesh=...)``), in f32 from the training phases'
+   draw, against the one-process steps on the rank's own card
+   (``SERVE_CASES``): qwen2.5-3b cut to 2 layers on (1, 4) and (2, 2)
+   (the KV cache cut on the sequence over TP, the blocks' partial
+   attentions combined through their log-sum-exps), and on (2, 2) from
+   its cache quantized to int8; mamba2-2.7b cut to 2 layers on (1, 4)
+   (the SSM state by heads, the conv window by channels);
+   recurrentgemma-9b at one (R, R, L) period on (2, 2) with prompts of
+   2100 tokens, longer than its 2048-slot ring, which wraps across the
+   blocks; deepseek-v2-lite-16b at its prelude and 1 MoE period on (4, 1)
+   and (2, 2) at capacity factor 8 (the MLA latents cut on the sequence).
+   Each case prefills 2 prompts and decodes 8 steps teacher-forced on the
+   one-process run's greedy tokens: every step's logits and every leaf of
+   the unsharded final cache within 1e-5 relative L2 (the int8 case: the
+   logits within 1e-3 and the int8 levels at most one apart on at most
+   1e-3 of the entries, since a TP sum that rounds apart moves a value
+   at a rounding boundary one level), the same greedy tokens, and the
+   prefill's kernel and decode launched.  ``--serve-only`` runs this
+   check alone.
+
 ``--witness`` runs on one card with no process group: check 3's
 one-process step, from both draws, against itself at 4 and 8
 microbatches (the rows a forward that a rank of (2, 2) and of (4, 1)
@@ -104,6 +125,23 @@ MIXER_CASES = (
     ("deepseek_4x1", "deepseek-v2-lite-16b", 1, (4, 1), 1.25, 0.01, TRAIN_SHAPE[:2]),
     ("deepseek_a2a_2x2", "deepseek-v2-lite-16b", 1, (2, 2), 8.0, 0.0, TRAIN_SHAPE[:2]),
 )
+#: check 5: (name, model, body periods, mesh, capacity factor or None,
+#: prompt tokens on the card, int8 cache)
+SERVE_CASES = (
+    ("qwen_1x4", "qwen2.5-3b", 2, (1, 4), None, 1024, False),
+    ("qwen_2x2", "qwen2.5-3b", 2, (2, 2), None, 1024, False),
+    ("qwen_2x2_int8", "qwen2.5-3b", 2, (2, 2), None, 1024, True),
+    ("mamba2_1x4", "mamba2-2.7b", 2, (1, 4), None, 1024, False),
+    ("recurrentgemma_2x2", "recurrentgemma-9b", 1, (2, 2), None, 2100, False),
+    ("deepseek_4x1", "deepseek-v2-lite-16b", 1, (4, 1), 8.0, 1024, False),
+    ("deepseek_2x2", "deepseek-v2-lite-16b", 1, (2, 2), 8.0, 1024, False),
+)
+SERVE_PROMPTS = 2
+SERVE_STEPS = 8
+SERVE_HEADROOM = 16  # cache rows past the prompt
+SERVE_LIMIT = 1e-5  # every step's logits and every cache leaf, relative L2
+INT8_LOGIT_LIMIT = 1e-3  # the int8 case's logits
+INT8_FLIPS = 1e-3  # the int8 case: the share of int8 entries one level apart
 
 
 #: (shape, device type) -> the (data, model) mesh over it: each new mesh
@@ -132,7 +170,8 @@ def _cast(tree, dtype):
             else v if k == "router" else v.to(dtype) for k, v in tree.items()}
 
 
-def _rank(rank: int, seed: int, device_type: str, rdzv: str) -> None:
+def _rank(rank: int, seed: int, device_type: str, rdzv: str,
+          serve_only: bool) -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.core import device_histogram, storage_histogram
@@ -149,6 +188,9 @@ def _rank(rank: int, seed: int, device_type: str, rdzv: str) -> None:
     with process_group(rank, WORLD, rdzv, device_type):
         dev = torch.device("cuda", torch.cuda.current_device()) \
             if device_type == "cuda" else torch.device("cpu")
+        if serve_only:
+            _sharded_serve(rank, seed, device_type, dev, report)
+            return
         meshes = {"4": make_mesh_compat((4,), ("data",), device_type),
                   "2x2": _mesh((2, 2), device_type)}
         n = TOKENS if device_type == "cuda" else 1 << 16
@@ -228,6 +270,7 @@ def _rank(rank: int, seed: int, device_type: str, rdzv: str) -> None:
         del p32, x32, p16, x16, local, want, want16
         _sharded_train(rank, seed, device_type, dev, report)
         _sharded_mixers(rank, seed, device_type, dev, report)
+        _sharded_serve(rank, seed, device_type, dev, report)
 
 
 def _train_setup(device_type: str):
@@ -449,6 +492,127 @@ def _sharded_mixers(rank: int, seed: int, device_type: str, dev, report) -> None
         chip_smoke.free_card()
 
 
+def _serve_run(cfg, params0, prompts, forced, dev, mesh, quant: bool, cache_len: int):
+    """Prefill ``prompts`` into ``cache_len`` rows, then decode SERVE_STEPS
+    steps (teacher-forced on ``forced``, else greedy) from a copy of
+    ``params0`` on ``mesh`` (None: one process).  Returns (every step's
+    logits, prefill first, whole; the tokens each step was fed; the whole
+    final cache's leaves; the prefill's flash or SSD launches; decode's
+    launches)."""
+    import chip_smoke
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch import make_decode_step, make_prefill_step, steps
+    from repro_torch.models import ShapeConfig
+    from repro_torch.parallel.sharding import (
+        P, batch_entry, cache_pspecs, param_pspecs, shard_tree, unshard_tree)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    B, T = prompts.shape
+    params = tree_map(lambda t: t.to(dev, copy=True), params0)
+    rows = lambda t: t  # noqa: E731
+    if mesh is not None:
+        params = shard_tree(params, param_pspecs(cfg, mesh), mesh)
+        b = batch_entry(mesh, B)
+        rows = lambda t: shard_tree(t, P(b, *([None] * (t.dim() - 1))), mesh)  # noqa: E731
+    dshape = ShapeConfig("d", "decode", cache_len, B)
+    prefill = make_prefill_step(cfg, ShapeConfig("p", "prefill", T, B),
+                                cache_len=cache_len, mesh=mesh)
+    decode = make_decode_step(cfg, dshape, mesh=mesh, quant_cache=quant)
+    kernel = ssd_scan if cfg.ssm is not None else fa
+    seen, inner = [], steps.decode_step
+
+    def keeping(*a, **kw):
+        lo, c = inner(*a, **kw)
+        seen.append(lo)
+        return lo, c
+
+    with torch.no_grad():
+        before = kernel.launches
+        logits, cache = prefill(params, {"tokens": rows(prompts)})
+        pre = kernel.launches - before
+        if quant:
+            cache = chip_smoke._quantized(cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        if mesh is not None:
+            tok = unshard_tree(tok, P(b, None), mesh)
+        fed, before = [], da.launches
+        steps.decode_step = keeping
+        try:
+            for i in range(SERVE_STEPS):
+                tok = tok if forced is None else forced[i]
+                fed.append(tok)
+                tok, cache = decode(params, rows(tok), cache, T + i)
+                if mesh is not None:
+                    tok = unshard_tree(tok, P(b, None), mesh)
+        finally:
+            steps.decode_step = inner
+        dec = da.launches - before
+    del params
+    los = [logits] + seen
+    if mesh is not None:
+        los = [unshard_tree(x, P(b, None), mesh) for x in los]
+        cache = unshard_tree(cache, cache_pspecs(cfg, dshape, mesh, quant_attn=quant),
+                             mesh)
+    return los, fed, tree_leaves(cache), pre, dec
+
+
+def _sharded_serve(rank: int, seed: int, device_type: str, dev, report) -> None:
+    """Check 5: the serving steps on a mesh against the one-process steps,
+    in f32, teacher-forced on the one-process run's tokens."""
+    import chip_smoke
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced_for_smoke
+    from repro_torch.tree import tree_map
+
+    for name, model, periods, mesh_shape, cf, prompt, quant in SERVE_CASES:
+        cfg = replace(get_config(model), n_periods=periods)
+        if device_type != "cuda":
+            cfg, prompt = reduced_for_smoke(cfg), 20
+        if cf is not None:
+            cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=cf))
+        cache_len = prompt + SERVE_HEADROOM
+        params0 = tree_map(lambda t: t.cpu(),
+                           chip_smoke._draw_train_params(cfg, seed + 4, dev))
+        g = torch.Generator().manual_seed(seed + 5)
+        prompts = torch.randint(0, cfg.vocab, (SERVE_PROMPTS, prompt), generator=g,
+                                dtype=torch.int32).to(dev)
+        want = _serve_run(cfg, params0, prompts, None, dev, None, quant, cache_len)
+        got = _serve_run(cfg, params0, prompts, want[1], dev,
+                         _mesh(mesh_shape, device_type), quant, cache_len)
+        steps_rel = [_rel_l2(a, b) for a, b in zip(got[0], want[0])]
+        cache_rel, flips = [], 0.0
+        for a, b in zip(got[2], want[2]):
+            if a.dtype == torch.int8:
+                off = (a.int() - b.int()).abs()
+                flips = max(flips, float((off > 0).float().mean()))
+                cache_rel.append(float(off.max()))  # levels apart
+            else:
+                cache_rel.append(_rel_l2(a, b))
+        greedy = [torch.argmax(x, dim=-1) for x in got[0][:-1]]
+        same_tokens = all(torch.equal(a.to(torch.int64)[:, 0], b)
+                          for a, b in zip(want[1], greedy))
+        if quant:
+            ok = (max(steps_rel) <= INT8_LOGIT_LIMIT and flips <= INT8_FLIPS
+                  and max(cache_rel) <= 1)
+        else:
+            ok = max(steps_rel) <= SERVE_LIMIT and max(cache_rel) <= SERVE_LIMIT
+        ran = device_type != "cuda" or (got[3] > 0 and (
+            got[4] > 0 or quant or cfg.mla is not None or cfg.ssm is not None))
+        report("sharded_serve_f32", ok and same_tokens and ran, case=name,
+               model=cfg.name, layers=cfg.n_layers, mesh=list(mesh_shape),
+               prompts=SERVE_PROMPTS, prompt=prompt, cache_len=cache_len,
+               steps=SERVE_STEPS, int8_cache=quant,
+               capacity_factor=cf, logits_rel_l2=steps_rel,
+               cache_worst=max(cache_rel), int8_flips=flips if quant else None,
+               same_greedy_tokens=same_tokens, prefill_launches=got[3],
+               decode_launches=got[4], one_process_launches=[want[3], want[4]])
+        del got, want, params0
+        chip_smoke.free_card()
+
+
 def _batches(cfg, shape) -> list:
     """TRAIN_STEPS batches of ``shape`` for ``cfg``'s vocabulary."""
     from repro_torch.data import PipelineConfig, make_batch
@@ -488,6 +652,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="run check 5 (the serving steps on a mesh) alone")
     ap.add_argument("--witness", action="store_true",
                     help="on one card: check 3's one-process step at more "
                          "microbatches against its own (nothing held)")
@@ -511,7 +677,8 @@ def main(argv=None) -> int:
     else:
         with tempfile.TemporaryDirectory(prefix="chip_dist4_") as tmp:
             mp.start_processes(_rank, args=(args.seed, args.device,
-                                            os.path.join(tmp, "rdzv")),
+                                            os.path.join(tmp, "rdzv"),
+                                            args.serve_only),
                                nprocs=WORLD, join=True, start_method="spawn")
     if args.device == "cuda":
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -58,7 +58,13 @@ another sm_90a card).  It builds the port's CUDA kernels from
    out), recurrentgemma's full 2048-slot ring (16 heads of 256 over one
    kv head), and decode
    captured alone in a CUDA graph and replayed with new lengths (the
-   bytes of the eager call);
+   bytes of the eager call); decode's log-sum-exp (``return_lse``)
+   against the plain version's at the three decode path shapes (qwen S
+   1088, recurrentgemma's ring S 1056 at dh 256, dbrx S 1032; lengths
+   1025 and 500; 2e-2 abs, as flash's) with the output unchanged by the flag, and the
+   qwen cache cut into 4 blocks of 272 rows, one launch a block with its
+   own lengths, combined by ``combine_partials``' arithmetic against one
+   launch over the whole (the decode tolerance); the flag's time there;
 7. drives the serving path, ``MarvelClient.serving`` over a DRAM + PMEM
    tier stack with a PMEM journal, at the full width of qwen2.5-3b (36
    layers, d_model 2048, 16 heads over 2 kv heads, vocab 151936; random
@@ -254,7 +260,19 @@ another sm_90a card).  It builds the port's CUDA kernels from
    norms and parameters bit-equal, the SSD chunk's or flash attention's
    forward and backward launches a step equal to the one-process step's,
    each run's peak memory and seconds; at most 30 s;
-20. prints a ``kernels`` JSON line: each kernel's launches on its path
+20. prefill and decode on a mesh at world size 1
+   (``phase_sharded_serve``): NCCL, a (1, 1) mesh, bf16, qwen2.5-3b at
+   full width (36 layers; 2 prompts of 1024 tokens into a cache of 1040,
+   16 greedy steps, and again from the cache quantized to int8),
+   mamba2-2.7b at 2 layers, recurrentgemma-9b at one (R, R, L) period and
+   its postlude, deepseek-v2-lite-16b at its prelude and 1 MoE period (2
+   prompts of 1024, 8 steps each): ``make_prefill_step`` and
+   ``make_decode_step(mesh=...)`` against ``mesh=None``, the logits,
+   greedy tokens and every cache leaf bit-equal, the prefill's flash or
+   SSD launches and decode's launches a step equal (one a step for each
+   attention layer); each run's launches, peak memory and seconds; at
+   most 25 s;
+21. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
@@ -273,7 +291,9 @@ another sm_90a card).  It builds the port's CUDA kernels from
    its case's shape beside its bound at the TF32 peak and SDPA's f32
    forward and backward;
    the ``ssd_chunk`` row its mamba2-2.7b training launches and shape, and
-   the ``ssd_chunk_bwd`` row its launches there, its checks and time.
+   the ``ssd_chunk_bwd`` row its launches there, its checks and time; the
+   ``decode_attention`` row also its time with ``return_lse`` and phase
+   20's launches a step.
    Decode and the SSD forward must make one launch a call, of their own
    kernel, the SSD backward three.
 
@@ -932,9 +952,11 @@ def decode_case(rec: AttnRecord, case: str, q, kc, vc, lengths,
 
 
 def phase_attention_kernels(dev, seed: int, flash: AttnRecord,
-                            decode: AttnRecord, T: int, S: int) -> None:
+                            decode: AttnRecord, T: int, S: int) -> dict:
     """Each attention kernel against its plain version on the card: the
-    serving path's shape, then the edge cases of the contract."""
+    serving path's shape, then the edge cases of the contract, then
+    decode's log-sum-exp (:func:`decode_lse_cases`, whose times it
+    returns)."""
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     bf = torch.bfloat16
     H, Kv, dh = 16, 2, 128  # qwen2.5-3b's attention
@@ -1050,6 +1072,88 @@ def phase_attention_kernels(dev, seed: int, flash: AttnRecord,
     emit("decode_edge", case="ring_S2048_dh256_mqa", B=2, S=ring, heads=16,
          kv_heads=1, dh=256, lengths=lens.tolist(), max_abs_err=err, ok=True)
     decode_graph_case(dev, g, S)
+    return decode_lse_cases(decode, g, dev)
+
+
+#: the decode path shapes (PERF.md §6): (name, H, Kv, dh, S, dtype), length
+#: 1025; the qwen shape also in f32, the CUDA-core route's log-sum-exp
+DECODE_PATH_SHAPES = (("qwen2.5-3b", 16, 2, 128, 1088, torch.bfloat16),
+                      ("recurrentgemma-9b_ring", 16, 1, 256, 1056, torch.bfloat16),
+                      ("dbrx-132b", 48, 8, 128, 1032, torch.bfloat16),
+                      ("qwen2.5-3b_f32", 16, 2, 128, 1088, torch.float32))
+SPLIT_BLOCKS = 4  # the one-card split check: the qwen cache in 4 blocks
+#: the split check's bound (max abs against one launch), set from its
+#: readings: 9.77e-4 measured, 4e-3 predicted (PERF.md §6, PR 29); a
+#: combine that weighted the live blocks equally reads above it
+SPLIT_TOL = 4e-3
+
+
+def decode_lse_cases(decode: AttnRecord, g, dev) -> dict:
+    """``decode_attention(return_lse=True)`` against its plain version at
+    the decode path shapes (o to the phase's tolerance, the log-sum-exp to
+    the flash lse's, ``LSE_TOL``, both by the input type: bf16 on the
+    ``mma`` route, f32 on the CUDA-core one), then the split check of the
+    sequence-sharded caches on one card: the qwen path's cache cut into
+    SPLIT_BLOCKS blocks of rows, one launch a block with the block's own
+    lengths (a row of length 500 ends in the second block, so the last two
+    are empty for it), combined by ``combine_partials``' arithmetic
+    (``collectives.combine_stacked``), against one launch over the whole
+    cache, to ``SPLIT_TOL``.  The same blocks averaged with equal weights
+    over the live ones are printed beside it (``unweighted_max_abs_err``):
+    the reading the bound must stay below.  Returns the times, with and
+    without the flag, at the qwen shape in bf16."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.parallel.collectives import combine_stacked
+
+    out = {}
+    for name, H, Kv, dh, S, dt in DECODE_PATH_SHAPES:
+        q = _randn(g, (2, H, dh), dt, dev)
+        kc, vc = (_randn(g, (2, S, Kv, dh), dt, dev) for _ in range(2))
+        lengths = torch.tensor([1025, 500], dtype=torch.int32, device=dev)
+        o, lse = da.decode_attention(q, kc, vc, lengths, return_lse=True)
+        want_o, want_lse = da.decode_attention_torch(
+            q.float(), kc.float(), vc.float(), lengths, return_lse=True)
+        check(lse.dtype == torch.float32 and lse.shape == (2, H),
+              f"decode lse at {name}: {lse.dtype} {tuple(lse.shape)}")
+        err = decode.compare(f"lse_path_{name}", o, want_o, dt)
+        lse_err = float((lse - want_lse).abs().max())
+        check(lse_err <= LSE_TOL[dt], f"decode lse at {name}: max abs err {lse_err}")
+        check(torch.equal(o, da.decode_attention(q, kc, vc, lengths)),
+              f"decode at {name}: return_lse changed the output")
+        rows = S // SPLIT_BLOCKS
+        if name == "qwen2.5-3b":
+            parts = [da.decode_attention(
+                q, kc[:, i * rows:(i + 1) * rows], vc[:, i * rows:(i + 1) * rows],
+                (lengths - i * rows).clamp(0, rows).to(torch.int32), return_lse=True)
+                for i in range(SPLIT_BLOCKS)]
+            po = torch.stack([p[0] for p in parts]).float()
+            plse = torch.stack([p[1] for p in parts])
+            split = combine_stacked(po, plse)
+            check(split.shape == o.shape and bool(torch.isfinite(split).all()),
+                  f"decode split: {tuple(split.shape)}, finite "
+                  f"{bool(torch.isfinite(split).all())}")
+            split_err = float((split - o.float()).abs().max())
+            check(split_err <= SPLIT_TOL,
+                  f"decode split combine: max abs err {split_err} > {SPLIT_TOL}")
+            live = (plse > da.MASK_VALUE / 2).float()[..., None]
+            flat = (po * live).sum(0) / live.sum(0).clamp_min(1)
+            flat_err = float((flat - o.float()).abs().max())
+            emit("decode_split_combine", shape=name, blocks=SPLIT_BLOCKS, rows=rows,
+                 lengths=lengths.tolist(), max_abs_err=split_err, tol=SPLIT_TOL,
+                 unweighted_max_abs_err=flat_err, ok=True)
+            one = q[:1], kc[:1], vc[:1], lengths[:1]
+            out = {"shape": {"B": 1, "H": H, "Kv": Kv, "dh": dh, "S": S,
+                             "lengths": [1025]},
+                   "lse_ms": time_ms(lambda: da.decode_attention(*one, return_lse=True)),
+                   "ms": time_ms(lambda: da.decode_attention(*one)),
+                   "lse_plain_ms": time_ms(lambda: da.decode_attention_torch(
+                       *one, return_lse=True)),
+                   "split_combine_max_abs_err": split_err,
+                   "split_unweighted_max_abs_err": flat_err}
+        emit("decode_lse", shape=name, B=2, H=H, Kv=Kv, dh=dh, S=S, dtype=str(dt),
+             lengths=lengths.tolist(), max_abs_err=err, lse_max_abs_err=lse_err, ok=True)
+    emit("decode_lse_time", **out)
+    return out
 
 
 def decode_graph_case(dev, g, S: int) -> None:
@@ -4035,6 +4139,163 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
+
+# -- phase 20: prefill and decode on a mesh, at world size 1 -------------------
+
+#: (model, body periods (None: all), decode steps); qwen2.5-3b also decodes
+#: from its int8 cache
+SERVE_SHARD_CONFIGS = ((SERVE_MODEL, None, 16), (SSM_MODEL, 2, 8), (RG_MODEL, 1, 8),
+                       (MLA_MODEL, 1, 8))
+SERVE_SHARD_PROMPTS = 2  # prompts of SERVE_SHARD_PROMPT tokens
+SERVE_SHARD_PROMPT = 1024
+SERVE_SHARD_CACHE = 1040  # the cache's rows: the prompt and 16 steps
+SERVE_SHARD_LIMIT_S = 25.0  # the phase's own time limit
+
+
+def _quantized(cache):
+    """``cache`` with every attention layer in its int8 form (the KV pager's
+    demotion), as ``make_decode_step(quant_cache=True)`` takes it."""
+    from repro_torch.models.attention import AttnCache
+    from repro_torch.models.quant_cache import quantize_cache
+
+    return {k: [quantize_cache(*c) if isinstance(c, AttnCache) else c for c in v]
+            for k, v in cache.items()}
+
+
+def phase_sharded_serve(dev, seed: int, card: str) -> dict:
+    """Phase 20, the serving steps on a mesh at world size 1: NCCL through a
+    file rendezvous, a (1, 1) mesh over ("data", "model"), bf16 weights
+    drawn as the serving phases draw them.  For each of
+    SERVE_SHARD_CONFIGS at full width (depth cut as listed),
+    ``make_prefill_step`` over SERVE_SHARD_PROMPTS prompts of
+    SERVE_SHARD_PROMPT tokens into SERVE_SHARD_CACHE rows, then greedy
+    ``make_decode_step`` steps, with ``mesh=None`` and on the mesh (the
+    parameters cut by ``param_pspecs``, the whole leaves at (1, 1)): the
+    prefill's logits, every step's logits and tokens and every cache leaf
+    held to the same bits (an axis of one rank skips every collective and
+    every cut), and the kernels' launches equal (flash or the SSD chunk in
+    the prefill, decode a step where the model has attention layers; the
+    int8 cache and MLA decode in torch ops).  qwen2.5-3b also decodes from
+    its cache quantized to int8 (``quant_cache=True``).  Inside
+    :class:`_NoPlain`; prints each run's launches a step, peak memory and
+    seconds.  One card: no time across cards is measured."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch import (make_decode_step, make_mesh_compat,
+                                    make_prefill_step, process_group, steps)
+    from repro_torch.models import ShapeConfig
+    from repro_torch.parallel.sharding import param_pspecs, shard_tree
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    T, B = SERVE_SHARD_PROMPT, SERVE_SHARD_PROMPTS
+    out = {"prompts": B, "prompt": T, "cache_len": SERVE_SHARD_CACHE,
+           "dtype": "bfloat16", "runs": []}
+
+    def run(cfg, params, prompts, mesh, quant: bool, n_steps: int):
+        prefill = make_prefill_step(cfg, ShapeConfig("p", "prefill", T, B),
+                                    cache_len=SERVE_SHARD_CACHE, mesh=mesh)
+        decode = make_decode_step(cfg, ShapeConfig("d", "decode", SERVE_SHARD_CACHE, B),
+                                  mesh=mesh, quant_cache=quant)
+        seen, inner = [], steps.decode_step
+
+        def keeping(*a, **kw):  # the step's logits, kept for the comparison
+            lo, c = inner(*a, **kw)
+            seen.append(lo)
+            return lo, c
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = da.launches = ssd_scan.launches = 0  # this run starts here
+        t = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = prefill(params, {"tokens": prompts})
+            pre = {"flash_attention": fa.launches, "ssd_chunk": ssd_scan.launches}
+            if quant:
+                cache = _quantized(cache)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            toks = [tok]
+            steps.decode_step = keeping
+            try:
+                for i in range(n_steps):
+                    tok, cache = decode(params, tok, cache, T + i)
+                    toks.append(tok)
+            finally:
+                steps.decode_step = inner
+        torch.cuda.synchronize()
+        row = {"s": time.perf_counter() - t, "prefill_launches": pre,
+               "decode_launches_per_step": da.launches / n_steps,
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        return row, [logits] + seen + toks + tree_leaves(cache)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_mesh_") as workdir:
+        with process_group(0, 1, os.path.join(workdir, "rdzv")), _NoPlain():
+            mesh = make_mesh_compat((1, 1), ("data", "model"))
+            for model, periods, n_steps in SERVE_SHARD_CONFIGS:
+                cfg = get_config(model)
+                if periods is not None:
+                    cfg = replace(cfg, n_periods=periods)
+                draw = draw_ssm_params if cfg.ssm is not None else draw_params
+                params = draw(cfg, seed, dev)
+                g = torch.Generator(device=dev).manual_seed(seed + 41)
+                prompts = torch.randint(0, cfg.vocab, (B, T), generator=g, device=dev,
+                                        dtype=torch.int32)
+                sharded = shard_tree(params, param_pspecs(cfg, mesh), mesh)
+                for quant in (False, True) if model == SERVE_MODEL else (False,):
+                    want, want_out = run(cfg, params, prompts, None, quant, n_steps)
+                    row, got = run(cfg, sharded, prompts, mesh, quant, n_steps)
+                    same = [torch.equal(a, b) for a, b in zip(got, want_out)]
+                    row.update(model=cfg.name, layers=cfg.n_layers, quant_cache=quant,
+                               steps=n_steps, mesh=[1, 1], tensors=len(same),
+                               bit_equal=len(got) == len(want_out) and all(same),
+                               finite=all(bool(torch.isfinite(t.float()).all())
+                                          for t in got if t.is_floating_point()),
+                               one_process=want)
+                    del got, want_out
+                    emit("sharded_serve_run", **row)
+                    check(row["finite"], f"{cfg.name}: non-finite logits or cache on "
+                          "the mesh")
+                    check(row["bit_equal"], f"{cfg.name} (int8 {quant}): the (1, 1) mesh's "
+                          f"prefill and decode depart from mesh=None in "
+                          f"{row['tensors'] - sum(same)} of {row['tensors']} tensors")
+                    check(row["prefill_launches"] == want["prefill_launches"]
+                          and row["decode_launches_per_step"]
+                          == want["decode_launches_per_step"],
+                          f"{cfg.name}: launches {row['prefill_launches']}, "
+                          f"{row['decode_launches_per_step']} a step; one process "
+                          f"{want['prefill_launches']}, {want['decode_launches_per_step']}")
+                    kernel = "ssd_chunk" if cfg.ssm is not None else "flash_attention"
+                    check(row["prefill_launches"][kernel] > 0,
+                          f"{cfg.name}: {kernel} never launched in the prefill")
+                    attn = sum(b.mixer in ("attn", "local") for b in cfg.prelude
+                               + cfg.postlude) + cfg.n_periods * sum(
+                        b.mixer in ("attn", "local") for b in cfg.pattern)
+                    check(row["decode_launches_per_step"] == (0 if quant else attn),
+                          f"{cfg.name}: decode launched {row['decode_launches_per_step']} "
+                          f"times a step, its attention layers {attn}")
+                    out["runs"].append(row)
+                del params, sharded
+                free_card()
+            del mesh
+        check(not dist.is_initialized(), "a process group outlived the phase")
+    out["s"] = time.perf_counter() - t0
+    emit("sharded_serve", card=card, s=out["s"],
+         bit_equal={f"{r['model']}{'_int8' if r['quant_cache'] else ''}": r["bit_equal"]
+                    for r in out["runs"]},
+         decode_launches_per_step={
+             f"{r['model']}{'_int8' if r['quant_cache'] else ''}":
+             r["decode_launches_per_step"] for r in out["runs"]},
+         peak_allocated_bytes={
+             f"{r['model']}{'_int8' if r['quant_cache'] else ''}":
+             r["peak_allocated_bytes"] for r in out["runs"]})
+    check(out["s"] <= SERVE_SHARD_LIMIT_S, f"phase 20 took {out['s']} s, over its "
+          f"{SERVE_SHARD_LIMIT_S} s")
+    return out
+
 def _card() -> str:
     """Select card 0, print its name and power limit and return them."""
     dev = torch.device("cuda", 0)
@@ -4121,8 +4382,8 @@ def main(argv=None) -> int:
     flash_rec = AttnRecord("flash_attention")
     decode_rec = AttnRecord("decode_attention")
     t0 = time.perf_counter()
-    phase_attention_kernels(dev, args.seed, flash_rec, decode_rec,
-                            SERVE_PROMPT, SERVE_PROMPT + SERVE_MAX_TOKENS)
+    decode_lse = phase_attention_kernels(dev, args.seed, flash_rec, decode_rec,
+                                         SERVE_PROMPT, SERVE_PROMPT + SERVE_MAX_TOKENS)
     emit("phase_done", name="attention_kernels", s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     from repro_torch.configs import get_config
@@ -4327,6 +4588,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_sharded_mixers(dev, args.seed, card)
     emit("phase_done", name="sharded_mixers", s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sharded_serve = phase_sharded_serve(dev, args.seed, card)
+    emit("phase_done", name="sharded_serve", s=time.perf_counter() - t0)
 
     def path_row(m, launches):
         return {"shape": m["shape"], "launches": launches, "ms": m["kernel_ms"],
@@ -4443,7 +4707,11 @@ def main(argv=None) -> int:
              "recurrentgemma-9b_ring": path_row(
                  ring_shape, rg_launches["decode_attention"]),
              "dbrx-132b_2_layers": path_row(
-                 dbrx_decode, moe_launches["decode_attention"])}},
+                 dbrx_decode, moe_launches["decode_attention"])},
+         "return_lse": decode_lse,
+         "sharded_serve_launches_per_step": {
+             f"{r['model']}{'_int8' if r['quant_cache'] else ''}":
+             r["decode_launches_per_step"] for r in sharded_serve["runs"]}},
         {**row("ssd_chunk", "src/repro_torch/csrc/ssd_scan.cu",
                "src/repro/kernels/ssd_scan.py:80", ssd_launches,
                ssd_rec.max_abs_err, ssd_rec.checks, ssd_shape,

@@ -78,6 +78,7 @@ struct Args {
   const void* v;
   const int32_t* lengths;  // (B,)
   void* o;                 // (B, H, dh)
+  float* lse;              // (B, H) log-sum-exp, or null
   int64_t q_sb, q_sh;      // element strides
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -142,7 +143,9 @@ __device__ __forceinline__ Row row_of(const Args& a) {
 // block `rank` of n combines outputs e = rank * kThreads + tid, step
 // n * kThreads, reading every block's partial in split order, and writes
 // them; a second barrier keeps every block's shared memory alive until
-// the others have read it.
+// the others have read it.  With `a.lse`, the block that writes a head's
+// element 0 also writes the head's log-sum-exp, m + log(l) in natural log
+// (kMask for a head that saw no live row: lengths[b] == 0).
 template <typename T, int DH>
 __device__ void cluster_combine(const Args& a, const Row& r, float* part,
                                 int hb) {
@@ -164,6 +167,9 @@ __device__ void cluster_combine(const Args& a, const Row& r, float* part,
       acc = fmaf(p[2 * hb + h * DH + d], w, acc);
     }
     out[h * a.o_sh + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
+    if (a.lse != nullptr && d == 0) {
+      a.lse[r.b * a.H + r.h0 + h] = l > 0.f ? m + logf(l) : kMask;
+    }
   }
   cluster.sync();
 }
@@ -712,14 +718,17 @@ static_assert(sizeof(Params) == 136 && offsetof(Params, dtype) == 80 &&
 
 // o[b, h, :] = attention of q[b, h, :] over the first lengths[b] rows of
 // k/v[b, :, h / (H/Kv), :], on `stream`, in one launch, without
-// synchronising or allocating.  q, k, v and o of p->dtype, the head dim
+// synchronising or allocating.  `lse`, when not null, receives each
+// (b, h)'s f32 log-sum-exp of its scores at lse[b * H + h] (kMask where
+// lengths[b] == 0): what a caller needs to combine partial attentions
+// over blocks of one sequence.  q, k, v and o of p->dtype, the head dim
 // contiguous (bf16/f16: 16-byte aligned bases and strides).  Returns a
 // cudaError_t (cudaErrorInvalidValue for a plan or type the kernel does
 // not take).
 extern "C" int decode_attention_launch(const Params* p, const void* q,
                                        const void* k, const void* v,
                                        const int32_t* lengths, void* o,
-                                       cudaStream_t stream) {
+                                       float* lse, cudaStream_t stream) {
   if (p->B <= 0 || p->H <= 0) return cudaSuccess;
   const int rows = p->B * p->Kv * p->groups;
   if (p->S <= 0 || p->Kv <= 0 || p->H % p->Kv != 0 || p->n_splits < 1 ||
@@ -729,7 +738,7 @@ extern "C" int decode_attention_launch(const Params* p, const void* q,
       static_cast<int64_t>(p->n_splits) * p->split_len < p->S) {
     return cudaErrorInvalidValue;
   }
-  const Args a{q,       k,       v,       lengths,      o,
+  const Args a{q,       k,       v,       lengths,      o,       lse,
                p->q_sb, p->q_sh, p->k_sb, p->k_ss,      p->k_sh,
                p->v_sb, p->v_ss, p->v_sh, p->o_sb,      p->o_sh,
                p->S,    p->H,    p->Kv,   p->split_len, p->heads,

@@ -34,6 +34,13 @@ need 16-byte aligned bases and strides (``ValueError`` otherwise).
 :func:`decode_attention` launches the kernel for CUDA tensors and takes
 the plain version, :func:`decode_attention_torch`, only for CPU tensors.
 ``launches`` counts the kernel's launches (one per call).
+
+With ``return_lse`` a call also returns each (row, head)'s f32
+log-sum-exp of its scores, ``(B, H)`` in natural log (``m + log l``;
+``MASK_VALUE`` where ``lengths[b] == 0``), written by the same launch
+where the cluster combines its partials: with it, attentions over blocks
+of one sequence (a sequence-sharded cache, one block per rank) combine
+into the attention over the whole (``parallel.collectives.combine_partials``).
 """
 
 from __future__ import annotations
@@ -80,7 +87,7 @@ def _launcher():
     if _entry is None:
         lib = _build.load("decode_attention")
         fn = lib.decode_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 7
+        fn.argtypes = [ctypes.c_void_p] * 8
         fn.restype = ctypes.c_int
         err = lib.decode_attention_error
         err.argtypes = [ctypes.c_int]
@@ -97,9 +104,12 @@ def decode_attention_torch(
     *,
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The plain version: one masked softmax in f32 (zeros where
-    ``lengths[b] == 0``, as the kernel)."""
+    ``lengths[b] == 0``, as the kernel).  With ``return_lse`` also each
+    (row, head)'s log-sum-exp, f32 ``(B, H)`` (``MASK_VALUE`` where
+    ``lengths[b] == 0``)."""
     B, H, dh = q.shape
     S, Kv = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
@@ -113,7 +123,12 @@ def decode_attention_torch(
     # normalised before the product, as the reference's softmax is
     p = torch.softmax(s, dim=-1) * live
     o = torch.einsum("bkrs,bskd->bkrd", p, v_cache.float())
-    return o.reshape(B, H, dh).to(q.dtype)
+    o = o.reshape(B, H, dh).to(q.dtype)
+    if not return_lse:
+        return o
+    empty = (lengths.to(q.device) <= 0)[:, None]
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H).masked_fill(empty, MASK_VALUE)
+    return o, lse
 
 
 def _check(q, k_cache, v_cache, lengths) -> None:
@@ -196,6 +211,7 @@ class _Call(NamedTuple):
 
     plan: Plan
     out_shape: Tuple[int, ...]
+    lse_shape: Optional[Tuple[int, ...]]  # (B, H) when asked for, else None
     params: _Params  # kept alive: the kernel reads it through `address`
     address: int
 
@@ -213,7 +229,7 @@ _CALLS_MAX = 256
 
 
 def _prepare(q, k_cache, v_cache, lengths, scale: Optional[float],
-             softcap: Optional[float], sms: int) -> _Call:
+             softcap: Optional[float], sms: int, return_lse: bool = False) -> _Call:
     """Check CUDA tensors, plan the call and build its parameter struct."""
     _check(q, k_cache, v_cache, lengths)
     B, H, dh = q.shape
@@ -238,7 +254,8 @@ def _prepare(q, k_cache, v_cache, lengths, scale: Optional[float],
         scale if scale is not None else 1.0 / math.sqrt(dh),
         softcap if softcap is not None else 0.0, 0,
     )
-    return _Call(plan, (B, H, dh), params, ctypes.addressof(params))
+    return _Call(plan, (B, H, dh), (B, H) if return_lse else None, params,
+                 ctypes.addressof(params))
 
 
 def decode_attention(
@@ -249,9 +266,12 @@ def decode_attention(
     *,
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Single-token attention over a KV cache, ``(B, H, dh)`` in q's type.
-    Query head ``h`` reads kv head ``h // (H // Kv)``."""
+    Query head ``h`` reads kv head ``h // (H // Kv)``.  With
+    ``return_lse``, ``(o, lse)``: lse each (row, head)'s f32 log-sum-exp,
+    ``(B, H)`` (module docstring)."""
     if q.is_cuda:
         # everything before the launch counts in every decode step: one
         # dict lookup on the signature, then the pointers
@@ -259,11 +279,11 @@ def decode_attention(
                q.stride(), k_cache.stride(), v_cache.stride(), lengths.stride(),
                q.dtype, k_cache.dtype, v_cache.dtype, lengths.dtype,
                q.get_device(), k_cache.get_device(), v_cache.get_device(),
-               lengths.get_device(), scale, softcap)
+               lengths.get_device(), scale, softcap, return_lse)
         call = _calls.get(key)
         if call is None:
             call = _prepare(q, k_cache, v_cache, lengths, scale, softcap,
-                            _sm_count(q.get_device()))
+                            _sm_count(q.get_device()), return_lse)
             if len(_calls) >= _CALLS_MAX:
                 _calls.clear()
             _calls[key] = call
@@ -276,24 +296,29 @@ def decode_attention(
     if q.device.type != "cpu":
         raise ValueError(f"attention on unsupported device {q.device}")
     return decode_attention_torch(q, k_cache, v_cache, lengths,
-                                  scale=scale, softcap=softcap)
+                                  scale=scale, softcap=softcap,
+                                  return_lse=return_lse)
 
 
-def _launch(q, ptrs, lengths_ptr: int, call: _Call) -> torch.Tensor:
+def _launch(q, ptrs, lengths_ptr: int, call: _Call):
     """Launch the kernel of a prepared call: one launch, no other work on
     the device."""
     global launches
     out = q.new_empty(call.out_shape)
+    lse = None
+    if call.lse_shape is not None:
+        lse = torch.empty(call.lse_shape, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out
+        return out if lse is None else (out, lse)
     fn, err_str = _entry or _launcher()
     index = q.get_device()
+    lse_ptr = None if lse is None else lse.data_ptr()
     if index == torch.cuda.current_device():
-        err = fn(call.address, *ptrs, lengths_ptr, out.data_ptr(),
+        err = fn(call.address, *ptrs, lengths_ptr, out.data_ptr(), lse_ptr,
                  _raw_stream(index))
     else:
         with torch.cuda.device(index):
-            err = fn(call.address, *ptrs, lengths_ptr, out.data_ptr(),
+            err = fn(call.address, *ptrs, lengths_ptr, out.data_ptr(), lse_ptr,
                      _raw_stream(index))
     if err:
         raise RuntimeError(
@@ -301,4 +326,4 @@ def _launch(q, ptrs, lengths_ptr: int, call: _Call) -> torch.Tensor:
         )
     with _count_lock:
         launches += 1
-    return out
+    return out if lse is None else (out, lse)

@@ -61,10 +61,13 @@ def decode_attention(
     lengths: torch.Tensor,  # (B,) int32
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
-) -> torch.Tensor:
-    """Single-token GQA attention over a KV cache -> (B, H, dh)."""
+    return_lse: bool = False,
+):
+    """Single-token GQA attention over a KV cache -> (B, H, dh); with
+    ``return_lse`` also each (row, head)'s f32 log-sum-exp, (B, H)."""
     forward_only("decode_attention", q, k_cache, v_cache)
-    return _decode(q, k_cache, v_cache, lengths, scale=scale, softcap=softcap)
+    return _decode(q, k_cache, v_cache, lengths, scale=scale, softcap=softcap,
+                   return_lse=return_lse)
 
 
 def ssd_chunk(

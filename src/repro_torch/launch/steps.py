@@ -46,12 +46,16 @@ router) is not summed.  The MoE layers route over the step's rows
 each rank's block of it, as the reference's GSPMD layout does, and the
 expert-parallel paths route each (data block, TP slice) on its own, as
 the reference's ``shard_map`` bodies do, their balance losses averaged
-over the ranks.  The prefill and decode steps on a mesh wait for
-ROADMAP A11d and are refused.
+over the ranks.
 
 ``make_prefill_step`` and ``make_decode_step`` are the reference's
 serving steps (the serve launcher's prefill and greedy decode), and
-``make_step`` picks one by ``shape.kind``.  ``make_ctx`` builds the
+``make_step`` picks one by ``shape.kind``.  On a mesh they take and
+return each rank's shards (:class:`_ServeLayout`): weights by
+``param_pspecs`` (gathered over FSDP layer by layer), rows over the data
+axes, caches by ``cache_pspecs``, whose KV and MLA caches are cut on the
+sequence over TP; every layer writes out its collectives (the attention
+layers combine their blocks' partial softmaxes, ``combine_partials``).  ``make_ctx`` builds the
 layers' mesh context.
 """
 
@@ -73,7 +77,8 @@ from repro_torch.optim.adamw import AdamWConfig, OptState, adamw_update
 from repro_torch.optim.compression import EFState, compress_decompress
 from repro_torch.parallel.collectives import LeafReducer, all_gather
 from repro_torch.parallel.sharding import (
-    _map_specs, mesh_axes, mesh_shape, param_pspecs, spec_axes, spec_leaves)
+    _map_specs, batch_entry, mesh_axes, mesh_shape, param_pspecs, spec_axes,
+    spec_leaves)
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step", "make_step",
@@ -222,6 +227,31 @@ def _tp_partial_flags(cfg: ModelConfig, specs: Dict[str, Any], tp: int,
     return flags
 
 
+def _fsdp_shards(params: Dict[str, Any], leaves: Dict[str, Any], specs: Dict[str, Any],
+                 axis: str, group, zero1: bool = False) -> Dict[str, Any]:
+    """``leaves`` (the tree of ``params``' masters, or views of them) with
+    each leaf that ``specs`` cut over the FSDP ``axis`` a :class:`Shard` (a
+    stacked body leaf one per period), gathered where the model uses it;
+    with ``zero1`` each carries its master's gather in the compute type,
+    made here."""
+    def wrap(k):
+        def fn(p, v, spec):
+            d = _fsdp_dim(spec, axis)
+            if d is None:
+                return v
+            full = None
+            if zero1:
+                with torch.no_grad():
+                    full = all_gather(p.to(COMPUTE_DTYPE), group, d)
+            if k != "body":
+                return Shard(v, d, group, full)
+            return Periods(Shard(x, d - 1, group, None if full is None else full[i])
+                           for i, x in enumerate(v))
+        return fn
+
+    return {k: tree_map(wrap(k), params[k], leaves[k], specs[k]) for k in params}
+
+
 class _Layout:
     """Where the train step's work lies on ``mesh``: this rank's rows of a
     microbatch, its FSDP leaves, the axes each gradient is summed over.
@@ -272,25 +302,8 @@ class _Layout:
         here, once a step, in the TP-only layout."""
         if self.fsdp_axis is None:
             return leaves
-        group = self.fsdp_group
-
-        def wrap(k):
-            def fn(p, v, spec):
-                d = _fsdp_dim(spec, self.fsdp_axis)
-                if d is None:
-                    return v
-                full = None
-                if self.zero1:
-                    with torch.no_grad():
-                        full = all_gather(p.to(COMPUTE_DTYPE), group, d)
-                if k != "body":
-                    return Shard(v, d, group, full)
-                return Periods(Shard(x, d - 1, group, None if full is None else full[i])
-                               for i, x in enumerate(v))
-            return fn
-
-        return {k: tree_map(wrap(k), params[k], leaves[k], self.specs[k])
-                for k in params}
+        return _fsdp_shards(params, leaves, self.specs, self.fsdp_axis,
+                            self.fsdp_group, self.zero1)
 
     def tp_group(self, unembed: torch.Tensor):
         """The loss's TP group: vocab-parallel where ``unembed`` is cut."""
@@ -322,40 +335,92 @@ class _Layout:
         return losses
 
 
-def _refuse_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"the {what} step on a mesh waits for ROADMAP A11d "
-                                  "(the sequence-sharded KV cache of cache_pspecs)")
+class _ServeLayout:
+    """Where the serving steps' work lies on ``mesh`` (None: one card):
+    their mesh context and which leaves arrive cut over FSDP.  Each rank
+    holds its shards of the parameters (``param_pspecs``, TP-only without
+    ``param_fsdp``), its block of the batch's rows over the data axes
+    (``batch_entry``; every rank the whole batch where they do not divide
+    it) and its blocks of the cache (``cache_pspecs``)."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, mesh, param_fsdp: bool,
+                 cache_len: Optional[int] = None):
+        self.ctx, self.fsdp = None, None
+        if mesh is None:
+            return
+        sizes = mesh_shape(mesh)
+        dp, fsdp, _ = mesh_axes(mesh)
+        rows = tuple(a for a in dp if sizes[a] > 1) if batch_entry(mesh, batch) else ()
+        self.ctx = dataclasses.replace(make_ctx(mesh), zero1=not param_fsdp,
+                                       row_axes=rows, cache_len=cache_len)
+        if param_fsdp and fsdp is not None and sizes[fsdp] > 1:
+            self.fsdp = (fsdp, mesh.get_group(fsdp), param_pspecs(cfg, mesh))
+
+    def weights(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """``params`` with each leaf cut over FSDP a :class:`Shard` (a
+        stacked body leaf one per period), gathered layer by layer where
+        the model uses it."""
+        if self.fsdp is None:
+            return params
+        axis, group, specs = self.fsdp
+        return _fsdp_shards(params, params, specs, axis, group)
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
-                      cache_len: Optional[int] = None, mesh=None) -> Callable:
+                      cache_len: Optional[int] = None, mesh=None,
+                      param_fsdp: bool = True) -> Callable:
     """The prefill step ``(params, batch) -> (logits, caches)``: the
     softcapped f32 logits of each sequence's last token, ``(B, V)``, and
     the cache tree of ``forward(collect_cache=True)``, ``cache_len`` rows
     long (default: the prompt's; more leaves decode headroom).  It runs
     where ``params`` and the batch's ``tokens`` lie, in the weights' own
-    type.  A ``mesh`` is refused (ROADMAP A11d)."""
-    _refuse_mesh(mesh, "prefill")
+    type.
+
+    With ``mesh`` (a ``DeviceMesh``; one process per rank) ``params`` are
+    this rank's shards by ``param_pspecs(cfg, mesh)`` (TP-only,
+    ``fsdp=None``, without ``param_fsdp``), the batch this rank's block
+    of rows (``input_shardings``), and the step returns this rank's rows
+    of the logits and its blocks of the caches by ``cache_pspecs`` (at
+    ``seq_len`` = the cache's length): the KV and MLA caches cut on the
+    sequence over TP, the SSM state by heads, the conv windows and the
+    RG-LRU state by channels.  A (1, 1) mesh computes as one card."""
+    lay = _ServeLayout(cfg, shape.global_batch, mesh, param_fsdp)
 
     def prefill_step(params: Dict[str, Any], batch: Dict[str, Any]):
+        params = lay.weights(params)
+        ctx = lay.ctx
+        if ctx is not None:  # the caches' rows, laid out by cache_pspecs
+            seq = sum(batch[k].shape[1] for k in ("tokens", "patches", "frames")
+                      if k in batch)
+            ctx = dataclasses.replace(ctx, cache_len=cache_len or seq)
         h, _aux, caches = forward(params, cfg, batch, collect_cache=True,
-                                  cache_len=cache_len)
-        return logits_fn(params, cfg, h[:, -1]), caches
+                                  cache_len=cache_len, ctx=ctx)
+        return logits_fn(params, cfg, h[:, -1], ctx), caches
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> Callable:
+def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
+                     greedy: bool = True, param_fsdp: bool = True,
+                     quant_cache: bool = False) -> Callable:
     """The greedy decode step ``(params, tokens (B, 1), cache, t) ->
     (next tokens (B, 1) int32, cache)``: one ``decode_step`` at position
     ``t`` (the cache's layers are written in place) and the argmax of its
-    logits.  A ``mesh`` is refused (ROADMAP A11d)."""
-    _refuse_mesh(mesh, "decode")
+    logits.  ``cache`` is what the prefill step or ``init_cache`` gives
+    (``quant_cache``: its int8 form, ``init_cache(quant_attn=True)``),
+    ``shape.seq_len`` rows long.  ``greedy`` is ignored: it is the
+    reference's keyword, whose step takes the argmax either way too.
+
+    With ``mesh``, ``params``, the tokens and the cache are this rank's
+    shards, rows and blocks as for :func:`make_prefill_step` (the cache's
+    specs ``cache_pspecs(cfg, shape, mesh, quant_cache)``), and so is
+    what the step returns.  A (1, 1) mesh computes as one card."""
+    lay = _ServeLayout(cfg, shape.global_batch, mesh, param_fsdp, shape.seq_len)
 
     def serve_step(params: Dict[str, Any], tokens: torch.Tensor,
                    cache: Dict[str, Any], t: int):
-        logits, new_cache = decode_step(params, cfg, tokens, cache, t)
+        logits, new_cache = decode_step(lay.weights(params), cfg, tokens, cache, t,
+                                        lay.ctx)
         return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], new_cache
 
     return serve_step
@@ -363,7 +428,7 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> Callabl
 
 def make_step(cfg: ModelConfig, shape: ShapeConfig, **kw) -> Callable:
     """The step of ``shape.kind``: "train", "prefill", or else decode
-    (``mesh`` and the other keywords passed through)."""
+    (``mesh``, ``param_fsdp`` and the other keywords passed through)."""
     if shape.kind == "train":
         return make_train_step(cfg, shape, **kw)
     if shape.kind == "prefill":

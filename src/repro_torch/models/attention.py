@@ -30,6 +30,22 @@ Decode uses ring-buffer caches for windowed (local) layers: cache memory
 is O(window).  The decode step writes its new K/V row into the cache in
 place (the reference returns an updated copy); the caller's cache is the
 updated one.
+
+The serving steps on a mesh lay the caches out as the reference's
+``cache_pspecs`` does: the sequence (the ring's slots) cut over TP in
+contiguous blocks, every kv head on every rank (``ShardCtx.tp_block``),
+or whole where TP does not divide it.  Prefill turns the K and V each
+rank computed for its kv heads into sequence blocks of every head with
+one ``all_to_all`` (where the kv heads are cut over TP), or takes its
+block of K and V computed whole (the kv projections replicated, or
+gathered in head_dim mode).  A decode step gathers the new token's q over
+TP (and its k and v where the kv heads are cut), writes the k/v row on the
+rank that owns its slot, runs the decode kernel for every q head over the
+rank's block with the block's own lengths, and combines the blocks'
+partial outputs through their log-sum-exps (``combine_partials``); each
+rank then applies its own heads' out-projection (``reduce_from_tp``), as
+the train path does.  Only q, the new k/v row and the partial outputs
+cross the ranks: no rank holds another's block of the cache.
 """
 
 from __future__ import annotations
@@ -47,7 +63,8 @@ from repro_torch.models.quant_cache import (
     quant_decode_attention,
     quantize_kv,
 )
-from repro_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from repro_torch.parallel.collectives import (
+    all_gather, all_to_all, combine_partials, copy_to_tp, reduce_from_tp)
 
 __all__ = ["AttnCache", "attn_defs", "attn_apply", "attn_decode",
            "init_attn_cache", "tp_partial", "DEFAULT_TP"]
@@ -217,14 +234,55 @@ def attn_apply(
         return out
     L = cache_len or T
     S = min(L, window) if window else L
+    if ctx is not None and ctx.serving_tp():
+        return out, _tp_cache(p, x, k, v, cfg, ctx, group, S, positions)
+    return out, AttnCache(*(_ring(t, S) for t in (k, v)))
+
+
+def _ring(t: torch.Tensor, S: int) -> torch.Tensor:
+    """(B, T, n, dh) -> the (B, S, n, dh) cache of its last min(T, S)
+    positions, position p at slot ``p % S`` (the ring of local layers;
+    the identity layout when S >= T)."""
+    B, T = t.shape[:2]
     n = min(T, S)
-    pos = torch.arange(T - n, T, device=x.device)  # last n positions
-    slots = pos % S  # ring layout for local layers; identity when S >= T
-    ck = torch.zeros((B, S) + k.shape[2:], dtype=k.dtype, device=k.device)
-    cv = torch.zeros((B, S) + v.shape[2:], dtype=v.dtype, device=v.device)
-    ck[:, slots] = k[:, pos]
-    cv[:, slots] = v[:, pos]
-    return out, AttnCache(ck, cv)
+    pos = torch.arange(T - n, T, device=t.device)  # last n positions
+    c = torch.zeros((B, S) + t.shape[2:], dtype=t.dtype, device=t.device)
+    c[:, pos % S] = t[:, pos]
+    return c
+
+
+def _tp_cache(p, x, k, v, cfg: ModelConfig, ctx: ShardCtx, group, S: int,
+              positions) -> AttnCache:
+    """Prefill's cache on a TP axis of more than one rank, laid out as
+    ``cache_pspecs`` says (module docstring): every kv head, this rank's
+    block of the ``S`` slots (or all of them where TP does not divide S).
+    ``k``/``v`` are the attention's own (post-RoPE): every kv head in
+    head_dim mode, the rank's kv heads where they are cut over TP, else
+    (replicated kv projections, narrowed to the rank's q heads) they are
+    computed again whole."""
+    _, Kv = _eff_heads(cfg)
+    tp_group = ctx.group(ctx.tp_axis)
+    block = ctx.tp_block(S)
+    if group is not None and p["wk"].shape[1] == Kv:
+        bias = (lambda b: p[b]) if cfg.qkv_bias else (lambda b: None)
+        k = apply_rope(_project(x, p["wk"], bias("bk")), positions, cfg.rope_theta)
+        v = _project(x, p["wv"], bias("bv"))
+    out = []
+    for t in (k, v):
+        c = _ring(t, S)
+        if c.shape[2] == Kv:  # every head here: keep this rank's block
+            if block is not None:
+                c = c.narrow(1, *block).clone()
+        elif block is None:  # the kv heads cut over TP, the cache whole
+            c = all_gather(c, tp_group, 2).contiguous()
+        else:  # rank j's heads of block i to rank i: heads of one block
+            tp = ctx.tp_size()
+            B, _, Kl, dh = c.shape
+            send = c.view(B, tp, S // tp, Kl, dh).movedim(1, 0)
+            c = all_to_all(send, tp_group).permute(1, 2, 0, 3, 4).reshape(
+                B, S // tp, tp * Kl, dh)
+        out.append(c)
+    return AttnCache(*out)
 
 
 def init_attn_cache(
@@ -243,12 +301,19 @@ def attn_decode(
     cache,  # AttnCache or QuantAttnCache, written in place
     t: int,  # current position (0-based)
     cfg: ModelConfig,
+    *,
+    window: Optional[int] = None,
+    ctx: Optional[ShardCtx] = None,
 ) -> Tuple[torch.Tensor, object]:
     """One decode step; returns (out (B, 1, D), the updated cache).
 
     Windowed layers use a ring buffer (slot = t mod S): every live entry
     is inside the window by construction, so only warmup masking is
-    needed.  Raises when the cache is not on x's device.
+    needed.  Raises when the cache is not on x's device.  With the serving
+    steps' ``ctx`` on a TP axis of more than one rank
+    (:meth:`ShardCtx.serving_tp`), the weights are this rank's TP shards
+    and the cache its block (module docstring); ``window`` then sizes the
+    whole ring.  Otherwise the cache is whole and no collective runs.
     """
     B = x.shape[0]
     quant = isinstance(cache, QuantAttnCache)
@@ -257,32 +322,69 @@ def attn_decode(
         raise ValueError(
             f"decode on {x.device} but the KV cache is on {held.device}"
         )
-    S = held.shape[1]
+    S = rows = held.shape[1]
+    first, block, group = 0, None, None
+    if ctx is not None and ctx.serving_tp():
+        H_eff, Kv = _eff_heads(cfg)
+        tp_group = ctx.group(ctx.tp_axis)
+        group = ctx.tp_group(p["wq"].shape[1], H_eff)
+        if group is None:  # head_dim mode, or heads TP does not split
+            p = gather_whole(p, attn_defs(cfg), ctx)
+        S = min(ctx.cache_len, window) if window else ctx.cache_len
+        block = ctx.tp_block(S)
+        first, n = block if block is not None else (0, S)
+        if rows != n:
+            raise ValueError(f"a cache of {rows} rows where this rank holds "
+                             f"{n} of {S}")
     pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg)  # (B, 1, H/Kv, dh)
+    q, k, v = _project_qkv(p, x, cfg)  # (B, 1, H/Kv, dh): the rank's heads
+    if group is not None:  # every q head, every kv head of the new token
+        q = all_gather(q, tp_group, 2)
+        if k.shape[2] < Kv:
+            k, v = (all_gather(y, tp_group, 2) for y in (k, v))
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    slot = t % S  # ring slot; global layers have S == seq_len so slot == t
-    # Valid entries: slots <= t (warmup) or everything once t >= S.
-    lengths = torch.full((B,), min(t + 1, S), dtype=torch.int32, device=x.device)
+    # ring slot (global layers have S == seq_len so slot == t), written by
+    # the rank whose block holds it
+    slot = t % S - first
+    if 0 <= slot < rows:
+        _write_row(cache, slot, k[:, 0], v[:, 0])
+    # Valid entries: slots <= t (warmup) or everything once t >= S, as
+    # many as fall in this rank's block.  The kernel masks by `lengths`
+    # over the slot axis; ring order does not matter for the softmax since
+    # all live entries are in-window.
+    live = min(max(min(t + 1, S) - first, 0), rows)
+    lengths = torch.full((B,), live, dtype=torch.int32, device=x.device)
+    kw = dict(attn_softcap=cfg.attn_softcap, scale=cfg.query_scale,
+              return_lse=block is not None)
     if quant:
-        kq, ks = quantize_kv(k[:, 0])
-        vq, vs = quantize_kv(v[:, 0])
+        o = quant_decode_attention(q[:, 0], cache, lengths, **kw)
+    else:
+        o = decode_attention(q[:, 0], cache.k, cache.v, lengths, **kw)
+    if block is not None:
+        o = combine_partials(*o, tp_group)
+    if quant:  # the whole attention rounds once, after the blocks combine
+        o = o.to(torch.bfloat16)
+    o = o.to(x.dtype)
+    if group is None:
+        return _out_proj(p, o)[:, None, :], cache
+    Hl = p["wq"].shape[1]
+    h0 = ctx.local_rank(ctx.tp_axis) * Hl
+    out = _out_proj(p, o[:, h0:h0 + Hl])[:, None, :]
+    return reduce_from_tp(out, group), cache
+
+
+def _write_row(cache, slot: int, k: torch.Tensor, v: torch.Tensor):
+    """Write one token's k/v (B, Kv, dh) at ``slot`` of ``cache`` (int8
+    with its scales for a :class:`QuantAttnCache`)."""
+    if isinstance(cache, QuantAttnCache):
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
         cache.k_q[:, slot] = kq
         cache.v_q[:, slot] = vq
         cache.k_s[:, slot] = ks.to(cache.k_s.dtype)
         cache.v_s[:, slot] = vs.to(cache.v_s.dtype)
-        o = quant_decode_attention(
-            q[:, 0], cache, lengths,
-            attn_softcap=cfg.attn_softcap, scale=cfg.query_scale,
-        ).to(x.dtype)
-        return _out_proj(p, o)[:, None, :], cache
-    cache.k[:, slot] = k[:, 0]
-    cache.v[:, slot] = v[:, 0]
-    # the kernel masks by `lengths` over the slot axis; ring order does not
-    # matter for the softmax since all live entries are in-window.
-    o = decode_attention(
-        q[:, 0], cache.k, cache.v, lengths,
-        attn_softcap=cfg.attn_softcap, scale=cfg.query_scale,
-    )
-    return _out_proj(p, o)[:, None, :], cache
+    else:
+        cache.k[:, slot] = k
+        cache.v[:, slot] = v
+

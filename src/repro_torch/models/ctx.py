@@ -6,7 +6,9 @@ The port of ``repro/models/ctx.py``.  The mesh is a
 device).  The context also hands out each axis's process group and this
 rank's coordinate on it, which the layers that write their collectives
 explicitly (every sharded layer of the train step) need, and the train
-step's row layout (``row_axes``), which the MoE layers route over.
+step's row layout (``row_axes``), which the MoE layers route over, and
+the serving steps' cache length (``cache_len``), by which a layer tells
+its sequence-sharded cache from a replicated one (:meth:`ShardCtx.tp_block`).
 
 ``constrain`` follows the reference's rules; for a ``DTensor`` it
 redistributes to the placements they give, and it leaves a plain tensor
@@ -46,6 +48,16 @@ class ShardCtx:
     #: rank holds the whole microbatch), and its weights arrive gathered
     #: over FSDP
     row_axes: Optional[Tuple[str, ...]] = None
+    #: the serving steps on a mesh: the rows of a global layer's whole
+    #: decode cache (a windowed layer's ring holds min(window, cache_len)),
+    #: whose caches are then laid out by ``cache_pspecs``; None: every
+    #: cache is whole on every rank
+    cache_len: Optional[int] = None
+
+    def serving_tp(self) -> bool:
+        """Whether the layers' caches are the serving steps' blocks over a
+        TP axis of more than one rank (``cache_len`` set)."""
+        return self.cache_len is not None and self.tp_size() > 1
 
     def _has(self, axis: str) -> bool:
         return self.mesh is not None and axis in self.mesh.mesh_dim_names
@@ -84,6 +96,18 @@ class ShardCtx:
             raise ValueError(f"a dim of {whole} arrived as {local} on TP "
                              f"{self.tp_size()}")
         return self.group(self.tp_axis)
+
+    def tp_block(self, n: int) -> Optional[Tuple[int, int]]:
+        """(this rank's first index, its count) of a dim of ``n`` cut over
+        TP as ``cache_pspecs`` cuts a decode cache (a KV cache's sequence,
+        the SSM conv window's channels): contiguous blocks in TP rank order
+        where TP divides ``n``.  None where the dim is whole on every rank:
+        TP of one rank, or one that does not divide ``n``."""
+        tp = self.tp_size()
+        if tp == 1 or n % tp:
+            return None
+        b = n // tp
+        return self.local_rank(self.tp_axis) * b, b
 
 
 def gather_whole(p: Dict[str, Any], defs: Dict[str, Any], ctx: ShardCtx):

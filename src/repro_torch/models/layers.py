@@ -135,11 +135,13 @@ def decode_attention(
     *,
     attn_softcap: Optional[float] = None,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Single-token attention over a KV cache through the decode kernel.
-    Raises when q and the cache lie on different devices."""
+    return_lse: bool = False,
+):
+    """Single-token attention over a KV cache through the decode kernel;
+    with ``return_lse`` also each (row, head)'s f32 log-sum-exp.  Raises
+    when q and the cache lie on different devices."""
     return ops.decode_attention(q, k_cache, v_cache, length, scale=scale,
-                                softcap=attn_softcap)
+                                softcap=attn_softcap, return_lse=return_lse)
 
 
 # -- MLP ---------------------------------------------------------------

@@ -25,6 +25,17 @@ it outside any kernel: queries are projected into the latent space, so
 attention runs over the ``(B, S, kv_lora_rank + rope_dim)`` cache in f32.
 :func:`mla_decode` writes the new latent row at position ``t`` into the
 cache it is given, in place.
+
+The serving steps on a mesh cut the latents ``c_kv`` and ``k_pe`` on the
+sequence over TP (``cache_pspecs``; whole where TP does not divide the
+cache), while the weights are cut on the heads.  Prefill keeps the
+rank's block of the latents, which every rank computes whole.  A decode
+step gathers the absorbed queries ``q_c`` and ``q_pe`` of every head over
+TP (``(B, H, r)`` and ``(B, H, dr)``), scores every head over the rank's
+block of latents, combines the blocks' latent contexts through their
+log-sum-exps (``combine_partials``, in the ``r``-space), and applies
+``wv_b`` and ``wo`` to the rank's own heads (``reduce_from_tp``).  Row
+``t`` is written on the rank whose block holds it.
 """
 
 from __future__ import annotations
@@ -39,7 +50,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.ctx import ShardCtx, gather_whole
 from repro_torch.models.layers import apply_rope, chunked_attention, rms_norm
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device
-from repro_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from repro_torch.parallel.collectives import (
+    all_gather, combine_partials, copy_to_tp, reduce_from_tp)
 
 __all__ = ["mla_defs", "mla_apply", "mla_decode", "init_mla_cache", "MLACache",
            "tp_partial"]
@@ -130,8 +142,12 @@ def mla_apply(
     if not collect_cache:
         return out
     pad = (cache_len or T) - T
-    return out, MLACache(c_kv=F.pad(c_kv, (0, 0, 0, pad)),
-                         k_pe=F.pad(k_pe[:, :, 0], (0, 0, 0, pad)))
+    cache = MLACache(c_kv=F.pad(c_kv, (0, 0, 0, pad)),
+                     k_pe=F.pad(k_pe[:, :, 0], (0, 0, 0, pad)))
+    block = ctx.tp_block(T + pad) if ctx is not None and ctx.serving_tp() else None
+    if block is not None:  # this rank's block of the sequence
+        cache = MLACache(*(c.narrow(1, *block).clone() for c in cache))
+    return out, cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
@@ -153,10 +169,14 @@ def mla_decode(
     cache: MLACache,  # written in place
     t: int,  # position of x
     cfg: ModelConfig,
+    ctx: Optional[ShardCtx] = None,
 ) -> Tuple[torch.Tensor, MLACache]:
     """Absorbed-form decode: attention in the compressed space.  Returns
     (out (B, 1, D), ``cache``) with row ``t`` written in place.  Raises
-    when the cache is not on x's device."""
+    when the cache is not on x's device.  With the serving steps' ``ctx``
+    on a TP axis of more than one rank (:meth:`ShardCtx.serving_tp`) the
+    weights are its TP shards and the cache its block (module
+    docstring)."""
     if cache.c_kv.device != x.device or cache.k_pe.device != x.device:
         raise ValueError(
             f"decode on {x.device} but the MLA cache is on {cache.c_kv.device}"
@@ -164,26 +184,52 @@ def mla_decode(
     m = cfg.mla
     B = x.shape[0]
     r = m.kv_lora_rank
+    first, rows = 0, cache.c_kv.shape[1]
+    block, group = None, None
+    if ctx is not None and ctx.serving_tp():
+        tp_group = ctx.group(ctx.tp_axis)
+        group = ctx.tp_group(p["wq"].shape[1], cfg.n_heads)
+        if group is None:
+            p = gather_whole(p, mla_defs(cfg), ctx)
+        block = ctx.tp_block(ctx.cache_len)
+        first, n = block if block is not None else (0, ctx.cache_len)
+        if rows != n:
+            raise ValueError(f"an MLA cache of {rows} rows where this rank "
+                             f"holds {n} of {ctx.cache_len}")
     pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
-    q = _heads(x, p["wq"])[:, 0]  # (B, H, dq)
+    q = _heads(x, p["wq"])[:, 0]  # (B, H, dq): the rank's heads
     q_nope, q_pe = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_pe = apply_rope(q_pe[:, None], pos, cfg.rope_theta)[:, 0]
 
-    kv_a = x @ p["wkv_a"]  # (B, 1, r + dr)
-    cache.c_kv[:, t] = rms_norm(kv_a[..., :r], p["kv_norm"])[:, 0]
-    cache.k_pe[:, t] = apply_rope(kv_a[..., r:][:, :, None, :], pos,
-                                  cfg.rope_theta)[:, 0, 0]
+    kv_a = x @ p["wkv_a"]  # (B, 1, r + dr), whole on every rank
+    if block is None or first <= t < first + rows:  # the row's owner
+        cache.c_kv[:, t - first] = rms_norm(kv_a[..., :r], p["kv_norm"])[:, 0]
+        cache.k_pe[:, t - first] = apply_rope(kv_a[..., r:][:, :, None, :], pos,
+                                              cfg.rope_theta)[:, 0, 0]
 
     # Absorb: q_c = q_nope @ wk_b -> (B, H, r); scores over the latents.
     q_c = torch.einsum("bhk,rhk->bhr", q_nope, p["wk_b"])
+    if group is not None:  # every head's absorbed query
+        q_c, q_pe = (all_gather(y, tp_group, 1) for y in (q_c, q_pe))
     c_kv = cache.c_kv.float()
     s = (torch.einsum("bhr,bsr->bhs", q_c.float(), c_kv)
          + torch.einsum("bhk,bsk->bhs", q_pe.float(), cache.k_pe.float())
          ) * _scale(cfg)
-    valid = torch.arange(c_kv.shape[1], device=x.device) <= t
+    valid = first + torch.arange(rows, device=x.device) <= t
     s = s.masked_fill(~valid, MASK_VALUE)
-    attn = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhs,bsr->bhr", attn, c_kv)
-    o = torch.einsum("bhr,rhv->bhv", ctx, p["wv_b"].float())
+    if block is None:
+        ctx_c = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), c_kv)
+    else:  # this block's context and log-sum-exp, combined over TP
+        mx = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - mx) * valid
+        l = e.sum(dim=-1)
+        part = torch.einsum("bhs,bsr->bhr", e, c_kv) / torch.clamp_min(
+            l[..., None], 1e-30)
+        lse = torch.where(l > 0, mx[..., 0] + torch.log(l), MASK_VALUE)
+        ctx_c = combine_partials(part, lse, tp_group)
+    if group is not None:  # this rank's heads
+        Hl = p["wq"].shape[1]
+        ctx_c = ctx_c.narrow(1, ctx.local_rank(ctx.tp_axis) * Hl, Hl)
+    o = torch.einsum("bhr,rhv->bhv", ctx_c, p["wv_b"].float())
     out = torch.einsum("bhv,hvd->bd", o.to(x.dtype), p["wo"])[:, None]
-    return out, cache
+    return (out if group is None else reduce_from_tp(out, group)), cache

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["QuantAttnCache", "init_quant_cache", "quantize_kv",
+__all__ = ["QuantAttnCache", "init_quant_cache", "quantize_kv", "quantize_cache",
            "quant_decode_attention"]
 
 MASK_VALUE = -1e30
@@ -57,6 +57,13 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale.to(torch.bfloat16)
 
 
+def quantize_cache(k: torch.Tensor, v: torch.Tensor) -> QuantAttnCache:
+    """A layer's K/V cache ``(..., S, Kv, dh)`` in its int8 form (the KV
+    pager's demotion of a cold conversation)."""
+    (k_q, k_s), (v_q, v_s) = quantize_kv(k), quantize_kv(v)
+    return QuantAttnCache(k_q=k_q, v_q=v_q, k_s=k_s, v_s=v_s)
+
+
 def quant_decode_attention(
     q: torch.Tensor,  # (B, H, dh)
     cache: QuantAttnCache,
@@ -65,10 +72,14 @@ def quant_decode_attention(
     attn_softcap: Optional[float] = None,
     scale: Optional[float] = None,
     s_chunk: int = 2048,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Single-token attention over the int8 cache, chunk-dequantized.
     Returns bf16 ``(B, H, dh)``; raises when q and the cache lie on
-    different devices."""
+    different devices.  With ``return_lse`` it returns the partial of a
+    block of a sequence-sharded cache instead: ``(o, lse)``, o in f32 (the
+    whole attention rounds once, after the blocks combine) and lse each
+    (row, head)'s f32 log-sum-exp (``MASK_VALUE`` where no row is live)."""
     if {q.device, cache.k_q.device, cache.v_q.device, length.device} != {q.device}:
         raise ValueError(
             f"q on {q.device} but the int8 cache on {cache.k_q.device} "
@@ -98,5 +109,8 @@ def quant_decode_attention(
         v = cache.v_q[:, lo:hi].float() * cache.v_s[:, lo:hi].float()[..., None]
         acc = acc * corr[..., None] + torch.einsum("bkrs,bskd->bkrd", p, v)
         m = m_new
-    o = acc / torch.clamp_min(l[..., None], 1e-30)
-    return o.reshape(B, H, dh).to(torch.bfloat16)
+    o = (acc / torch.clamp_min(l[..., None], 1e-30)).reshape(B, H, dh)
+    if not return_lse:
+        return o.to(torch.bfloat16)
+    lse = torch.where(l > 0, m + torch.log(l), MASK_VALUE)
+    return o, lse.reshape(B, H)

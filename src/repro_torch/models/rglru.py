@@ -26,7 +26,11 @@ over their output columns, each of which reads the whole post-conv
 ``xb``: it is gathered over TP with ``gather_partial``, whose backward
 sums the rank's partial gradient over TP.  The scan runs on the rank's
 ``W/tp`` channels in the same order as on one card.  No leaf is
-replicated over TP, so none needs its gradient summed there.
+replicated over TP, so none needs its gradient summed there.  The decode
+cache's conv window and state are cut over the same channels
+(``cache_pspecs``), so on a mesh prefill keeps, and decode updates, the
+rank's own channels; a decode step gathers only the new post-conv row
+for the gates.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ctx import ShardCtx, gather_whole
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device
-from repro_torch.parallel.collectives import copy_to_tp, gather_partial, reduce_from_tp
+from repro_torch.parallel.collectives import (
+    all_gather, copy_to_tp, gather_partial, reduce_from_tp)
 
 __all__ = ["rglru_defs", "rglru_apply", "rglru_decode", "init_rglru_cache",
            "RGLRUCache"]
@@ -155,9 +160,6 @@ def rglru_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     if group is None and ctx is not None and ctx.tp_size() > 1:
         p = gather_whole(p, rglru_defs(cfg), ctx)
     if group is not None:
-        if collect_cache:
-            raise NotImplementedError("the RG-LRU cache of TP shards waits for "
-                                      "ROADMAP A11d")
         x = copy_to_tp(x, group)
     xb_pre = x @ p["wx_in"]
     gate = x @ p["wg_in"]
@@ -183,14 +185,19 @@ def rglru_decode(
     x: torch.Tensor,  # (B, 1, D)
     cache: RGLRUCache,  # written in place
     cfg: ModelConfig,
+    ctx: Optional[ShardCtx] = None,
 ) -> Tuple[torch.Tensor, RGLRUCache]:
     """One recurrent step.  Returns (out (B, 1, D), ``cache``), its conv
     window and state updated in place.  Raises when the cache is not on
-    x's device."""
+    x's device.  With ``ctx`` the weights and the cache may be the rank's
+    channels (module docstring)."""
     if cache.h.device != x.device or cache.conv.device != x.device:
         raise ValueError(
             f"decode on {x.device} but the RG-LRU cache is on {cache.h.device}"
         )
+    group = None if ctx is None else ctx.tp_group(p["lam"].shape[0], _width(cfg))
+    if group is None and ctx is not None and ctx.tp_size() > 1:
+        p = gather_whole(p, rglru_defs(cfg), ctx)
     xb = x @ p["wx_in"]  # (B, 1, W)
     gate = x @ p["wg_in"]
     # hist is a new tensor, so shifting it into the cache below reads
@@ -199,9 +206,10 @@ def rglru_decode(
     conv = torch.einsum("bkc,kc->bc", hist.float(), p["conv_w"].float()) \
         + p["conv_b"].float()
     xb1 = conv[:, None, :].to(x.dtype)  # (B, 1, W)
-    a, gated = _gates(p, xb1)
+    a, gated = _gates(p, xb1, None if group is None else all_gather(xb1, group, 2))
     h = a[:, 0] * cache.h + gated[:, 0]  # (B, W)
     y = (h[:, None, :] * _gelu(gate.float())).to(x.dtype)
     cache.conv.copy_(hist[:, 1:])
     cache.h.copy_(h)
-    return y @ p["wo"], cache
+    out = y @ p["wo"]
+    return (out if group is None else reduce_from_tp(out, group)), cache

@@ -33,6 +33,17 @@ Decode state is ``(B, H, P, N)`` f32, constant in sequence length.
 :func:`ssm_decode` writes the new conv window and state into the cache it
 is given (the period views of the stacked body cache), so a decode step
 updates the cache in place, as attention decode does.
+
+The serving steps on a mesh lay the cache out as the reference's
+``cache_pspecs`` does: the state by heads over TP, which are the rank's
+heads, and the conv window ``(B, d_conv - 1, convdim)`` in contiguous
+blocks of ``convdim = d_inner + 2·G·N`` channels over TP, which are not
+the channels the rank convolves (its own x channels and all of B and C).
+So prefill gathers the tail's x channels over TP and keeps the rank's
+block of the whole tail, and a decode step gathers the window (a few KB)
+and the new row's x channels, convolves its own channels, and writes back
+its block of the shifted window.  Either part is whole where TP does not
+divide it.
 """
 
 from __future__ import annotations
@@ -48,7 +59,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.ctx import ShardCtx, gather_whole
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device
-from repro_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from repro_torch.parallel.collectives import all_gather, copy_to_tp, reduce_from_tp
 
 __all__ = ["ssm_defs", "ssm_apply", "ssm_decode", "init_ssm_cache", "SSMCache",
            "tp_partial"]
@@ -233,13 +244,8 @@ def ssm_apply(
     p, group, h0, Hl = _rank_heads(p, cfg, ctx)
     conv_w, conv_b = p["conv_w"], p["conv_b"]
     if group is not None:
-        if collect_cache:
-            raise NotImplementedError("the SSM cache of TP shards waits for "
-                                      "ROADMAP A11d")
         x = copy_to_tp(x, group)
-        di = s.d_inner(D)
-        cols = lambda t: torch.cat(  # noqa: E731  this rank's x columns, all B/C
-            (t[..., h0 * P:(h0 + Hl) * P], t[..., di:]), dim=-1)
+        cols = _rank_cols(cfg, h0, Hl)
         conv_w, conv_b = cols(conv_w), cols(conv_b)
     z, u_pre, dt_raw = _project(p, x, cfg)
     u = _causal_conv(u_pre, conv_w, conv_b)
@@ -264,7 +270,35 @@ def ssm_apply(
         return out
     # conv state = raw (pre-conv) inputs of the last K-1 positions
     conv_tail = u_pre[:, T - (s.d_conv - 1):]
+    if ctx is not None and ctx.serving_tp():
+        conv_tail = _conv_block(_whole_cols(conv_tail, Hl * P, group), cfg, ctx)
     return out, SSMCache(conv=conv_tail, state=h_final)
+
+
+def _rank_cols(cfg: ModelConfig, h0: int, Hl: int):
+    """A function from the conv channels' last dim (``convdim``) to the
+    rank's own: the x channels of heads ``h0 .. h0 + Hl``, then all B/C."""
+    P, di = cfg.ssm.head_dim, cfg.ssm.d_inner(cfg.d_model)
+    return lambda t: torch.cat((t[..., h0 * P:(h0 + Hl) * P], t[..., di:]), dim=-1)
+
+
+def _whole_cols(u: torch.Tensor, n_x: int, group) -> torch.Tensor:
+    """Conv channels in the rank's layout (its ``n_x`` x channels, then
+    B/C) -> every channel, the x channels gathered over the TP ``group``
+    (None: ``u`` holds them all already)."""
+    if group is None:
+        return u
+    xs = all_gather(u[..., :n_x], group, u.dim() - 1)
+    return torch.cat((xs, u[..., n_x:]), dim=-1)
+
+
+def _conv_block(window: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx) -> torch.Tensor:
+    """The rank's block of a whole conv window, as ``cache_pspecs`` cuts
+    its channels (whole where TP does not divide them), a new tensor."""
+    block = ctx.tp_block(window.shape[-1])
+    if block is None:
+        return window.clone(memory_format=torch.contiguous_format)
+    return window.narrow(-1, *block).clone(memory_format=torch.contiguous_format)
 
 
 def ssm_decode(
@@ -272,38 +306,51 @@ def ssm_decode(
     x: torch.Tensor,  # (B, 1, D)
     cache: SSMCache,  # written in place
     cfg: ModelConfig,
+    ctx: Optional[ShardCtx] = None,
 ) -> Tuple[torch.Tensor, SSMCache]:
     """One recurrent step: h' = exp(dt·A) h + dt·(B ⊗ x); y = C·h' + D·x.
     Returns (out (B, 1, D), ``cache``), its conv window and state updated
-    in place.  Raises when the cache is not on x's device."""
+    in place.  Raises when the cache is not on x's device.  With the
+    serving steps' ``ctx`` on a TP axis of more than one rank
+    (:meth:`ShardCtx.serving_tp`) the weights are its TP shards and the
+    cache its blocks (module docstring)."""
     if cache.state.device != x.device or cache.conv.device != x.device:
         raise ValueError(
             f"decode on {x.device} but the SSM cache is on {cache.state.device}"
         )
     s = cfg.ssm
-    B_, _, D = x.shape
-    H = s.n_heads(D)
+    B_ = x.shape[0]
     P = s.head_dim
-    z, u, dt_raw = _project(p, x, cfg)  # u: (B, 1, convdim)
+    p, group, h0, Hl = _rank_heads(p, cfg, ctx)
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    window, block = cache.conv, None
+    if ctx is not None and ctx.serving_tp():
+        block = ctx.tp_block(s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state)
+        if block is not None:  # the whole (B, K-1, convdim) window
+            window = all_gather(window, ctx.group(ctx.tp_axis), 2)
+    z, u, dt_raw = _project(p, x, cfg)  # u: (B, 1, the rank's conv channels)
     # conv over (cached last K-1 inputs, current); hist is a new tensor, so
     # shifting it into the cache below reads nothing the copy overwrites
-    hist = torch.cat([cache.conv, u], dim=1)  # (B, K, convdim)
-    conv_out = torch.einsum("bkc,kc->bc", hist.float(), p["conv_w"].float()) \
-        + p["conv_b"].float()
+    hist = torch.cat([window, _whole_cols(u, Hl * P, group)], dim=1)  # (B, K, convdim)
+    mine = hist
+    if group is not None:
+        cols = _rank_cols(cfg, h0, Hl)
+        mine, conv_w, conv_b = cols(hist), cols(conv_w), cols(conv_b)
+    conv_out = torch.einsum("bkc,kc->bc", mine.float(), conv_w.float()) + conv_b.float()
     uc = F.silu(conv_out)[:, None, :].to(x.dtype)
-    xs, Bp, Cp = _split_conv(uc, cfg)
-    xh = xs.reshape(B_, H, P).float()
-    Bm = _group_heads(Bp[:, 0], cfg)
-    Cm = _group_heads(Cp[:, 0], cfg)
-    dt = F.softplus(dt_raw[:, 0] + p["dt_bias"])  # (B, H)
+    xs, Bp, Cp = _split_conv(uc, cfg, Hl * P)
+    xh = xs.reshape(B_, Hl, P).float()
+    Bm, Cm = (_group_heads(t[:, 0], cfg).narrow(1, h0, Hl) for t in (Bp, Cp))
+    dt = F.softplus(dt_raw[:, 0] + p["dt_bias"])  # (B, Hl)
     A = -torch.exp(p["A_log"])
-    dA = torch.exp(dt * A)  # (B, H)
+    dA = torch.exp(dt * A)  # (B, Hl)
     h = dA[:, :, None, None] * cache.state + torch.einsum(
         "bh,bhn,bhp->bhpn", dt, Bm, xh
     )
     y = torch.einsum("bhn,bhpn->bhp", Cm, h) + p["Dskip"][None, :, None] * xh
-    y = y.reshape(B_, 1, H * P).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"])
-    cache.conv.copy_(hist[:, 1:])
+    y = y.reshape(B_, 1, Hl * P).to(x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"], tp_group=group)
+    cache.conv.copy_(hist[:, 1:] if block is None else hist[:, 1:].narrow(-1, *block))
     cache.state.copy_(h)
-    return y @ p["wo"], cache
+    out = y @ p["wo"]
+    return (out if group is None else reduce_from_tp(out, group)), cache

@@ -52,7 +52,7 @@ from repro_torch.models.ctx import ShardCtx
 from repro_torch.models.layers import layer_norm, mlp_apply, mlp_defs, rms_norm, softcap
 from repro_torch.models.param import FSDP, TP, ParamDef, default_device, stack_defs
 from repro_torch.models.quant_cache import init_quant_cache
-from repro_torch.parallel.collectives import gather_shard
+from repro_torch.parallel.collectives import all_gather, gather_shard
 from repro_torch.tree import tree_map
 
 __all__ = ["model_defs", "forward", "logits_fn", "decode_step", "init_cache",
@@ -158,10 +158,11 @@ class Shard:
                  gathered: Optional[torch.Tensor] = None):
         self.t, self.dim, self.group, self.gathered = t, dim, group, gathered
 
-    def gather(self, dtype: torch.dtype) -> torch.Tensor:
+    def gather(self, dtype: Optional[torch.dtype]) -> torch.Tensor:
         """The whole weight in ``dtype`` where the master is f32 (as
-        :func:`cast_weights` casts), else in the master's type."""
-        if self.t.dtype != torch.float32:
+        :func:`cast_weights` casts), else (or with None) in the master's
+        type."""
+        if self.t.dtype != torch.float32 or dtype is None:
             dtype = self.t.dtype
         return gather_shard(self.t, dtype, self.dim, self.group, self.gathered)
 
@@ -205,17 +206,21 @@ def shard_moe_params(params: Dict[str, Any], cfg: ModelConfig,
 
 # -- apply ---------------------------------------------------------------
 
-def cast_weights(tree: Any, dtype: Optional[torch.dtype]) -> Any:
+def cast_weights(tree: Any, dtype: Optional[torch.dtype], *,
+                 shards: bool = False) -> Any:
     """``tree`` with every f32 leaf of rank >= 1 cast to ``dtype`` (None:
     as it is), as the reference's train step casts its f32 masters, and
-    every :class:`Shard` gathered (the sharded step always gives a
-    ``dtype``)."""
-    if dtype is None:
+    every :class:`Shard` gathered.  The sharded train step always gives a
+    ``dtype``; the serving steps on a mesh give None and ``shards``, so
+    that their Shards are gathered in the weights' own type."""
+    if dtype is None and not shards:
         return tree
 
     def cast(t):
         if isinstance(t, Shard):
             return t.gather(dtype)
+        if dtype is None:
+            return t
         return t.to(dtype) if t.dtype == torch.float32 and t.dim() > 0 else t
 
     return tree_map(cast, tree)
@@ -393,9 +398,10 @@ def forward(
         raise ValueError(f"remat policy {remat!r} not in {REMAT_POLICIES}")
     if collect_cache or not torch.is_grad_enabled():
         remat = "none"
+    on_mesh = ctx is not None and ctx.mesh is not None
     x = _frontend(cast_weights(
-        {k: params[k] for k in ("embed", "frame_proj") if k in params}, dtype),
-        cfg, inputs)
+        {k: params[k] for k in ("embed", "frame_proj") if k in params}, dtype,
+        shards=on_mesh), cfg, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, List[Any]] = {"prelude": [], "body": [], "postlude": []}
 
@@ -404,7 +410,7 @@ def forward(
 
     def block(p, blk):
         nonlocal x, aux
-        x, a, c = _block_apply(cast_weights(p, dtype), x, blk, cfg,
+        x, a, c = _block_apply(cast_weights(p, dtype, shards=on_mesh), x, blk, cfg,
                                collect_cache, cache_len, ctx=ctx)
         aux = add(aux, a)
         return c
@@ -441,15 +447,21 @@ def forward(
     for p, blk in zip(params["postlude"], cfg.postlude):
         caches["postlude"].append(block(p, blk))
 
-    x = _norm_apply(cast_weights(params["final_norm"], dtype), x, cfg)
+    x = _norm_apply(cast_weights(params["final_norm"], dtype, shards=on_mesh), x, cfg)
     if collect_cache:
         return x, aux, caches
     return x, aux
 
 
-def logits_fn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final logits (fp32, softcapped). x: (..., D)."""
-    return softcap((x @ params["unembed"]).float(), cfg.final_softcap)
+def logits_fn(params, cfg: ModelConfig, x: torch.Tensor,
+              ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """Final logits (fp32, softcapped). x: (..., D).  With ``ctx``, an
+    ``unembed`` cut over TP on the vocab (the serving steps on a mesh)
+    gives every rank's block, gathered."""
+    unembed = params["unembed"]
+    logits = softcap((x @ unembed).float(), cfg.final_softcap)
+    group = None if ctx is None else ctx.tp_group(unembed.shape[-1], cfg.vocab)
+    return logits if group is None else all_gather(logits, group, logits.dim() - 1)
 
 
 # -- decode ---------------------------------------------------------------
@@ -490,13 +502,15 @@ def _block_decode(p, x, cache, t: int, blk: BlockSpec, cfg: ModelConfig,
                   ctx: Optional[ShardCtx] = None):
     xn = _norm_apply(p["norm1"], x, cfg)
     if blk.mixer in ("attn", "local"):
-        h, new_cache = attention.attn_decode(p["mixer"], xn, cache, t, cfg)
+        h, new_cache = attention.attn_decode(
+            p["mixer"], xn, cache, t, cfg, ctx=ctx,
+            window=blk.window if blk.mixer == "local" else None)
     elif blk.mixer == "mla":
-        h, new_cache = mla.mla_decode(p["mixer"], xn, cache, t, cfg)
+        h, new_cache = mla.mla_decode(p["mixer"], xn, cache, t, cfg, ctx)
     elif blk.mixer == "ssm":
-        h, new_cache = ssm.ssm_decode(p["mixer"], xn, cache, cfg)
+        h, new_cache = ssm.ssm_decode(p["mixer"], xn, cache, cfg, ctx)
     elif blk.mixer == "rglru":
-        h, new_cache = rglru.rglru_decode(p["mixer"], xn, cache, cfg)
+        h, new_cache = rglru.rglru_decode(p["mixer"], xn, cache, cfg, ctx)
     else:
         raise ValueError(blk.mixer)
     return _finish_block(p, x, h, blk, cfg, ctx=ctx)[0], new_cache
@@ -511,26 +525,36 @@ def decode_step(
     ctx: Optional[ShardCtx] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token decode.  Returns (logits (B, V) fp32, the cache tree),
-    whose layers were updated in place.  ``ctx`` as for :func:`forward`."""
-    x = _frontend(params, cfg, {"tokens": tokens})
+    whose layers were updated in place.  ``ctx`` as for :func:`forward`;
+    on a mesh (the serving steps) the weights may hold :class:`Shard`
+    leaves, gathered layer by layer, and the cache is this rank's blocks
+    (``ShardCtx.cache_len``); the logits are gathered over TP where
+    ``unembed`` is cut over the vocab."""
+    on_mesh = ctx is not None and ctx.mesh is not None
+
+    def use(tree):
+        return cast_weights(tree, None, shards=on_mesh)
+
+    x = _frontend(use({k: params[k] for k in ("embed", "frame_proj") if k in params}),
+                  cfg, {"tokens": tokens})
 
     new_prelude = []
     for p, c, blk in zip(params["prelude"], cache["prelude"], cfg.prelude):
-        x, nc = _block_decode(p, x, c, t, blk, cfg, ctx)
+        x, nc = _block_decode(use(p), x, c, t, blk, cfg, ctx)
         new_prelude.append(nc)
 
     for i in range(cfg.n_periods):
         for j, blk in enumerate(cfg.pattern):
-            x, _ = _block_decode(_period(params["body"][j], i), x,
+            x, _ = _block_decode(use(_period(params["body"][j], i)), x,
                                  _period(cache["body"][j], i), t, blk, cfg, ctx)
 
     new_postlude = []
     for p, c, blk in zip(params["postlude"], cache["postlude"], cfg.postlude):
-        x, nc = _block_decode(p, x, c, t, blk, cfg, ctx)
+        x, nc = _block_decode(use(p), x, c, t, blk, cfg, ctx)
         new_postlude.append(nc)
 
-    x = _norm_apply(params["final_norm"], x, cfg)
-    logits = logits_fn(params, cfg, x[:, 0])
+    x = _norm_apply(use(params["final_norm"]), x, cfg)
+    logits = logits_fn(use({"unembed": params["unembed"]}), cfg, x[:, 0], ctx)
     return logits, {
         "prelude": new_prelude,
         "body": list(cache["body"]),

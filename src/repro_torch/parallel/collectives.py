@@ -26,6 +26,12 @@ from, and the autograd Functions of the sharded train step:
   loss, as the MoE balance loss's sums over the data axes are.
 * :func:`all_to_all`: ``all_to_all_single`` over a group in even splits;
   backward is the same exchange of the gradient, which inverts it.
+* :func:`combine_partials`: the exact softmax attention over a sequence
+  cut into blocks, one block a rank, from each rank's attention over its
+  own block and that block's log-sum-exp (flash-decode's combine: the
+  sequence-sharded caches of the serving steps);
+  :func:`combine_stacked` is the same arithmetic over blocks stacked on
+  one device.
 
 :class:`LeafReducer` sums, maxima and means of per-leaf values (squared
 norms, the int8 scale, the quantization error) over the ranks that hold
@@ -44,13 +50,17 @@ import torch.distributed as dist
 
 __all__ = ["mesh_axis", "all_gather", "all_reduce", "reduce_scatter", "pmean",
            "gather_shard", "copy_to_tp", "reduce_from_tp", "gather_from_tp",
-           "gather_partial", "reduce_partial", "all_to_all", "LeafReducer"]
+           "gather_partial", "reduce_partial", "all_to_all", "combine_partials",
+           "combine_stacked", "LeafReducer"]
 
 # newer torch renames the *_tensor collectives; both work along dim 0
 _gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _scatter_from = (getattr(dist, "reduce_scatter_single", None)
                  or dist.reduce_scatter_tensor)
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+#: the log-sum-exp of a block with no live entry (the attention kernels'
+#: mask value)
+EMPTY_LSE = -1e30
 
 
 def mesh_axis(mesh, name: str):
@@ -196,8 +206,9 @@ def reduce_partial(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()  # empty_like keeps a permuted input's strides
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
+    dist.all_to_all_single(out, x, group=group)
     return out
 
 
@@ -217,6 +228,31 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     block (``all_to_all_single`` in even splits).  Backward: the same
     exchange of the gradient, which sends every block back."""
     return _AllToAll.apply(x, group)
+
+
+def _combine(o: torch.Tensor, lse: torch.Tensor, reduce_max, reduce_sum) -> torch.Tensor:
+    m = reduce_max(lse)
+    w = torch.where(lse > 0.5 * EMPTY_LSE, torch.exp(lse - m), 0.0)
+    both = reduce_sum(torch.cat((o.float() * w[..., None], w[..., None]), dim=-1))
+    return (both[..., :-1] / torch.clamp_min(both[..., -1:], 1e-30)).to(o.dtype)
+
+
+def combine_partials(o: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """The attention over the union of the ``group``'s blocks of one
+    sequence, from this rank's attention ``o`` (..., d) over its own block
+    and the block's log-sum-exp ``lse`` (...) (f32): an all-reduce max of
+    ``lse``, weights ``exp(lse - max)`` (0 for a block with no live entry,
+    ``lse`` at ``EMPTY_LSE``), and one all-reduce sum of the weights and the
+    weighted ``o`` in f32; the quotient in ``o``'s type.  Two collectives,
+    the same on every rank."""
+    return _combine(o, lse, lambda t: all_reduce(t, group, "max"),
+                    lambda t: all_reduce(t, group))
+
+
+def combine_stacked(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """:func:`combine_partials`' arithmetic over blocks stacked on dim 0 of
+    ``o`` and ``lse`` on one device."""
+    return _combine(o, lse, lambda t: t.amax(dim=0), lambda t: t.sum(dim=0))
 
 
 class LeafReducer:

@@ -46,7 +46,7 @@ import torch
 
 from repro_torch.models.attention import AttnCache
 from repro_torch.models.convert import to_tensor
-from repro_torch.models.quant_cache import QuantAttnCache, quantize_kv
+from repro_torch.models.quant_cache import QuantAttnCache, quantize_cache
 from repro_torch.storage import serde
 
 __all__ = ["KVPager", "PagerStats"]
@@ -106,12 +106,6 @@ def _layer_kind(layer: Any) -> str:
 def _seq_len(layer: Any) -> int:
     arr = layer.k_q if isinstance(layer, QuantAttnCache) else layer.k
     return int(arr.shape[-3])
-
-
-def _quantize_layer(layer: AttnCache) -> QuantAttnCache:
-    k_q, k_s = quantize_kv(layer.k)
-    v_q, v_s = quantize_kv(layer.v)
-    return QuantAttnCache(k_q=k_q, v_q=v_q, k_s=k_s, v_s=v_s)
 
 
 def _slice_block(layer: Any, lo: int, hi: int) -> Dict[str, Any]:
@@ -388,7 +382,7 @@ class KVPager:
                     self._assemble(ent)
                 assert ent.resident is not None
                 ent.resident = [
-                    _quantize_layer(l) if isinstance(l, AttnCache) else l
+                    quantize_cache(*l) if isinstance(l, AttnCache) else l
                     for l in ent.resident
                 ]
                 ent.quantized = any(

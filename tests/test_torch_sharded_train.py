@@ -192,15 +192,25 @@ def test_world_size_one_is_the_one_process_step_bit_for_bit(out, case):
         assert a.tobytes() == b.tobytes()
 
 
-def test_prefill_and_decode_steps_refuse_a_mesh():
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_make_step_hands_a_mesh_to_the_serving_step_builders(kind, monkeypatch):
+    """``make_step`` hands a prefill or decode shape, the mesh and the
+    reference's keywords to the step builder of that kind, and returns
+    what it builds (the steps on a mesh: tests/test_torch_sharded_serve.py)."""
+    from repro_torch.launch import steps
+
     cfg = reduced_for_smoke(get_config("qwen2.5-3b"))
-    mesh = (("data", "model"), (2, 1))
-    for kind, fn in (("prefill", make_prefill_step), ("decode", make_decode_step)):
-        shape = ShapeConfig(name="s", kind=kind, seq_len=16, global_batch=2)
-        for build in (lambda: fn(cfg, shape, mesh=mesh),
-                      lambda: make_step(cfg, shape, mesh=mesh)):
-            with pytest.raises(NotImplementedError, match="A11d"):
-                build()
+    shape = ShapeConfig(name="s", kind=kind, seq_len=16, global_batch=2)
+    mesh = (("data", "model"), (2, 2))
+    builder = {"prefill": "make_prefill_step", "decode": "make_decode_step"}[kind]
+    assert getattr(steps, builder) is {"prefill": make_prefill_step,
+                                       "decode": make_decode_step}[kind]
+    seen = []
+    monkeypatch.setattr(steps, builder, lambda *a, **kw: seen.append((a, kw)) or builder)
+    kw = ({"cache_len": 24} if kind == "prefill"
+          else {"greedy": True, "quant_cache": True})
+    assert make_step(cfg, shape, mesh=mesh, param_fsdp=False, **kw) == builder
+    assert seen == [((cfg, shape), dict(mesh=mesh, param_fsdp=False, **kw))]
 
 
 def _history(out, name):
