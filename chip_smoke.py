@@ -30,8 +30,9 @@ another sm_90a card).  It builds the port's CUDA kernels from
 4. drives the main path, ``MarvelClient`` in device mode: WordCount over a
    64 MiB Zipf(0.5) corpus (the paper runs 1-15 GB; 64 MiB is what the
    host-side Python mapper gets through within the time limit), TeraSort
-   over 2^19 100-byte records, WordCount again with capacity spill, and
-   WordCount over a Zipf(1.1) corpus, whose reduces fall back to the host.
+   over 2^19 100-byte records, WordCount with capacity spill over an 8 MiB
+   Zipf(0.5) corpus of its own, and WordCount over a Zipf(1.1) corpus,
+   whose reduces fall back to the host.
    Each output must be byte-identical to the same job in host mode, the
    first WordCount must reduce wholly on the device, and every kernel
    must have launched during this phase;
@@ -272,7 +273,23 @@ another sm_90a card).  It builds the port's CUDA kernels from
    SSD launches and decode's launches a step equal (one a step for each
    attention layer); each run's launches, peak memory and seconds; at
    most 25 s;
-21. prints a ``kernels`` JSON line: each kernel's launches on its path
+21. the dry run and a whole step's roofline (``phase_dryrun``): the
+   dry-run CLI (``repro_torch.launch.dryrun``) in a subprocess on the
+   reference test's cells, each traced on fake ``cuda`` tensors as rank 0
+   of a fake world of 256 or 512 (gemma-2b decode_32k on 16x16 and
+   2x16x16, mamba2-2.7b long_500k; hubert-xlarge decode_32k and
+   qwen2.5-3b long_500k skipped with the reference's reasons), started
+   before phase 17 and run beside phases 17-20 (``DryrunCells``: a fresh
+   interpreter there spends most of its run on imports), every record's
+   roofline terms printed; three steps counted for real on the card
+   under ``CostCounter`` and traced on fake stand-ins
+   (qwen2.5-3b's train step at 4 layers, 2 x 4096; mamba2-2.7b's prefill
+   at 2 layers; one qwen2.5-3b decode step at 36 layers over 1040 rows):
+   dot FLOPs and the kernels' calls, FLOPs and bytes equal, the calls
+   equal to the launch counters' deltas, no collective bytes, the fake
+   peak memory within 0.5-2x of the card's; qwen's step roofline from
+   its counts beside the median of 3 timed steps; at most 30 s;
+22. prints a ``kernels`` JSON line: each kernel's launches on its path
    (counts set to 0 just before the path runs and read just after), its
    checks and largest error, and its times at its path's shape beside
    the plain version's, the PyTorch library call's (``torch.bincount``,
@@ -331,9 +348,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
-TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak, the f32 inputs' type
 REPS = 15
 START = time.perf_counter()  # the run's clock for the profiler's lines
 # Sizes of the run (see the module docstring for why these).
@@ -341,6 +355,7 @@ KERNEL_KEYS = 1 << 28  # 1 GiB of int32 keys
 SHUFFLE_TOKENS = 1 << 28  # 1 GiB of tokens plus 1 GiB of values
 STORAGE_TOKENS = 1 << 24
 CORPUS_BYTES = 64 << 20
+SPILL_CORPUS_BYTES = 8 << 20  # the capacity-spill WordCount's own corpus
 TERASORT_RECORDS = 1 << 19
 SERVE_MODEL = "qwen2.5-3b"  # full width: 36 layers, d_model 2048, GQA 16/2
 SERVE_PROMPT = 1024
@@ -399,7 +414,11 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
 
 
 def bytes_bound_ms(nbytes: int) -> float:
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    """``nbytes`` over the card's memory rate (``launch/roofline.py``'s
+    data-sheet constant), in ms."""
+    from repro_torch.launch.roofline import HBM_BW
+
+    return nbytes / HBM_BW * 1e3
 
 
 # -- phase 1b: first launches from several threads at once -------------------
@@ -513,6 +532,7 @@ class KernelRecord:
         operations a call, the plain version's and ``torch.bincount``'s
         times, and the bound (the keys read and the counts written once)."""
         from repro_torch.kernels import bucket_histogram as bh
+        from repro_torch.launch.roofline import kernel_work
 
         self.compare(keys, n_buckets)
         valid = keys[(keys >= 0) & (keys < n_buckets)]
@@ -526,14 +546,15 @@ class KernelRecord:
         library_ms = time_ms(library)
         n = keys.numel()
         plan = hist_plan(keys, n_buckets)
+        work = kernel_work("bucket_histogram", keys, n_buckets)
         return {
             "n": n, "n_buckets": n_buckets, "kernel_route": plan.route,
             "one_cluster": plan.single, "kernel_ms": kernel_ms,
             "device_ms": dev_ms, "device_ops_per_call": ops,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_device_ms": device_ms(library),
-            "bound_ms": bytes_bound_ms(4 * n + 4 * n_buckets),
-            "bound_by": "bytes", "launches": launches,
+            "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+            "launches": launches,
         }
 
 
@@ -792,11 +813,14 @@ def phase_main_path(dev, seed: int, corpus_bytes: int, n_records: int):
     # at 1.1, as in natural text, that rule sends every reduce to the host.
     corpus = zipf_corpus(corpus_bytes, 1 << 17, seed, a=0.5)
     natural = zipf_corpus(corpus_bytes, 1 << 17, seed + 1, a=1.1)
+    spill = zipf_corpus(min(SPILL_CORPUS_BYTES, corpus_bytes), 1 << 17, seed + 2, a=0.5)
     parts = terasort_parts(n_records, 8, seed)
-    emit("main_path_data", corpus_bytes=len(corpus), terasort_records=n_records,
-         terasort_bytes=sum(map(len, parts)), setup_s=time.perf_counter() - t0,
+    emit("main_path_data", corpus_bytes=len(corpus), spill_corpus_bytes=len(spill),
+         terasort_records=n_records, terasort_bytes=sum(map(len, parts)),
+         setup_s=time.perf_counter() - t0,
          cut="WordCount corpus 64 MiB, not the paper's 1-15 GB: the host-side "
-             "Python mapper must finish within the time limit")
+             "Python mapper must finish within the time limit; the capacity-"
+             "spill run over its own 8 MiB")
     n_red = 4
 
     def wordcount(device: bool, capacity_factor: float = 1.3, data=corpus):
@@ -831,13 +855,14 @@ def phase_main_path(dev, seed: int, corpus_bytes: int, n_records: int):
     try:
         wc_dev, wc_rep, wc_s = wordcount(device=True)
         ts_dev, ts_rep, ts_s = terasort(device=True)
-        sp_dev, sp_rep, sp_s = wordcount(device=True, capacity_factor=0.05)
+        sp_dev, sp_rep, sp_s = wordcount(device=True, capacity_factor=0.05, data=spill)
         nat_dev, nat_rep, nat_s = wordcount(device=True, data=natural)
     finally:
         ops.partition_counts = real_partition_counts
     launches = bh.launches  # ... and ends here
     wc_host, _, wc_host_s = wordcount(device=False)
     ts_host, _, ts_host_s = terasort(device=False)
+    sp_host, _, sp_host_s = wordcount(device=False, data=spill)
     nat_host, _, nat_host_s = wordcount(device=False, data=natural)
 
     ex = wc_rep.extra
@@ -847,7 +872,7 @@ def phase_main_path(dev, seed: int, corpus_bytes: int, n_records: int):
     check(ts_dev == ts_host and len(ts_dev) == n_records,
           "TeraSort device != host records")
     check(ts_dev == sorted(ts_dev), "TeraSort output is not sorted")
-    check(sp_dev == wc_host, "spilled WordCount device != host bytes")
+    check(sp_dev == sp_host and any(sp_dev), "spilled WordCount device != host bytes")
     check(sp_rep.extra["device_spilled_pairs"] > 0, "spill path did not run")
     check(nat_dev == nat_host and any(nat_dev),
           "Zipf(1.1) WordCount device != host bytes")
@@ -861,8 +886,9 @@ def phase_main_path(dev, seed: int, corpus_bytes: int, n_records: int):
          device_groups=ex["device_groups"], identical=True)
     emit("terasort", records=n_records, device_s=ts_s, host_s=ts_host_s,
          scatter_tasks=scatters, identical=True)
-    emit("wordcount_spill", capacity_factor=0.05, device_s=sp_s,
-         spilled_pairs=sp_rep.extra["device_spilled_pairs"], identical=True)
+    emit("wordcount_spill", bytes=len(spill), capacity_factor=0.05, device_s=sp_s,
+         host_s=sp_host_s, spilled_pairs=sp_rep.extra["device_spilled_pairs"],
+         identical=True)
     emit("wordcount_zipf1.1", bytes=len(natural), device_s=nat_s,
          host_s=nat_host_s, device_pairs=nat_rep.extra["device_pairs"],
          device_fallback_tasks=nat_rep.extra["device_fallback_tasks"],
@@ -1330,6 +1356,7 @@ def measure_flash(q, k, v, kw) -> dict:
     an explicit mask, and head dims it takes (``library_ms`` None where it
     refuses them)."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.roofline import kernel_work
 
     B, T, H, dh = q.shape
     Tk, dv = k.shape[1], v.shape[3]
@@ -1354,12 +1381,7 @@ def measure_flash(q, k, v, kw) -> dict:
     kernel_ms = time_ms(flash)
     dev_ms, per_call, names, lost = device_profile(flash)
     plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v, **kw), reps=5)
-    pairs = sum(min(i + 1, Tk) - (max(0, i - window + 1) if window else 0)
-                if causal else Tk for i in range(T))
-    flops = 2 * B * H * (dh + dv) * pairs
-    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + B * T * H * dv)
-    ops_ms = flops / BF16_FLOPS * 1e3
-    bytes_ms = bytes_bound_ms(nbytes)
+    work = kernel_work("flash_attention", q, k, v, causal=causal, window=window)
     return {
         "shape": {"B": B, "T": T, "H": H, "Kv": k.shape[2], "dh": dh, "dv": dv,
                   "causal": causal, "window": window, "dtype": str(q.dtype)},
@@ -1367,9 +1389,8 @@ def measure_flash(q, k, v, kw) -> dict:
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "device_ms": dev_ms, "library_device_ms": library_device,
         "launches_per_call": per_call, "kernels_seen": sorted(names),
-        "window_lost": lost, "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "flops": flops, "bytes": nbytes,
+        "window_lost": lost, "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+        "flops": work.flops, "bytes": work.bytes,
     }
 
 
@@ -1380,6 +1401,7 @@ def measure_decode(q, kc, vc, lengths) -> dict:
     call runs, which must be one), and the bound: q, the cache rows up to
     ``lengths`` and the output, over the memory rate."""
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch.roofline import kernel_work
 
     B, H, dh = q.shape
     S, Kv = kc.shape[1], kc.shape[2]
@@ -1398,8 +1420,8 @@ def measure_decode(q, kc, vc, lengths) -> dict:
     check(per_call == 1 and all("decode_mma_kernel" in n for n in names),
           f"decode_attention made {per_call} launches a call, of {names}: "
           "want one of its own kernel")
-    rows = int(lengths.clamp(0, S).sum())
-    nbytes = q.element_size() * (2 * q.numel() + 2 * rows * Kv * dh) + 4 * B
+    work = kernel_work("decode_attention", q, kc, vc, lengths,
+                       rows=int(lengths.clamp(0, S).sum()))
     return {
         "shape": {"B": B, "H": H, "Kv": Kv, "dh": dh, "S": S,
                   "lengths": lengths.tolist(), "dtype": str(q.dtype)},
@@ -1409,8 +1431,8 @@ def measure_decode(q, kc, vc, lengths) -> dict:
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "device_ms": dev_ms, "library_device_ms": device_ms(sdpa),
         "launches_per_call": per_call, "kernels_seen": sorted(names),
-        "window_lost": lost, "bound_ms": bytes_bound_ms(nbytes), "bound_by": "bytes",
-        "bytes": nbytes,
+        "window_lost": lost, "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+        "bytes": work.bytes,
     }
 
 
@@ -2195,6 +2217,7 @@ def measure_ssd(x, dt, dA_cs, Bm, Cm) -> dict:
     products of each head) over the TF32 peak.  No single PyTorch call
     computes this function, so there is no library time."""
     from repro_torch.kernels import ssd_scan
+    from repro_torch.launch.roofline import kernel_work
 
     BC, Q, H, P = x.shape
     N = Bm.shape[-1]
@@ -2205,26 +2228,19 @@ def measure_ssd(x, dt, dA_cs, Bm, Cm) -> dict:
     dev_ms, per_call, names, lost = device_profile(ssd)
     check(per_call == 1 and all("ssd_chunk_kernel" in n for n in names),
           f"ssd_chunk made {per_call} launches a call, of {names}")
-    bc_heads = [1 if t.stride(2) == 0 else H for t in (Bm, Cm)]
-    nbytes = 4 * (2 * x.numel() + 2 * dt.numel()
-                  + sum(BC * Q * h * N for h in bc_heads) + BC * H * P * N)
-    pairs = Q * (Q + 1) // 2
-    cb_sets = 1 if bc_heads == [1, 1] else H  # C.B^T computed per set
-    flops = BC * (cb_sets * 2 * pairs * N + H * (2 * pairs * P + 2 * Q * P * N))
-    ops_ms = flops / TF32_FLOPS * 1e3
-    bytes_ms = bytes_bound_ms(nbytes)
-    plan = ssd_scan._plan(BC, Q, H, P, bc_heads == [1, 1])
+    one_group = Bm.stride(2) == 0 and Cm.stride(2) == 0
+    work = kernel_work("ssd_chunk", x, dt, dA_cs, Bm, Cm)
+    plan = ssd_scan._plan(BC, Q, H, P, one_group)
     return {
         "shape": {"BC": BC, "Q": Q, "H": H, "P": P, "N": N,
-                  "B_C_head_stride_0": bc_heads == [1, 1], "dtype": "float32"},
+                  "B_C_head_stride_0": one_group, "dtype": "float32"},
         "kernel_route": "3xTF32: C.B^T on mma.sync, y and states on wgmma",
         "plan": {"y_heads": plan.y_heads, "s_heads": plan.s_heads,
                  "blocks": plan.blocks},
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
         "device_ms": dev_ms, "kernels_seen": sorted(names), "window_lost": lost,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "flops": flops, "bytes": nbytes,
+        "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+        "flops": work.flops, "bytes": work.bytes,
     }
 
 
@@ -3170,6 +3186,7 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.launch.roofline import flash_bwd_as_run_flops, kernel_work
 
     B, T, H, dh = q.shape
     dv = v.shape[3]
@@ -3212,31 +3229,23 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
 
             backend = SDPBackend(choice(qt, kt, vt, mask, 0.0, causal,
                                         scale=kw.get("scale"), enable_gqa=True)).name
-    pairs = (sum(i + 1 - max(0, i - window + 1) for i in range(T)) if window
-             else T * (T + 1) // 2 if kw["causal"] else T * T)
-    flops = 2 * (3 * dh + 2 * dv) * pairs * B * H
-    flops_as_run = 2 * (4 * dh + 3 * dv) * pairs * B * H
-    # q, o, do read and dq written; k, v read and dk, dv written; lse read
-    nbytes = (q.element_size() * 2 * (q.numel() + do.numel() + k.numel() + v.numel())
-              + 4 * lse.numel())
-    peak = TF32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
-    ops_ms = flops / peak * 1e3
-    bytes_ms = bytes_bound_ms(nbytes)
+    work = kernel_work("flash_attention_bwd", q, k, v, o, do, lse,
+                       causal=kw["causal"], window=window)
+    flops_as_run = flash_bwd_as_run_flops(q, k, v, causal=kw["causal"], window=window)
     return {
         "shape": {"B": B, "T": T, "H": H, "Kv": k.shape[2], "dh": dh, "dv": dv,
                   "causal": kw["causal"], "window": window, "dtype": str(q.dtype)},
         "kernel_route": fb._plan(q, k, v, o, do),
-        "bound_as_run_ms": max(flops_as_run / peak * 1e3, bytes_ms),
+        "bound_as_run_ms": max(flops_as_run / work.peak * 1e3, work.bytes_ms),
         "kernel_ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "fwd_bwd_ms": fwd_bwd_ms, "library_ms": library_ms,
         "library_device_ms": library_device, "library_fwd_ms": library_fwd_ms,
         "library_backend": backend,
         "launches_per_call": per_call, "kernels_seen": sorted(names),
         "device_ms_by_kernel": names,
-        "window_lost": lost, "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "peak_flops": peak, "flops": flops, "flops_as_run": flops_as_run,
-        "bytes": nbytes,
+        "window_lost": lost, "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+        "peak_flops": work.peak, "flops": work.flops, "flops_as_run": flops_as_run,
+        "bytes": work.bytes,
     }
 
 
@@ -3397,6 +3406,7 @@ def measure_ssd_bwd(x, dt, dA_cs, Bm, Cm, dy, dS) -> dict:
     group C.B^T, dC and dB's dG^T.C) over the TF32 peak.  No single
     PyTorch call computes it."""
     from repro_torch.kernels import ssd_scan_bwd as sb
+    from repro_torch.launch.roofline import kernel_work
 
     BC, Q, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -3414,12 +3424,7 @@ def measure_ssd_bwd(x, dt, dA_cs, Bm, Cm, dy, dS) -> dict:
     check(call.scratch[:2] == (BC, G),
           f"ssd_chunk_bwd scratch {call.scratch} is not per group")
     scratch_bytes = 4 * (2 * math.prod(call.scratch) + math.prod(call.sums))
-    pairs = Q * (Q + 1) // 2
-    flops = BC * (H * (2 * 2 * pairs * P + 2 * 2 * Q * P * N) + G * 3 * 2 * pairs * N)
-    # x, dy, dx; dS; dt, dA_cs, ddt, ddA_cs; B, C, dB, dC
-    nbytes = 4 * (3 * x.numel() + dS.numel() + 4 * dt.numel() + 4 * Bm.numel())
-    ops_ms = flops / TF32_FLOPS * 1e3
-    bytes_ms = bytes_bound_ms(nbytes)
+    work = kernel_work("ssd_chunk_bwd", *args)
     return {
         "shape": {"BC": BC, "Q": Q, "H": H, "P": P, "N": N, "G": G,
                   "dtype": "float32"},
@@ -3429,10 +3434,9 @@ def measure_ssd_bwd(x, dt, dA_cs, Bm, Cm, dy, dS) -> dict:
         "scratch_bytes": scratch_bytes,
         "kernel_ms": kernel_ms, "device_ms": dev_ms, "device_ms_by_kernel": names,
         "launches_per_call": per_call, "window_lost": lost, "plain_ms": plain_ms,
-        "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
-        "flops": flops, "bytes": nbytes,
+        "library_ms": None, "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+        "ops_bound_ms": work.ops_ms, "bytes_bound_ms": work.bytes_ms,
+        "flops": work.flops, "bytes": work.bytes,
     }
 
 
@@ -4296,6 +4300,276 @@ def phase_sharded_serve(dev, seed: int, card: str) -> dict:
           f"{SERVE_SHARD_LIMIT_S} s")
     return out
 
+# -- phase 21: the dry run and a whole step's roofline ---------------------------
+
+#: the reference's dry-run test cells (``tests/test_dryrun.py``), as the
+#: CLI's ``--cell`` takes them, and the reasons of its two skips
+DRYRUN_CELLS = ("gemma-2b:decode_32k", "mamba2-2.7b:long_500k",
+                "gemma-2b:decode_32k:multi", "hubert-xlarge:decode_32k",
+                "qwen2.5-3b:long_500k")
+DRYRUN_SKIPS = {("hubert-xlarge", "decode_32k"): "encoder-only: no decode step",
+                ("qwen2.5-3b", "long_500k"):
+                    "full attention is quadratic at 512k; skipped per brief"}
+DRYRUN_LIMIT_S = 30.0  # the phase's own time limit
+DRYRUN_MEMORY_BAND = (0.5, 2.0)  # the fake peak over the card's, a sanity band
+DRYRUN_STEP_REPS = 3  # timed train steps without the counter
+
+
+def _counted(fn, launch_modules: dict):
+    """``fn()`` once under a ``CostCounter`` on the card: its counts, the
+    wrappers' launch-count deltas by kernel, and the card's peak allocated
+    bytes less what was allocated before (the step's own), inside
+    :class:`_NoPlain`."""
+    from repro_torch.launch import CostCounter
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: m.launches for k, m in launch_modules.items()}
+    with _NoPlain(), CostCounter() as counter:
+        out = fn()
+    torch.cuda.synchronize()
+    del out
+    launched = {k: m.launches - before[k] for k, m in launch_modules.items()}
+    return counter.costs, launched, torch.cuda.max_memory_allocated() - base
+
+
+def _fidelity(name: str, real, launched: dict, real_peak: int, fake, arg_bytes: int,
+              real_arg_bytes: int) -> dict:
+    """Hold a step's fake trace to its real run on the card: dot FLOPs and
+    the kernels' calls, FLOPs and bytes equal, the calls equal to the
+    launch counters' deltas, no collective on one card; the fake peak
+    (arguments plus its high-water mark) within DRYRUN_MEMORY_BAND of the
+    card's (the arguments plus the step's own peak)."""
+    launched = {k: n for k, n in launched.items() if n}
+    card_peak = real_arg_bytes + real_peak
+    fake_peak = arg_bytes + fake.peak_bytes
+    row = {"step": name, "dot_flops": real.dot_flops, "fake_dot_flops": fake.dot_flops,
+           "kernel_calls": real.kernel_calls, "fake_kernel_calls": fake.kernel_calls,
+           "launches": launched, "kernel_flops": real.kernel_flops,
+           "kernel_bytes": real.kernel_bytes,
+           "collective_bytes": real.total_collective_bytes,
+           "fake_collective_bytes": fake.total_collective_bytes,
+           "fake_peak_bytes": fake_peak, "card_peak_bytes": card_peak,
+           "memory_ratio": fake_peak / card_peak}
+    emit("dryrun_fidelity", **row)
+    check(fake.dot_flops == real.dot_flops > 0,
+          f"{name}: fake trace counts {fake.dot_flops} dot FLOPs, the card's run "
+          f"{real.dot_flops}")
+    check(fake.kernel_calls == real.kernel_calls == launched and launched,
+          f"{name}: kernel calls fake {fake.kernel_calls}, card {real.kernel_calls}, "
+          f"launched {launched}")
+    check(fake.kernel_flops == real.kernel_flops
+          and fake.kernel_bytes == real.kernel_bytes,
+          f"{name}: kernel work fake {fake.kernel_flops} {fake.kernel_bytes}, card "
+          f"{real.kernel_flops} {real.kernel_bytes}")
+    check(real.total_collective_bytes == fake.total_collective_bytes == 0,
+          f"{name}: collective bytes on one card")
+    lo, hi = DRYRUN_MEMORY_BAND
+    check(lo <= row["memory_ratio"] <= hi,
+          f"{name}: fake peak {fake_peak} against the card's {card_peak}")
+    return row
+
+
+class DryrunCells:
+    """Phase 21 (a), the dry-run CLI in a subprocess on the reference test's
+    cells (DRYRUN_CELLS), on fake tensors of ``fake_device`` each traced
+    as rank 0 of a fake world of 256 or 512.  Started ahead of the phase:
+    a fresh interpreter on the card's host spends most of its run
+    importing torch, its compiler stack and sympy with no bytecode cache,
+    so it runs beside the sharding phases (17-20, correctness only), and
+    the phase reads its records.  :meth:`stop` kills it if it is still running."""
+
+    def __init__(self, fake_device: str) -> None:
+        import threading
+
+        self.fake_device = fake_device
+        self.workdir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        self.cells_path = os.path.join(self.workdir, "cells.json")
+        self.log_path = os.path.join(self.workdir, "dryrun.log")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+               fake_device, "--out", self.cells_path]
+        for cell in DRYRUN_CELLS:
+            cmd += ["--cell", cell]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.start = time.perf_counter()
+        self.end = None
+        with open(self.log_path, "w") as log_file:
+            self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log_file,
+                                         stderr=subprocess.STDOUT)
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+
+    def _wait(self) -> None:
+        self.proc.wait()
+        self.end = time.perf_counter()
+
+    def finish(self, timeout: float) -> list:
+        """The records, once the CLI exits 0 within ``timeout`` s."""
+        self.waiter.join(timeout)
+        if self.proc.poll() is None:
+            self.stop()
+        with open(self.log_path) as f:
+            log = f.read()
+        check(self.proc.returncode == 0,
+              f"dry-run CLI exited {self.proc.returncode}:\n{log[-3000:]}")
+        with open(self.cells_path) as f:
+            cells = json.load(f)
+        shutil.rmtree(self.workdir, ignore_errors=True)
+        return cells
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def phase_dryrun(dev, seed: int, card: str, cells_run: DryrunCells) -> dict:
+    """Phase 21, the dry run (``launch/dryrun.py``) and the first whole-step
+    roofline of the port.  (a) ``cells_run``'s records of the dry-run CLI
+    (:class:`DryrunCells`): every runnable cell "ok" on fake tensors of the
+    card's type with FLOPs > 0 and collective bytes >= 0, the skips with
+    the reference's reasons; each record's terms printed.  (b) Three steps
+    run once for real on the card under ``CostCounter`` (an extra run,
+    never timed) and once as a fake trace from fake ``cuda`` stand-ins
+    (``dryrun.trace``), held together by :func:`_fidelity`: qwen2.5-3b's
+    train step at phase 18's size (SHARD_LAYERS layers, SHARD_BATCH x
+    TRAIN_SEQ), mamba2-2.7b's prefill at 2 layers (2 x 1024) and one
+    qwen2.5-3b decode step at 36 layers over SERVE_SHARD_CACHE rows; (c)
+    qwen's step ``Roofline`` from its counts beside the median of
+    DRYRUN_STEP_REPS timed steps without the counter.  At most
+    DRYRUN_LIMIT_S, the wait for the CLI included."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, make_batch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch import (dryrun, make_decode_step, make_prefill_step,
+                                    make_train_step)
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models import ShapeConfig, init_cache, init_params, model_defs
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t0 = time.perf_counter()
+    fake_device = dev.type  # "cuda" on the card
+    check(cells_run.fake_device == fake_device, "the dry-run cells' device")
+    try:
+        rows = []
+        # (b) qwen2.5-3b's train step at phase 18's size
+        cfg = replace(get_config(TRAIN_MODEL), n_periods=SHARD_LAYERS)
+        shape = ShapeConfig(name="train_4k_4_layers", kind="train", seq_len=TRAIN_SEQ,
+                            global_batch=SHARD_BATCH, microbatches=SHARD_MICROBATCHES,
+                            q_chunk=512, kv_chunk=1024, loss_chunk=512, remat="full")
+        g = torch.Generator(device=dev).manual_seed(seed + 21)
+        params = init_params(model_defs(cfg), g, dev, dtype=torch.float32)
+        opt = adamw_init(params)
+        batch = make_batch(PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                          global_batch=SHARD_BATCH), 0)
+        step = make_train_step(cfg, shape, AdamWConfig(lr=TRAIN_LR, weight_decay=0.0),
+                               device=dev)
+        run = lambda: step(params, opt, batch)  # noqa: E731
+        run()  # first call: the kernels' per-signature preparation
+        real, launched, peak = _counted(run, {"flash_attention": fa,
+                                              "flash_attention_bwd": fb})
+        parts = {"train_real_s": time.perf_counter() - t0}
+        fake, arg_bytes = dryrun.trace(cfg, shape, None, fake_device)
+        parts["train_fake_s"] = time.perf_counter() - t0 - sum(parts.values())
+        rows.append(_fidelity("qwen2.5-3b_train", real, launched, peak, fake, arg_bytes,
+                              dryrun.storage_bytes((params, opt))))
+        train_costs = real
+        times = []
+        for _ in range(DRYRUN_STEP_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        step_ms = statistics.median(times)
+        roof = rl.derive(cfg.name, shape.name, "1", train_costs, 1, cfg, shape,
+                         model_flops_global=dryrun.model_flops(cfg, shape),
+                         peak_memory_bytes=float(rows[0]["fake_peak_bytes"]))
+        bound_ms = max(roof.t_compute, roof.t_memory, roof.t_collective) * 1e3
+        roofline = {"card": card, "step": roof.to_dict(), "measured_ms": step_ms,
+                    "measured_all_ms": times, "bound_ms": bound_ms,
+                    "bound_share": bound_ms / step_ms,
+                    "mfu": roof.model_flops / (step_ms / 1e3) / rl.PEAK_FLOPS}
+        emit("step_roofline", **roofline)
+        del params, opt, step, run
+        free_card()
+        parts["train_timed_s"] = time.perf_counter() - t0 - sum(parts.values())
+
+        # mamba2-2.7b's prefill at 2 layers
+        cfg = replace(get_config(SSM_MODEL), n_periods=2)
+        shape = ShapeConfig(name="prefill_2x1024", kind="prefill",
+                            seq_len=SERVE_SHARD_PROMPT, global_batch=SERVE_SHARD_PROMPTS)
+        params = init_params(model_defs(cfg), g, dev)
+        prompts = torch.randint(0, cfg.vocab, (SERVE_SHARD_PROMPTS, SERVE_SHARD_PROMPT),
+                                generator=g, device=dev, dtype=torch.int32)
+        prefill = make_prefill_step(cfg, shape)
+        prefill(params, {"tokens": prompts})
+        real, launched, peak = _counted(lambda: prefill(params, {"tokens": prompts}),
+                                        {"ssd_chunk": ssd_scan,
+                                         "flash_attention": fa})
+        fake, arg_bytes = dryrun.trace(cfg, shape, None, fake_device)
+        rows.append(_fidelity("mamba2-2.7b_prefill", real, launched, peak, fake,
+                              arg_bytes, dryrun.storage_bytes((params, prompts))))
+        del params, prefill
+        free_card()
+        parts["prefill_s"] = time.perf_counter() - t0 - sum(parts.values())
+
+        # one qwen2.5-3b decode step at 36 layers
+        cfg = get_config(SERVE_MODEL)
+        shape = ShapeConfig(name="decode_1040", kind="decode", seq_len=SERVE_SHARD_CACHE,
+                            global_batch=SERVE_SHARD_PROMPTS)
+        params = init_params(model_defs(cfg), g, dev)
+        cache = init_cache(cfg, SERVE_SHARD_PROMPTS, SERVE_SHARD_CACHE, device=dev)
+        tokens = torch.zeros((SERVE_SHARD_PROMPTS, 1), dtype=torch.int32, device=dev)
+        decode = make_decode_step(cfg, shape)
+        t_last = SERVE_SHARD_CACHE - 1  # the stand-ins' position
+        decode(params, tokens, cache, t_last)
+        real, launched, peak = _counted(lambda: decode(params, tokens, cache, t_last),
+                                        {"decode_attention": da})
+        fake, arg_bytes = dryrun.trace(cfg, shape, None, fake_device)
+        rows.append(_fidelity("qwen2.5-3b_decode", real, launched, peak, fake,
+                              arg_bytes, dryrun.storage_bytes((params, tokens, cache))))
+        del params, cache, decode
+        free_card()
+        parts["decode_s"] = time.perf_counter() - t0 - sum(parts.values())
+
+        # (a) the dry-run cells
+        cells = cells_run.finish(max(1.0, DRYRUN_LIMIT_S - (time.perf_counter() - t0)))
+        parts["cells_wait_s"] = time.perf_counter() - t0 - sum(parts.values())
+    finally:
+        cells_run.stop()
+    check(len(cells) == len(DRYRUN_CELLS), f"dry run recorded {len(cells)} cells")
+    for rec in cells:
+        keys = ("arch", "shape", "mesh", "status", "reason", "device", "step", "flops",
+                "coll_bytes", "coll_breakdown", "coll_link_bytes", "kernel_calls",
+                "t_compute", "t_memory", "t_collective", "bottleneck",
+                "useful_flops_frac", "roofline_frac", "peak_memory_bytes", "fits_hbm",
+                "memory_analysis", "trace_s")
+        emit("dryrun_cell", **{k: rec[k] for k in keys if k in rec})
+        want = DRYRUN_SKIPS.get((rec["arch"], rec["shape"]))
+        if want is not None:
+            check(rec["status"] == "skipped" and rec["reason"] == want,
+                  f"dry run {rec['arch']} {rec['shape']}: {rec}")
+            continue
+        check(rec["status"] == "ok" and rec["device"] == fake_device and rec["flops"] > 0
+              and rec["coll_bytes"] >= 0, f"dry run {rec['arch']} {rec['shape']} "
+              f"{rec['mesh']}: {rec.get('error', rec['status'])}")
+    check(sorted(r["mesh"] for r in cells if r["status"] == "ok")
+          == ["16x16", "16x16", "2x16x16"], "dry-run meshes")
+    out = {"card": card, "cells": len(cells), "fidelity": rows, "roofline": roofline,
+           "s": time.perf_counter() - t0}
+    out["cli_s"] = cells_run.end - cells_run.start
+    emit("dryrun", card=card, s=out["s"], parts=parts, cli_s=out["cli_s"], memory_ratio={
+        r["step"]: r["memory_ratio"] for r in rows})
+    check(out["s"] <= DRYRUN_LIMIT_S, f"phase 21 took {out['s']} s, over its "
+          f"{DRYRUN_LIMIT_S} s")
+    return out
+
+
 def _card() -> str:
     """Select card 0, print its name and power limit and return them."""
     dev = torch.device("cuda", 0)
@@ -4578,19 +4852,27 @@ def main(argv=None) -> int:
     emit("mla_moe_training", gradient_check=mla_grad, moe_determinism=moe_det,
          example=example, serve_launcher=launcher)
 
-    # sharding over torch.distributed: NCCL at world size 1
-    t0 = time.perf_counter()
-    phase_distributed(dev, args.seed, card)
-    emit("phase_done", name="distributed", s=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    phase_sharded_train(dev, args.seed, card)
-    emit("phase_done", name="sharded_train", s=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    phase_sharded_mixers(dev, args.seed, card)
-    emit("phase_done", name="sharded_mixers", s=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    sharded_serve = phase_sharded_serve(dev, args.seed, card)
-    emit("phase_done", name="sharded_serve", s=time.perf_counter() - t0)
+    # the dry-run CLI for phase 21 runs beside the sharding phases
+    cells_run = DryrunCells(dev.type)
+    try:
+        # sharding over torch.distributed: NCCL at world size 1
+        t0 = time.perf_counter()
+        phase_distributed(dev, args.seed, card)
+        emit("phase_done", name="distributed", s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        phase_sharded_train(dev, args.seed, card)
+        emit("phase_done", name="sharded_train", s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        phase_sharded_mixers(dev, args.seed, card)
+        emit("phase_done", name="sharded_mixers", s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sharded_serve = phase_sharded_serve(dev, args.seed, card)
+        emit("phase_done", name="sharded_serve", s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        phase_dryrun(dev, args.seed, card, cells_run)
+        emit("phase_done", name="dryrun", s=time.perf_counter() - t0)
+    finally:
+        cells_run.stop()
 
     def path_row(m, launches):
         return {"shape": m["shape"], "launches": launches, "ms": m["kernel_ms"],

@@ -42,7 +42,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _report
 from repro_torch.kernels._build import _raw_stream, forward_only
 
 __all__ = ["bucket_histogram", "bucket_histogram_torch", "launches"]
@@ -214,7 +214,9 @@ def bucket_histogram(
     *,
     out_dtype: torch.dtype = torch.int32,
 ) -> torch.Tensor:
-    """Counts per bucket, ``(n_buckets,)`` in ``out_dtype``."""
+    """Counts per bucket, ``(n_buckets,)`` in ``out_dtype``.  A
+    ``FakeTensor`` of keys (a dry run's trace) gets an output of that
+    shape, type and device and no launch."""
     global launches
     if keys.requires_grad:  # never for int32 keys: a float input raises here
         forward_only("bucket_histogram", keys)
@@ -227,10 +229,14 @@ def bucket_histogram(
     n = keys.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"N = {n} keys would overflow the int32 counts")
+    if _report.fake(keys):
+        _report.report("bucket_histogram", keys, n_buckets)
+        return keys.new_empty(n_buckets).to(out_dtype)
     if not keys.is_cuda:
         if keys.device.type != "cpu":
             raise ValueError(f"keys on unsupported device {keys.device}")
-        return bucket_histogram_torch(keys, n_buckets, out_dtype)
+        with _report.plain("bucket_histogram", keys, n_buckets):
+            return bucket_histogram_torch(keys, n_buckets, out_dtype)
     if not keys.is_contiguous():
         raise ValueError("keys must be contiguous")
     index = keys.get_device()
@@ -248,4 +254,6 @@ def bucket_histogram(
         _check_err(err, "launch")
     with _count_lock:
         launches += 1
+    if _report.counters:
+        _report.report("bucket_histogram", keys, n_buckets)
     return out if out_dtype == torch.int32 else out.to(out_dtype)

@@ -52,7 +52,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _report
 from repro_torch.kernels._build import _raw_stream
 from repro_torch.kernels.flash_attention import DTYPE_CODES, HEAD_DIMS, MASK_VALUE
 
@@ -271,7 +271,10 @@ def decode_attention(
     """Single-token attention over a KV cache, ``(B, H, dh)`` in q's type.
     Query head ``h`` reads kv head ``h // (H // Kv)``.  With
     ``return_lse``, ``(o, lse)``: lse each (row, head)'s f32 log-sum-exp,
-    ``(B, H)`` (module docstring)."""
+    ``(B, H)`` (module docstring).  A ``FakeTensor`` q (a dry run's trace)
+    gets outputs of these shapes, types and device and no launch."""
+    if _report.fake(q):
+        return _fake(q, k_cache, v_cache, lengths, return_lse)
     if q.is_cuda:
         # everything before the launch counts in every decode step: one
         # dict lookup on the signature, then the pointers
@@ -291,13 +294,29 @@ def decode_attention(
         if call.plan.route == "mma" and (ptrs[0] | ptrs[1] | ptrs[2]) % ALIGN:
             raise ValueError(
                 f"q and the caches need {ALIGN}-byte aligned base addresses")
-        return _launch(q, ptrs, lengths.data_ptr(), call)
+        res = _launch(q, ptrs, lengths.data_ptr(), call)
+        if _report.counters and math.prod(call.out_shape):
+            _report.report("decode_attention", q, k_cache, v_cache, lengths)
+        return res
     _check(q, k_cache, v_cache, lengths)
     if q.device.type != "cpu":
         raise ValueError(f"attention on unsupported device {q.device}")
-    return decode_attention_torch(q, k_cache, v_cache, lengths,
-                                  scale=scale, softcap=softcap,
-                                  return_lse=return_lse)
+    with _report.plain("decode_attention", q, k_cache, v_cache, lengths):
+        return decode_attention_torch(q, k_cache, v_cache, lengths,
+                                      scale=scale, softcap=softcap,
+                                      return_lse=return_lse)
+
+
+def _fake(q, k_cache, v_cache, lengths, return_lse: bool):
+    """The kernel's outputs for fake inputs, reported as a call where the
+    kernel would launch: no pointer, plan or launcher is touched."""
+    _check(q, k_cache, v_cache, lengths)
+    out = q.new_empty(q.shape)
+    if out.numel():
+        _report.report("decode_attention", q, k_cache, v_cache, lengths)
+    if not return_lse:
+        return out
+    return out, torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
 
 
 def _launch(q, ptrs, lengths_ptr: int, call: _Call):

@@ -55,7 +55,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _report
 from repro_torch.kernels._build import _raw_stream
 
 __all__ = ["flash_attention", "flash_attention_torch", "launches", "HEAD_DIMS",
@@ -260,7 +260,10 @@ def flash_attention(
     softcap)`` with ``scale`` defaulting to ``1/sqrt(dh)``.  With
     ``return_lse``, ``(o, lse)``: lse is each row's log-sum-exp of its
     scores over the keys it sees, f32 ``(B, H, Tq)``, which the backward
-    pass recomputes the weights from."""
+    pass recomputes the weights from.  A ``FakeTensor`` q (a dry run's
+    trace) gets outputs of these shapes, types and device and no launch."""
+    if _report.fake(q):
+        return _fake(q, k, v, causal, window, return_lse)
     if q.is_cuda:
         # everything before the launch counts in the call's latency: one
         # dict lookup on the signature, then the pointers
@@ -276,15 +279,35 @@ def flash_attention(
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
         if call.plan.route == "wgmma" and (ptrs[0] | ptrs[1] | ptrs[2]) % TMA_ALIGN:
             _plan(q, k, v)  # raises on the misaligned base
-        return _launch(q, ptrs, call)
+        res = _launch(q, ptrs, call)
+        if _report.counters and math.prod(call.out_shape):
+            _report.report("flash_attention", q, k, v, causal=causal,
+                           window=window)
+        return res
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if q.device.type != "cpu":
         raise ValueError(f"attention on unsupported device {q.device}")
-    return flash_attention_torch(q, k, v, causal=causal, scale=scale,
-                                 softcap=softcap, window=window,
-                                 return_lse=return_lse)
+    with _report.plain("flash_attention", q, k, v, causal=causal, window=window):
+        return flash_attention_torch(q, k, v, causal=causal, scale=scale,
+                                     softcap=softcap, window=window,
+                                     return_lse=return_lse)
+
+
+def _fake(q, k, v, causal: bool, window: Optional[int], return_lse: bool):
+    """The kernel's outputs for fake inputs, reported as a call where the
+    kernel would launch: no pointer, plan or launcher is touched."""
+    _check(q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    B, Tq, H, _ = q.shape
+    out = q.new_empty((B, Tq, H, v.shape[3]))
+    if out.numel():
+        _report.report("flash_attention", q, k, v, causal=causal, window=window)
+    if not return_lse:
+        return out
+    return out, torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
 
 
 def _prepare(q, k, v, causal: bool, scale: Optional[float],

@@ -48,7 +48,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _report
 from repro_torch.kernels._build import _raw_stream
 from repro_torch.kernels.flash_attention import (
     DTYPE_CODES,
@@ -245,15 +245,20 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`~repro_torch.kernels.flash_attention.
     flash_attention` in the inputs' type: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors, and for a ``FakeTensor`` q (a dry run's
+    trace) outputs of the kernel's shapes, types and device, no launch."""
     global launches
+    if _report.fake(q):
+        return _fake(q, k, v, o, do, lse, causal, window)
     if not q.is_cuda:
         _check(q, k, v, o, do, lse)
         if q.device.type != "cpu":
             raise ValueError(f"attention on unsupported device {q.device}")
-        return flash_attention_bwd_torch(q, k, v, o, do, lse, causal=causal,
-                                         scale=scale, softcap=softcap,
-                                         window=window)
+        with _report.plain("flash_attention_bwd", q, k, v, o, do, lse,
+                           causal=causal, window=window):
+            return flash_attention_bwd_torch(q, k, v, o, do, lse, causal=causal,
+                                             scale=scale, softcap=softcap,
+                                             window=window)
     key = (q.shape, k.shape, q.stride(), k.stride(), v.stride(), o.stride(),
            do.stride(), q.dtype, k.dtype, v.dtype, o.dtype, do.dtype,
            lse.dtype, lse.shape, lse.stride(), q.get_device(), k.get_device(),
@@ -271,9 +276,7 @@ def flash_attention_bwd(
         _plan(q, k, v, o, do)  # raises on the misaligned base
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    dq, dk, dv = _outputs(q, k, v)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -295,6 +298,29 @@ def flash_attention_bwd(
             f"flash_attention_bwd launch failed: {err_str(err).decode()}")
     with _count_lock:
         launches += 1
+    if _report.counters:
+        _report.report("flash_attention_bwd", q, k, v, o, do, lse, causal=causal,
+                       window=window)
+    return dq, dk, dv
+
+
+def _outputs(q, k, v):
+    """``(dq, dk, dv)`` uninitialised, as the kernel writes them."""
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            torch.empty(k.shape, dtype=k.dtype, device=k.device),
+            torch.empty(v.shape, dtype=v.dtype, device=v.device))
+
+
+def _fake(q, k, v, o, do, lse, causal: bool, window: Optional[int]):
+    """The kernel's outputs for fake inputs, reported as a call where the
+    kernel would launch: no pointer, plan or launcher is touched."""
+    _check(q, k, v, o, do, lse)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    dq, dk, dv = _outputs(q, k, v)
+    if dq.numel() and dk.numel():
+        _report.report("flash_attention_bwd", q, k, v, o, do, lse, causal=causal,
+                       window=window)
     return dq, dk, dv
 
 

@@ -45,7 +45,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _report
 from repro_torch.kernels._build import _raw_stream
 
 __all__ = ["ssd_chunk_fwd", "ssd_chunk_torch", "launches"]
@@ -215,13 +215,18 @@ def ssd_chunk_fwd(
     Bm: torch.Tensor,  # (BC, Q, H, N), a head stride of 0 allowed
     Cm: torch.Tensor,  # (BC, Q, H, N), a head stride of 0 allowed
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y_diag (BC, Q, H, P), chunk states (BC, H, P, N)), f32."""
+    """Returns (y_diag (BC, Q, H, P), chunk states (BC, H, P, N)), f32.  A
+    ``FakeTensor`` x (a dry run's trace) gets outputs of these shapes, no
+    launch."""
     global launches
+    if _report.fake(x):
+        return _fake(x, dt, dA_cs, Bm, Cm)
     if not x.is_cuda:
         _check(x, dt, dA_cs, Bm, Cm)
         if x.device.type != "cpu":
             raise ValueError(f"SSD on unsupported device {x.device}")
-        return ssd_chunk_torch(x, dt, dA_cs, Bm, Cm)
+        with _report.plain("ssd_chunk", x, dt, dA_cs, Bm, Cm):
+            return ssd_chunk_torch(x, dt, dA_cs, Bm, Cm)
     args = (x, dt, dA_cs, Bm, Cm)
     key = tuple((t.shape, t.stride(), t.dtype, t.get_device()) for t in args)
     call = _calls.get(key)
@@ -251,4 +256,18 @@ def ssd_chunk_fwd(
         raise RuntimeError(f"ssd_chunk launch failed: {err_str(err).decode()}")
     with _count_lock:
         launches += 1
+    if _report.counters:
+        _report.report("ssd_chunk", x, dt, dA_cs, Bm, Cm)
+    return y, S
+
+
+def _fake(x, dt, dA_cs, Bm, Cm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's outputs for fake inputs, reported as a call where the
+    kernel would launch: no pointer, plan or launcher is touched."""
+    _check(x, dt, dA_cs, Bm, Cm)
+    BC, Q, H, P = x.shape
+    y = x.new_empty((BC, Q, H, P))
+    S = x.new_empty((BC, H, P, Bm.shape[-1]))
+    if y.numel() and S.numel():
+        _report.report("ssd_chunk", x, dt, dA_cs, Bm, Cm)
     return y, S

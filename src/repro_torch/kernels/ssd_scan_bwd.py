@@ -55,7 +55,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _report
 from repro_torch.kernels._build import _raw_stream
 from repro_torch.kernels.ssd_scan import ALIGN, MAX_Q, WIDTHS, ssd_chunk_fwd
 
@@ -255,14 +255,22 @@ def ssd_chunk_bwd(
 ) -> Tuple[torch.Tensor, ...]:
     """``(dx, ddt, ddA_cs, dB, dC)`` of :func:`~repro_torch.kernels.ssd_scan.
     ssd_chunk_fwd` with B and C by group, f32: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors, and for a ``FakeTensor`` x (a dry
+    run's trace) outputs of the kernel's shapes, no launch."""
     global launches
     args = (x, dt, dA_cs, Bm, Cm, dy, dS)
+    if _report.fake(x):
+        _check(*args)
+        outs = _outputs(x, dt, dA_cs, Bm, Cm)
+        if x.numel() and Bm.numel():
+            _report.report("ssd_chunk_bwd", *args)
+        return outs
     if not x.is_cuda:
         _check(*args)
         if x.device.type != "cpu":
             raise ValueError(f"SSD backward on unsupported device {x.device}")
-        return ssd_chunk_bwd_torch(*args)
+        with _report.plain("ssd_chunk_bwd", *args):
+            return ssd_chunk_bwd_torch(*args)
     key = tuple((t.shape, t.stride(), t.dtype, t.get_device()) for t in args)
     call = _calls.get(key)
     if call is None:
@@ -270,8 +278,7 @@ def ssd_chunk_bwd(
         if len(_calls) >= _CALLS_MAX:
             _calls.clear()
         _calls[key] = call
-    outs = [torch.empty(t.shape, dtype=torch.float32, device=x.device)
-            for t in (x, dt, dA_cs, Bm, Cm)]
+    outs = _outputs(x, dt, dA_cs, Bm, Cm)
     if x.numel() == 0 or Bm.numel() == 0:
         return tuple(o.zero_() for o in outs)
     ptrs = [t.data_ptr() for t in args]
@@ -293,7 +300,15 @@ def ssd_chunk_bwd(
         raise RuntimeError(f"ssd_chunk_bwd launch failed: {err_str(err).decode()}")
     with _count_lock:
         launches += 1
+    if _report.counters:
+        _report.report("ssd_chunk_bwd", *args)
     return tuple(outs)
+
+
+def _outputs(*inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """One uninitialised f32 gradient of each input's shape."""
+    return tuple(torch.empty(t.shape, dtype=torch.float32, device=t.device)
+                 for t in inputs)
 
 
 class SSDChunk(torch.autograd.Function):

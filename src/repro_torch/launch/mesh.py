@@ -12,8 +12,12 @@ JAX sees every device of the host from one process; torch runs one
 process per device, joined in a process group.  So a mesh is built over
 the initialised world, whose size must be the mesh's: nothing builds a
 smaller mesh quietly.  :func:`process_group` joins and leaves such a world
-from a file rendezvous (no TCP port to collide on).  Nothing here runs at
-import: the functions touch the process group only when called.
+from a file rendezvous (no TCP port to collide on).  :func:`fake_world`
+joins a world of any size as its rank 0 alone, over torch's "fake"
+backend, whose collectives return at once: a dry run
+(``launch/dryrun.py``) traces one rank of a production mesh in one
+process.  Nothing here runs at import: the functions touch the process
+group only when called.
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["make_mesh_compat", "make_production_mesh", "make_smoke_mesh",
-           "production_mesh_shape", "process_group"]
+__all__ = ["fake_world", "make_mesh_compat", "make_production_mesh",
+           "make_smoke_mesh", "production_mesh_shape", "process_group"]
 
 
 def _device_type(device_type: Optional[str]) -> str:
@@ -49,6 +53,27 @@ def process_group(rank: int, world_size: int, init_file: str,
         backend = "gloo"
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             rank=rank, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int) -> Iterator[None]:
+    """Join a world of ``world_size`` ranks as rank 0, alone, through
+    torch's "fake" backend (a ``FakeStore``): every collective returns at
+    once without touching its tensors, so :func:`make_mesh_compat` builds
+    the production mesh in one process and a step traces as its rank 0.
+    Left on exit, also when the body raises.  A process that is already
+    in a world is refused: a dry run never shares it with a real one."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised: a fake "
+                           "world never joins a process that is in a real one")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
     try:
         yield
     finally:
