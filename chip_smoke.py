@@ -231,7 +231,18 @@ another sm_90a card).  It builds the port's CUDA kernels from
    PMEM tier) and the serving launcher ``python -m
    repro_torch.launch.serve --full --arch gemma-2b`` (4 prompts of 32
    tokens, 16 greedy tokens each; flash once a layer, decode once a layer
-   a step);
+   a step); then the reference's other examples on the port:
+   ``repro_torch.examples.mapreduce_device`` at the reference's size
+   (2^16 tokens over a vocab of 8192: the three paths' counts equal, 0
+   dropped, ``bucket_histogram`` launched), ``serve_lm``'s ``run`` over
+   the reference's Zipf trace (23 conversations, prompts of 8 tokens, 16
+   tokens each, a warm pool of 8 over PMEM, then a restart) at
+   qwen2.5-3b's full width in bf16 (every token in the vocabulary,
+   demotions and resumes, every conversation re-adopted, flash once a
+   layer a prefill and decode once a layer a decode step), and
+   ``quickstart`` and ``iterative_dataflow`` on the card's host (every
+   tier's output the same, the quota error raised, every task resumed,
+   PageRank's outputs identical, TeraSort globally sorted);
 17. sharding over ``torch.distributed`` on the one card: NCCL at world
    size 1 through ``launch.process_group`` (a file rendezvous in the
    run's temporary directory), meshes (1,) over "data" and (1, 1) over
@@ -3474,6 +3485,7 @@ EXAMPLE_HELD = 3  # batches whose loss is read before and after training
 EXAMPLE_CKPT_EVERY = 20  # one checkpoint: each is 1.9 GB of f32 state
 LAUNCHER_ARCH = "gemma-2b"  # the serving launcher's default model, at full width
 LAUNCHER_BATCH, LAUNCHER_PROMPT, LAUNCHER_TOKENS = 4, 32, 16
+SERVE_EXAMPLE_SEED = 31  # the serve_lm example's prompts, drawn on the card
 
 
 def phase_mla_backward(dev, seed: int, rec: BwdRecord) -> tuple:
@@ -3705,6 +3717,115 @@ def dbrx_path_shapes(dev, seed: int, cfg, prompt_len: int, steps: int) -> tuple:
     emit("flash_dbrx_path_shape", **flash)
     emit("decode_dbrx_path_shape", **decode)
     return flash, decode
+
+
+def phase_mapreduce_example(dev) -> dict:
+    """``python -m repro_torch.examples.mapreduce_device`` on the card at
+    the reference's size: the device, host-tier and modeled-S3 paths'
+    counts equal (the example holds them so), every token counted, 0
+    dropped, ``bucket_histogram`` launched by the device path."""
+    from repro_torch.examples import mapreduce_device
+    from repro_torch.kernels import bucket_histogram as bh
+
+    bh.launches = 0
+    t0 = time.perf_counter()
+    out = mapreduce_device.main(["--device", str(dev)])
+    s = time.perf_counter() - t0
+    launches = bh.launches
+    check(out["dropped"] == 0, f"mapreduce example dropped {out['dropped']} pairs")
+    check(int(out["counts"].sum()) == 1 << 16,
+          f"mapreduce example counted {int(out['counts'].sum())} of {1 << 16} tokens")
+    check(launches >= 1, "mapreduce example: bucket_histogram never launched")
+    res = {"tokens": 1 << 16, "vocab": len(out["counts"]), "bucket_histogram": launches,
+           "shuffled_bytes": out["shuffled_bytes"], "dropped": out["dropped"],
+           "device_path_ms": out["device_s"] * 1e3, "host_path_ms": out["host_s"] * 1e3,
+           "s3_modeled_ms": out["s3_modeled_s"] * 1e3, "s": s}
+    emit("mapreduce_example", **res)
+    return res
+
+
+def phase_serve_example(dev, seed: int, workdir: Path) -> dict:
+    """``repro_torch.examples.serve_lm.run`` at qwen2.5-3b's full width in
+    bf16 (weights as ``draw_params`` draws them, prompts from a generator
+    on the card) over the reference's trace: every token in the
+    vocabulary, a conversation for each of the trace's, demotions and
+    resumes above 0, every conversation re-adopted after the restart,
+    flash launched once a layer for each prefill and decode once a layer
+    for each decode step (the restart's included)."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config(SERVE_MODEL)
+    params = draw_params(cfg, seed, dev)
+    _, convs = serve_lm.conversations()
+    g = torch.Generator(device=dev).manual_seed(seed + SERVE_EXAMPLE_SEED)
+    prompts = {c: torch.randint(0, cfg.vocab, (1, serve_lm.PROMPT_LEN), generator=g,
+                                device=dev, dtype=torch.int32) for c in convs}
+    torch.cuda.synchronize()
+    fa.launches = da.launches = 0
+    t0 = time.perf_counter()
+    out = serve_lm.run(cfg, params, prompts, dev, label=f"{cfg.name} at full width",
+                       workdir=workdir)
+    s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches, "decode_attention": da.launches}
+    del params
+    tokens = [x for v in out["tokens"].values() for x in v] + out["next_token"]
+    total = len(tokens) - len(out["next_token"])
+    stats = out["stats"]
+    check(all(0 <= x < cfg.vocab for x in tokens), "serve example: token out of vocabulary")
+    check(out["conversations"] == len(convs),
+          f"serve example: {out['conversations']} conversations, the trace has {len(convs)}")
+    check(stats["demotions"] > 0 and stats["resumes"] > 0,
+          f"serve example: no demotion or resume: {stats}")
+    check(out["adopted"] == out["conversations"],
+          f"serve example: {out['adopted']} of {out['conversations']} sessions re-adopted")
+    prefills = out["conversations"]
+    steps = total + 1  # a start prefills, then decodes its first token; +1 after the restart
+    want = {"flash_attention": cfg.n_layers * prefills,
+            "decode_attention": cfg.n_layers * steps}
+    check(launches == want, f"serve example: launches {launches}, want {want}")
+    res = {"model": cfg.name, "layers": cfg.n_layers, "conversations": prefills,
+           "tokens": total, "decode_steps": steps, "serve_s": out["decode_s"],
+           "tokens_per_s": out["tokens_per_s"],
+           **{k: stats[k] for k in ("resident_sessions", "paged_sessions", "demotions",
+                                    "resumes", "demand_faults")},
+           "adopted": out["adopted"], **launches, "s": s}
+    emit("serve_example", **res)
+    return res
+
+
+def phase_host_examples(workdir: Path) -> dict:
+    """``quickstart`` and ``iterative_dataflow`` on the card's host, held
+    to their own invariants: every tier's WordCount output the same, the
+    S3 quota error raised, every task resumed from the PMEM journal,
+    PageRank's pinned and cold outputs identical, TeraSort globally
+    sorted."""
+    from repro_torch.examples import iterative_dataflow, quickstart
+
+    t0 = time.perf_counter()
+    qs = quickstart.main(["--journal-path", str(workdir / "quickstart_journal")])
+    qs_s = time.perf_counter() - t0
+    outputs = set(qs["outputs"].values())
+    check(len(outputs) == 1 and all(outputs),
+          f"quickstart: {len(outputs)} different outputs across the tiers")
+    check(qs["quota_error"] is not None and "transfer quota" in qs["quota_error"],
+          f"quickstart: the S3 quota error was not raised ({qs['quota_error']})")
+    check(qs["resumed_tasks"] == qs["tasks"] > 0,
+          f"quickstart: resumed {qs['resumed_tasks']} of {qs['tasks']} tasks")
+    t0 = time.perf_counter()
+    df = iterative_dataflow.main([])
+    df_s = time.perf_counter() - t0
+    check(df["pagerank_identical"], "iterative_dataflow: outputs identical: False")
+    check(df["globally_sorted"], "iterative_dataflow: globally sorted: False")
+    res = {"quickstart_tasks": qs["tasks"], "quickstart_resumed": qs["resumed_tasks"],
+           "quickstart_s": qs_s, "pagerank_iterations": df["pagerank_iterations"],
+           "kmeans_iterations": df["kmeans_iterations"],
+           "kmeans_warm_read_frac": df["warm_read_frac"],
+           "terasort_tasks": df["terasort_tasks"], "iterative_dataflow_s": df_s}
+    emit("host_examples", **res)
+    return res
 
 
 # -- phases 17-18: sharding over torch.distributed at world size 1 ------------
@@ -4848,9 +4969,15 @@ def main(argv=None) -> int:
         example = phase_train_example(dev, Path(workdir))
     free_card()
     launcher = phase_serve_launcher(dev)
+    mapreduce_ex = phase_mapreduce_example(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as workdir:
+        serve_ex = phase_serve_example(dev, args.seed, Path(workdir))
+        free_card()
+        host_ex = phase_host_examples(Path(workdir))
     emit("phase_done", name="example_and_launcher", s=time.perf_counter() - t0)
     emit("mla_moe_training", gradient_check=mla_grad, moe_determinism=moe_det,
-         example=example, serve_launcher=launcher)
+         example=example, serve_launcher=launcher, mapreduce_example=mapreduce_ex,
+         serve_example=serve_ex, host_examples=host_ex)
 
     # the dry-run CLI for phase 21 runs beside the sharding phases
     cells_run = DryrunCells(dev.type)

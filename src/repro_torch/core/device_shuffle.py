@@ -170,9 +170,17 @@ def _owner_reduce(
     owner_base: int,  # first key this owner holds
     vocab_local: int,
     value_dtype: torch.dtype,
+    unit_weights: bool = False,
 ) -> torch.Tensor:
     slot = rk.reshape(-1).long() - owner_base
     keep = (rk.reshape(-1) >= 0) & (slot >= 0) & (slot < vocab_local)
+    if unit_weights:
+        # every weight is 1: the reduce counts the kept keys, which is the
+        # histogram kernel's work (-1 counts nowhere)
+        from repro_torch.kernels import ops
+
+        return ops.shuffle_histogram(torch.where(keep, slot, -1).to(torch.int32),
+                                     vocab_local, out_dtype=value_dtype)
     out = torch.zeros((vocab_local,), dtype=value_dtype, device=rk.device)
     out.index_add_(0, slot[keep], rv.reshape(-1)[keep].to(value_dtype))
     return out
@@ -262,6 +270,7 @@ def device_histogram(
     *,
     mesh=None,
     axis: str = "data",
+    unit_weights: bool = False,
 ) -> ShuffleResult:
     """Map→shuffle→reduce entirely on the device (the Marvel/IGFS fast path).
 
@@ -281,11 +290,16 @@ def device_histogram(
     With ``spill_tier``, over-capacity pairs round-trip the host tier and
     are merged back into the counts (exact results, ``dropped == 0``) —
     the paper's fast-tier-with-slow-spill layering.
+
+    ``unit_weights=True`` is the caller's word that every weight is 1
+    (WordCount; the values are not read to check it): each owner then
+    counts its keys with the ``bucket_histogram`` kernel instead of
+    segment-summing the values, on one device and on a mesh alike.
     """
     if mesh is not None:
         return _mesh_histogram(keys, values, ndev, vocab, capacity_factor,
                                value_dtype, spill_tier, spill_key, device,
-                               mesh, axis)
+                               mesh, axis, unit_weights)
     if ndev not in (None, 1):
         raise ValueError(
             f"device_histogram over ndev={ndev} owners needs a mesh: pass "
@@ -302,7 +316,8 @@ def device_histogram(
     dest = torch.where(k >= 0, k // vocab_local, -1)
     bk, bv, dropped, ovf_k, ovf_v = _pack_impl(k, v, dest, ndev, capacity)
     # One device owns every key: the exchange hands the buffers back as is.
-    hist = _owner_reduce(bk, bv, 0, vocab_local, _torch_dtype(value_dtype))
+    hist = _owner_reduce(bk, bv, 0, vocab_local, _torch_dtype(value_dtype),
+                         unit_weights)
     itemsize = k.element_size() + v.element_size()
     n_valid = int((k >= 0).sum())
     n_dropped = int(dropped)
@@ -325,7 +340,8 @@ def device_histogram(
 
 
 def _mesh_histogram(keys, values, ndev, vocab, capacity_factor, value_dtype,
-                    spill_tier, spill_key, device, mesh, axis) -> ShuffleResult:
+                    spill_tier, spill_key, device, mesh, axis,
+                    unit_weights) -> ShuffleResult:
     """``device_histogram`` across the ranks of ``mesh``'s ``axis``: the
     steps of the reference's ``shard_fn``, with the collectives written
     out over the axis's process group."""
@@ -351,7 +367,7 @@ def _mesh_histogram(keys, values, ndev, vocab, capacity_factor, value_dtype,
     dist.all_to_all_single(rk, bk, group=group)
     dist.all_to_all_single(rv, bv, group=group)
     hist = _owner_reduce(rk, rv, me * vocab_local, vocab_local,
-                         _torch_dtype(value_dtype))
+                         _torch_dtype(value_dtype), unit_weights)
     total_dropped = dropped.reshape(1).to(torch.int64)
     dist.all_reduce(total_dropped, op=dist.ReduceOp.SUM, group=group)
     for a in mesh.mesh_dim_names:  # replicate over the other axes, as pmean/pmax do

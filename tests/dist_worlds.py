@@ -37,6 +37,8 @@ MESHES = {
     "d1m2": ((1, 2), ("data", "model")),
 }
 HIST_MESHES = ("d2", "d4", "d2m2")
+#: the cases whose every weight is 1, run again with ``unit_weights=True``
+UNIT_CASES = ("uniform", "odd_n", "drop", "empty")
 #: the port's worlds: size -> the meshes built over it
 WORLDS = {1: ("d1", "d1m1"), 2: ("d1m2", "d2"), 4: ("d4", "d2m2", "d1m4")}
 #: MoE cases on the (2, 2) mesh: (path, capacity factor, zero1)
@@ -208,6 +210,7 @@ def _world(rank: int, world_size: int, out: str) -> None:
     from repro_torch.models.convert import to_tensor
     from repro_torch.storage import DramTier
 
+    torch.set_num_threads(1)  # one core a rank, as OMP_NUM_THREADS asks
     tag = f"r{rank}"
     with process_group(rank, world_size, os.path.join(out, f"rdzv{world_size}"),
                        "cpu"):
@@ -226,6 +229,14 @@ def _world(rank: int, world_size: int, out: str) -> None:
                      dropped=res.dropped, shuffled_bytes=res.shuffled_bytes,
                      buffer_bytes=res.buffer_bytes, spilled=res.spilled,
                      spilled_bytes=res.spilled_bytes)
+                if case in UNIT_CASES:  # each owner counts with bucket_histogram
+                    res = device_histogram(
+                        shard(keys, ndev, me), shard(vals, ndev, me), vocab=VOCAB,
+                        mesh=mesh, unit_weights=True, **kw)
+                    save(out, f"port_hist_unit_{m}_{case}_{tag}", counts=res.counts,
+                         dropped=res.dropped, shuffled_bytes=res.shuffled_bytes,
+                         buffer_bytes=res.buffer_bytes, spilled=res.spilled,
+                         spilled_bytes=res.spilled_bytes)
                 if m == "d1":  # today's one-device call on the same keys
                     res = device_histogram(keys, vals, 1, vocab=VOCAB, device="cpu",
                                            spill_tier=DramTier() if spill else None,
@@ -327,7 +338,10 @@ def _world(rank: int, world_size: int, out: str) -> None:
 
 
 def run_port(out: str) -> None:
+    import torch
     import torch.multiprocessing as mp
+
+    torch.set_num_threads(1)
 
     for size in WORLDS:
         mp.start_processes(_world, args=(size, out), nprocs=size, join=True,

@@ -249,7 +249,10 @@ def run_port(out: str) -> None:
     """Every world at once, the one-process runs in two more processes."""
     from concurrent.futures import ThreadPoolExecutor
 
+    import torch
     import torch.multiprocessing as mp
+
+    torch.set_num_threads(1)  # the launcher's threads run here
 
     worlds = [mp.start_processes(_world, args=(n, out), nprocs=n, join=False,
                                  start_method="spawn") for n in (4, 2)]

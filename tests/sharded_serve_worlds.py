@@ -336,6 +336,8 @@ def run_port(out: str) -> None:
     one-process runs in two more processes."""
     import torch.multiprocessing as mp
 
+    _threads()
+
     procs = [mp.start_processes(_world, args=(n, part, parts, out), nprocs=n,
                                 join=False, start_method="spawn")
              for n, parts in ((4, 2), (2, 1)) for part in range(parts)]

@@ -348,7 +348,10 @@ def run_port(out: str) -> None:
     the launcher's checkpoints."""
     from concurrent.futures import ThreadPoolExecutor
 
+    import torch
     import torch.multiprocessing as mp
+
+    torch.set_num_threads(1)  # the launcher's threads run here
 
     world4 = mp.start_processes(_world4, args=(out,), nprocs=4, join=False,
                                 start_method="spawn")

@@ -3,7 +3,9 @@ many host devices.
 
 No process group is made in the test process.  A module fixture draws the
 MoE parameters with the reference, then runs ``tests/dist_worlds.py``
-twice, at once, each in a fresh subprocess with a timeout: the reference
+twice, at once under the world lock (``tests/world_lock.py``: one world
+on the host at a time), each in a fresh session killed whole if it
+uses more than CPU_LIMIT CPU seconds or hangs: the reference
 side (``shard_map`` over 4 forced host devices) and the port side (gloo
 worlds of 1, 2 and 4 ranks, spawned, meeting through a rendezvous file,
 ``OMP_NUM_THREADS=1``).  Each writes every result of every case as
@@ -16,7 +18,9 @@ worlds of 1, 2 and 4 ranks, spawned, meeting through a rendezvous file,
   empty input.  On the (2, 2) mesh the reference's ``pmean`` over
   "model" turns int32 counts into f32; the port keeps the accumulator's
   type, so there the values are held equal and the types are not.  The
-  1-rank mesh gives the bytes of the one-device call.
+  1-rank mesh gives the bytes of the one-device call.  With
+  ``unit_weights=True`` (each owner counts with ``bucket_histogram``)
+  every rank's result is the segment-sum call's, bytes and fields.
 - ``moe_apply_a2a`` and ``moe_apply_gather`` on a (2, 2) mesh: reduced
   deepseek-v2-lite-16b (8 experts, top-2) in f32 at capacity factors 16
   and 0.5, ``zero1`` both ways: outputs within 2e-4 of the reference's
@@ -31,10 +35,6 @@ worlds of 1, 2 and 4 ranks, spawned, meeting through a rendezvous file,
 """
 
 import os
-import signal
-import subprocess
-import sys
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -45,6 +45,7 @@ import pytest
 import torch
 
 import dist_worlds as dw
+from world_lock import run_sides
 from repro.configs import get_config as jget_config
 from repro.models import init_params as jinit_params
 from repro.models import moe as jmoe
@@ -57,25 +58,8 @@ from repro_torch.models import (
 from repro_torch.models.convert import to_tensor
 
 ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 120
+CPU_LIMIT = 240  # CPU s a side may use; the most a side used was 54 (world_lock.py)
 TOL = 2e-4
-
-
-def _run(side: str, out: Path, env: dict) -> str:
-    """``dist_worlds.py side out`` in a fresh session, killed with every
-    process it started if it outlives TIMEOUT."""
-    proc = subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "dist_worlds.py"), side, str(out)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True)
-    try:
-        log, _ = proc.communicate(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise
-    assert proc.returncode == 0, f"{side} side failed:\n{log[-4000:]}"
-    return log
 
 
 @pytest.fixture(scope="module")
@@ -90,11 +74,8 @@ def out(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                JAX_PLATFORMS="cpu")
     ref_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    with ThreadPoolExecutor(2) as pool:
-        runs = [pool.submit(_run, "reference", out, ref_env),
-                pool.submit(_run, "port", out, env)]
-        for r in runs:
-            r.result()
+    run_sides(ROOT / "tests" / "dist_worlds.py", out,
+              [("reference", ref_env), ("port", env)], CPU_LIMIT)
     return out
 
 
@@ -137,6 +118,21 @@ def test_device_histogram_one_rank_mesh_is_the_one_device_call(out, case):
     assert mesh["counts"].tobytes() == one["counts"].tobytes()
     for f in FIELDS:
         assert int(mesh[f]) == int(one[f]), f
+
+
+@pytest.mark.parametrize("case", dw.UNIT_CASES)
+@pytest.mark.parametrize("mesh", dw.HIST_MESHES + ("d1",))
+def test_device_histogram_unit_weights_across_ranks_is_the_segment_sum(out, mesh, case):
+    """``unit_weights=True``: each owner counts its keys with
+    ``bucket_histogram``; every rank's result equals, bytes and fields, the
+    segment-sum call that the test above holds to the reference."""
+    for r in _ranks(mesh):
+        got = _load(out, f"port_hist_unit_{mesh}_{case}_r{r}")
+        want = _load(out, f"port_hist_{mesh}_{case}_r{r}")
+        assert got["counts"].dtype == want["counts"].dtype
+        assert got["counts"].tobytes() == want["counts"].tobytes()
+        for f in FIELDS:
+            assert int(got[f]) == int(want[f]), (f, r)
 
 
 def _port_dense(out, cf: float, T: int = 8):

@@ -3,8 +3,10 @@
 ``repro/launch/dryrun.py``, ``hlo_analysis.py`` and ``hillclimb.py``.
 
 No process group is made in the test process.  A module fixture runs
-``tests/dryrun_worlds.py`` twice, at once, each in a fresh session killed
-whole after TIMEOUT: the port side (a gloo world of 4 and a fake world of
+``tests/dryrun_worlds.py`` twice, at once under the world lock
+(``tests/world_lock.py``: one world on the host at a time), each in a
+fresh session killed whole if it uses more than CPU_LIMIT CPU seconds or
+hangs: the port side (a gloo world of 4 and a fake world of
 4 counting the reduced qwen2.5-3b train step on rank 0, and the
 reference test's cells of ``tests/test_dryrun.py`` traced at full width
 on fake CPU tensors, each in a fake world of 256 or 512) and the
@@ -20,10 +22,6 @@ of the gloo world's rank 0, kind by kind.
 
 import json
 import os
-import signal
-import subprocess
-import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import pytest
@@ -31,6 +29,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 import dryrun_worlds as dw
+from world_lock import run_sides
 from repro.configs import get_config as jget_config
 from repro.configs.shapes import SHAPES as JSHAPES
 from repro.configs.shapes import skip_reason as jskip_reason
@@ -48,23 +47,7 @@ from repro_torch.models import ShapeConfig, init_params, model_defs, reduced_for
 from repro_torch.optim import adamw_init
 
 ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 240  # a side takes ~15 s alone; pytest-xdist may run 6 files at once
-
-
-def _run(side: str, out: Path, env: dict) -> None:
-    """``dryrun_worlds.py side out`` in a fresh session, killed with every
-    process it started if it outlives TIMEOUT."""
-    proc = subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "dryrun_worlds.py"), side, str(out)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True)
-    try:
-        log, _ = proc.communicate(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise
-    assert proc.returncode == 0, f"{side} side failed:\n{log[-4000:]}"
+CPU_LIMIT = 240  # CPU s a side may use; the most a side used was 54 (world_lock.py)
 
 
 @pytest.fixture(scope="module")
@@ -73,11 +56,8 @@ def out(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                JAX_PLATFORMS="cpu")
     ref_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=512")
-    with ThreadPoolExecutor(2) as pool:
-        runs = [pool.submit(_run, "port", out, env),
-                pool.submit(_run, "reference", out, ref_env)]
-        for r in runs:
-            r.result()
+    run_sides(ROOT / "tests" / "dryrun_worlds.py", out,
+              [("port", env), ("reference", ref_env)], CPU_LIMIT)
     return out
 
 

@@ -4,8 +4,10 @@ step and against the port's own one-process step.
 
 No process group is made in the test process.  A module fixture draws
 each variant's initial parameters, then runs
-``tests/sharded_mixers_worlds.py`` twice, at once, each in a fresh
-session killed whole after TIMEOUT: the reference side (its jitted
+``tests/sharded_mixers_worlds.py`` twice, at once under the world lock
+(``tests/world_lock.py``: one world on the host at a time), each in a
+fresh session killed whole if it uses more than CPU_LIMIT CPU seconds or
+hangs: the reference side (its jitted
 sharded step on 4 forced host devices) and the port side (gloo worlds of
 1, 2 and 4 ranks, the one-process runs and the launcher on a mesh).
 Every step computes in f32 on both sides, from weights drawn as the
@@ -44,10 +46,6 @@ with no balance loss.
 import importlib.util
 import json
 import os
-import signal
-import subprocess
-import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -55,6 +53,7 @@ import pytest
 import torch
 
 import sharded_mixers_worlds as mw
+from world_lock import run_sides
 from repro_torch.configs import get_config
 from repro_torch.models import reduced_for_smoke
 from repro_torch.tree import tree_leaves
@@ -63,24 +62,7 @@ ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
-TIMEOUT = 240  # a side takes ~40 s alone; pytest-xdist may run 6 files at once
-
-
-def _run(side: str, out: Path, env: dict) -> str:
-    """``sharded_mixers_worlds.py side out`` in a fresh session, killed with
-    every process it started if it outlives TIMEOUT."""
-    proc = subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "sharded_mixers_worlds.py"), side,
-         str(out)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, start_new_session=True)
-    try:
-        log, _ = proc.communicate(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise
-    assert proc.returncode == 0, f"{side} side failed:\n{log[-4000:]}"
-    return log
+CPU_LIMIT = 900  # CPU s a side may use; the most a side used was 224 (world_lock.py)
 
 
 def _draw(variant: str) -> list:
@@ -108,11 +90,8 @@ def out(tmp_path_factory):
     ref_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                    "--xla_backend_optimization_level=0 "
                    "--xla_llvm_disable_expensive_passes=true")
-    with ThreadPoolExecutor(2) as pool:
-        runs = [pool.submit(_run, "reference", out, ref_env),
-                pool.submit(_run, "port", out, env)]
-        for r in runs:
-            r.result()
+    run_sides(ROOT / "tests" / "sharded_mixers_worlds.py", out,
+              [("reference", ref_env), ("port", env)], CPU_LIMIT)
     return out
 
 

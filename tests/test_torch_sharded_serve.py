@@ -6,8 +6,10 @@ combine of per-block partial attentions.
 No process group is made in the test process.  A module fixture draws
 each variant's f32 parameters as the card's training phases draw theirs
 (``chip_smoke._draw_train_params``), then runs
-``tests/sharded_serve_worlds.py`` twice, at once, each in a fresh session
-killed whole after TIMEOUT: the reference side (its jitted steps on 4
+``tests/sharded_serve_worlds.py`` twice, at once under the world lock
+(``tests/world_lock.py``: one world on the host at a time), each in a
+fresh session killed whole if it uses more than CPU_LIMIT CPU seconds or
+hangs: the reference side (its jitted steps on 4
 forced host devices) and the port side (gloo worlds of 1, 2 and 4 ranks
 and the one-process runs).  Every case prefills 4 prompts of 20 tokens
 into a cache of 40 rows (39 in the ``odd`` cases, which no TP size
@@ -29,10 +31,6 @@ logits and of every unsharded cache leaf:
 import importlib.util
 import math
 import os
-import signal
-import subprocess
-import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -42,6 +40,7 @@ import pytest
 import torch
 
 import sharded_serve_worlds as sv
+from world_lock import run_sides
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_torch
 from repro_torch.models import reduced_for_smoke
@@ -53,24 +52,7 @@ ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
-TIMEOUT = 240  # a side takes ~60 s alone; pytest-xdist may run 6 files at once
-
-
-def _run(side: str, out: Path, env: dict) -> str:
-    """``sharded_serve_worlds.py side out`` in a fresh session, killed with
-    every process it started if it outlives TIMEOUT."""
-    proc = subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "sharded_serve_worlds.py"), side,
-         str(out)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, start_new_session=True)
-    try:
-        log, _ = proc.communicate(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise
-    assert proc.returncode == 0, f"{side} side failed:\n{log[-4000:]}"
-    return log
+CPU_LIMIT = 480  # CPU s a side may use; the most a side used was 108 (world_lock.py)
 
 
 @pytest.fixture(scope="module")
@@ -86,11 +68,8 @@ def out(tmp_path_factory):
     ref_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                    "--xla_backend_optimization_level=0 "
                    "--xla_llvm_disable_expensive_passes=true")
-    with ThreadPoolExecutor(2) as pool:
-        runs = [pool.submit(_run, "reference", out, ref_env),
-                pool.submit(_run, "port", out, env)]
-        for r in runs:
-            r.result()
+    run_sides(ROOT / "tests" / "sharded_serve_worlds.py", out,
+              [("reference", ref_env), ("port", env)], CPU_LIMIT)
     return out
 
 

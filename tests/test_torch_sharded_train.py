@@ -4,7 +4,9 @@ sharded step and against the port's own one-process step.
 No process group is made in the test process.  A module fixture draws
 each configuration's initial parameters with the reference and writes a
 reference checkpoint, then runs ``tests/sharded_train_worlds.py`` twice,
-at once, each in a fresh session killed whole after TIMEOUT: the
+at once under the world lock (``tests/world_lock.py``: one world on
+the host at a time), each in a fresh session killed whole if it uses
+more than CPU_LIMIT CPU seconds or hangs: the
 reference side (its jitted FSDP×TP step on 4 forced host devices) and the
 port side (gloo worlds of 1, 2 and 4 ranks, spawned, meeting through
 rendezvous files, ``OMP_NUM_THREADS=1``).  Every step computes in f32 on
@@ -27,10 +29,6 @@ Tolerances, each with its reason:
 
 import json
 import os
-import signal
-import subprocess
-import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -40,6 +38,7 @@ import pytest
 import torch
 
 import sharded_train_worlds as sw
+from world_lock import run_sides
 from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import get_config as jget_config
 from repro.models import init_params as jinit_params
@@ -61,24 +60,7 @@ from repro_torch.storage import CheckpointManager, PmemTier
 from repro_torch.tree import tree_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 240  # a side takes ~25 s alone; pytest-xdist may run 6 files at once
-
-
-def _run(side: str, out: Path, env: dict) -> str:
-    """``sharded_train_worlds.py side out`` in a fresh session, killed with
-    every process it started if it outlives TIMEOUT."""
-    proc = subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "sharded_train_worlds.py"), side,
-         str(out)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, start_new_session=True)
-    try:
-        log, _ = proc.communicate(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise
-    assert proc.returncode == 0, f"{side} side failed:\n{log[-4000:]}"
-    return log
+CPU_LIMIT = 600  # CPU s a side may use; the most a side used was 155 (world_lock.py)
 
 
 def _ref_checkpoint(out: Path) -> list:
@@ -112,11 +94,8 @@ def out(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                JAX_PLATFORMS="cpu")
     ref_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    with ThreadPoolExecutor(2) as pool:
-        runs = [pool.submit(_run, "reference", out, ref_env),
-                pool.submit(_run, "port", out, env)]
-        for r in runs:
-            r.result()
+    run_sides(ROOT / "tests" / "sharded_train_worlds.py", out,
+              [("reference", ref_env), ("port", env)], CPU_LIMIT)
     return out
 
 
