@@ -155,12 +155,19 @@ another sm_90a card).  It builds the port's CUDA kernels from
    over 4160 tokens, T=1000, f32, f16 with a window at dh 64 and at dh
    256 over 333 tokens, and 1000 queries over 1536 keys not causal with
    a softcap (TMA's rows past Tq); bf16 and f16 take the tensor-core
-   route at every head dim, f32 the CUDA-core one; times the backward
+   route at every head dim, f32 the 3xTF32 one (``tf32x3``); times the backward
    at the training shape (event and device ms) beside SDPA's forward and
    backward, the plain version
-   and its bounds, and the forward at T=4096; times the f32 route
-   (``cuda_cores``) at the ``f32_route`` case's shape the same way, its
-   bound at the TF32 peak; then ``loss.backward()`` of qwen2.5-3b at full
+   and its bounds, and the forward at T=4096; holds the f32 route
+   (``tf32x3``) forward and backward at every pair of head dims (dh 64
+   ragged, dh 256 with a window, dh 128 with a softcap not causal over
+   more keys than queries, MLA's (192, 128) ragged; forward 2e-5,
+   backward 1e-4, each backward run twice for the same bits); times both
+   f32 routes at the ``f32_route`` case's shape the same way
+   (``flash_f32_path_shape``, ``flash_bwd_f32_shape``: event and device
+   ms, the bound at the TF32 peak, SDPA's f32 calls and their backend, the
+   plain versions) and the f32 decode route at the qwen decode shape
+   (``decode_f32_path_shape``); then ``loss.backward()`` of qwen2.5-3b at full
    width cut to 2 layers (one sequence of 1024, f32, remat "full")
    through the kernels and through the plain versions, each parameter's
    gradient within relative L2 1e-3; then trains qwen2.5-3b at full width
@@ -206,7 +213,7 @@ another sm_90a card).  It builds the port's CUDA kernels from
    for the same bits: deepseek-v2-lite-16b's training shape (B=1, T=4096,
    16 heads over 16, causal, scale 1/√192, bf16), T=1000, T=1 (where dq
    and dk cancel to 0 in exact arithmetic: held against the norm of the
-   cancelling terms), f16, f32 (route ``cuda_cores``) and 1000 queries
+   cancelling terms), f16, f32 (route ``tf32x3``) and 1000 queries
    over 1536 keys not causal (relative L2 <= 2e-2 for bf16/f16, 1e-4 for
    f32; bf16/f16 on route ``wgmma``), and a q view whose strides TMA
    cannot take must raise ``ValueError``; times it at the training shape
@@ -326,9 +333,8 @@ another sm_90a card).  It builds the port's CUDA kernels from
    kernel, the SSD backward three.
 
 The build prints ptxas's registers, shared memory and spills for every
-kernel, and fails if a flash forward, decode, SSD forward or SSD backward
-kernel, or one of the flash backward's tensor-core kernels, spills (the
-flash backward's f32 CUDA-core kernels are printed, not held to it).  The serving
+kernel, and fails if a flash forward or backward, decode, SSD forward or
+SSD backward kernel spills.  The serving
 phases' profiles also read one prefill's device time and the flash and
 SSD kernels' shares of it, and a decode step's launches and decode
 kernels.
@@ -952,9 +958,10 @@ def flash_inputs(g, dev, B, T, H, Kv, dh, dtype, Tk=None, dv=None):
             _randn(g, (B, Tk, Kv, dh if dv is None else dv), dtype, dev))
 
 
-#: the flash kernel's route by input type: tensor cores for bf16/f16
+#: the flash kernel's route by input type: wgmma for bf16/f16, 3xTF32 on
+#: mma.sync for f32
 FLASH_ROUTE = {torch.bfloat16: "wgmma", torch.float16: "wgmma",
-               torch.float32: "f32"}
+               torch.float32: "tf32x3"}
 
 
 def flash_case(rec: AttnRecord, case: str, q, k, v, **kw) -> None:
@@ -1380,7 +1387,7 @@ def measure_flash(q, k, v, kw) -> dict:
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
         enable_gqa=True, scale=kw.get("scale"))
-    library_ms = library_device = None
+    library_ms = library_device = backend = None
     if kw.get("softcap") is None:
         try:
             sdpa()
@@ -1389,6 +1396,8 @@ def measure_flash(q, k, v, kw) -> dict:
                  error=str(exc)[:160])
         else:
             library_ms, library_device = time_ms(sdpa), device_ms(sdpa)
+            backend = sdpa_backend(qt, kt, vt, mask, causal and mask is None,
+                                   kw.get("scale"))
     kernel_ms = time_ms(flash)
     dev_ms, per_call, names, lost = device_profile(flash)
     plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v, **kw), reps=5)
@@ -1399,10 +1408,23 @@ def measure_flash(q, k, v, kw) -> dict:
         "kernel_route": fa._plan(q, k, v).route,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "device_ms": dev_ms, "library_device_ms": library_device,
+        "library_backend": backend,
         "launches_per_call": per_call, "kernels_seen": sorted(names),
         "window_lost": lost, "bound_ms": work.bound_ms, "bound_by": work.bound_by,
         "flops": work.flops, "bytes": work.bytes,
     }
+
+
+def sdpa_backend(qt, kt, vt, mask, is_causal: bool, scale) -> str | None:
+    """The backend SDPA picks for these (B, H, T, dh) inputs (``enable_gqa``),
+    or None where this PyTorch does not say."""
+    choice = getattr(torch, "_fused_sdp_choice", None)
+    if choice is None:
+        return None
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(choice(qt, kt, vt, mask, 0.0, is_causal, scale=scale,
+                             enable_gqa=True)).name
 
 
 def measure_decode(q, kc, vc, lengths) -> dict:
@@ -1428,7 +1450,8 @@ def measure_decode(q, kc, vc, lengths) -> dict:
     library_ms = time_ms(sdpa)
     plan = da._plan(B, S, H, Kv, q.dtype, da._sm_count(q.get_device()))
     dev_ms, per_call, names, lost = device_profile(decode)
-    check(per_call == 1 and all("decode_mma_kernel" in n for n in names),
+    check(per_call == 1 and all("decode_mma_kernel" in n or "decode_f32_kernel" in n
+                                for n in names),
           f"decode_attention made {per_call} launches a call, of {names}: "
           "want one of its own kernel")
     work = kernel_work("decode_attention", q, kc, vc, lengths,
@@ -1830,7 +1853,7 @@ def profile_decode(params, cfg, tokens, prompt_len: int, max_tokens: int,
                        if e.device_type == torch.autograd.DeviceType.CUDA]
     prefill_device_ms = sum(e.self_device_time_total for e in prefill_kernels) / 1e3
     flash = [e for e in prefill_kernels if "flash_wgmma_kernel" in e.key
-             or "flash_f32_kernel" in e.key]
+             or "flash_tf32_kernel" in e.key]
     ssd = [e for e in prefill_kernels if "ssd_chunk_kernel" in e.key]
     step_ms = []
     for t in range(prompt_len, prompt_len + steps):
@@ -2767,9 +2790,10 @@ class BwdRecord:
         self.checks = 0
 
 
-#: the backward kernel's route by input type: tensor cores for bf16/f16
+#: the backward kernel's route by input type: wgmma for bf16/f16, 3xTF32
+#: on mma.sync for f32
 BWD_ROUTE = {torch.bfloat16: "wgmma", torch.float16: "wgmma",
-             torch.float32: "cuda_cores"}
+             torch.float32: "tf32x3"}
 
 
 def bwd_case(rec: BwdRecord, case: str, q, k, v, do, norms=None, **kw) -> None:
@@ -2853,6 +2877,37 @@ def phase_flash_backward(dev, seed: int, rec: BwdRecord):
     bwd_case(rec, "tq_lt_tk_full", *inputs(1, 1000, 16, 2, 128, bf16, Tk=1536),
              causal=False, softcap=30.0)
     return train
+
+
+def phase_f32_flash(dev, seed: int, flash: AttnRecord, rec: BwdRecord) -> None:
+    """The f32 route (``tf32x3``) forward and backward at every pair of
+    head dims, beside the ``float32``, ``mla_float32``, ``f32_route`` and
+    ``mla_f32_route`` cases: dh 64 over a ragged T, dh 256 with a window,
+    dh 128 with a softcap, not causal, over more keys than queries, MLA's
+    (192, 128) over a ragged T, and dh 128 from views whose strides
+    16-byte copies cannot take (the 4-byte cp.async path).  The forward
+    is held to ATTN_TOL (:func:`flash_case`), the backward to BWD_TOL and
+    LSE_TOL with each call made twice for the same bits (:func:`bwd_case`)."""
+    g = torch.Generator(device=dev).manual_seed(seed + 27)
+    f32 = torch.float32
+    # (case, (B, T, H, Kv, dh, Tk, dv), options)
+    for case, (B, T, H, Kv, dh, Tk, dv), kw in (
+        ("f32_dh64_ragged", (2, 333, 8, 2, 64, None, None), {"causal": True}),
+        ("f32_dh256_window", (1, 517, 8, 2, 256, None, None),
+         {"causal": True, "window": 100}),
+        ("f32_dh128_softcap_full_Tq<Tk", (1, 200, 16, 2, 128, 333, None),
+         {"causal": False, "softcap": 30.0}),
+        ("f32_mla_ragged", (2, 333, 16, 16, 192, None, 128),
+         {"causal": True, "scale": 1 / math.sqrt(192)}),
+        ("f32_dh128_unaligned_views", (1, 200, 8, 2, 128, None, None),
+         {"causal": True}),
+    ):
+        q, k, v = flash_inputs(g, dev, B, T, H, Kv, dh, f32, Tk=Tk, dv=dv)
+        if "unaligned" in case:  # head strides of dh + 1 elements
+            q, k, v = (torch.zeros(*x.shape[:3], x.shape[3] + 1, dtype=f32, device=dev)
+                       [..., :x.shape[3]].copy_(x) for x in (q, k, v))
+        flash_case(flash, case, q, k, v, **kw)
+        bwd_case(rec, case, q, k, v, _randn(g, (B, T, H, v.shape[3]), f32, dev), **kw)
 
 
 class _PlainFlash(torch.autograd.Function):
@@ -3038,7 +3093,7 @@ GEMM_KEYS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 #: ``ssd_bwd``: their bare names would also match PyTorch's
 #: ``at::native::reduce_kernel``) and the kernels each launch makes
 KERNEL_CLASSES = (
-    ("flash_fwd", ("flash_wgmma_kernel", "flash_f32_kernel"), 1),
+    ("flash_fwd", ("flash_wgmma_kernel", "flash_tf32_kernel"), 1),
     ("flash_bwd", ("fa_bwd::",), 4),  # delta, dk/dv, dq, the group's reduce
     ("ssd_fwd", ("ssd_chunk_kernel",), 1),
     ("ssd_bwd", ("ssd_bwd::",), SSD_BWD_KERNELS_PER_CALL),
@@ -3234,12 +3289,7 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
         library_ms, library_device = time_ms(sdpa), device_ms(sdpa)
         with torch.no_grad():
             library_fwd_ms = time_ms(sdpa_fwd)
-        choice = getattr(torch, "_fused_sdp_choice", None)  # the backend it picks
-        if choice is not None:
-            from torch.nn.attention import SDPBackend
-
-            backend = SDPBackend(choice(qt, kt, vt, mask, 0.0, causal,
-                                        scale=kw.get("scale"), enable_gqa=True)).name
+        backend = sdpa_backend(qt, kt, vt, mask, causal, kw.get("scale"))
     work = kernel_work("flash_attention_bwd", q, k, v, o, do, lse,
                        causal=kw["causal"], window=window)
     flops_as_run = flash_bwd_as_run_flops(q, k, v, causal=kw["causal"], window=window)
@@ -3258,6 +3308,32 @@ def measure_flash_bwd(q, k, v, do, kw) -> dict:
         "peak_flops": work.peak, "flops": work.flops, "flops_as_run": flops_as_run,
         "bytes": work.bytes,
     }
+
+
+#: the f32 routes' timed shape: qwen2.5-3b's attention (16 heads over 2,
+#: dh 128) over 1024 tokens, causal; decode at the qwen decode path's cache
+F32_SHAPE = (1, 1024, 16, 2, 128)
+F32_DECODE_S, F32_DECODE_LEN = 1088, 1025
+
+
+def measure_f32_routes(dev, seed: int) -> tuple:
+    """The f32 routes at F32_SHAPE: the flash backward
+    (:func:`measure_flash_bwd`) and forward (:func:`measure_flash`), each
+    beside its bound at the TF32 peak and SDPA's f32 call with the backend
+    it picks, and the f32 decode route (:func:`measure_decode`, CUDA cores)
+    at one row of length F32_DECODE_LEN in a cache of F32_DECODE_S, beside
+    its bytes bound and masked SDPA.  Returns the three records."""
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(seed + 26)
+    fq, fk, fv = flash_inputs(g, dev, *F32_SHAPE, f32)
+    bwd = measure_flash_bwd(fq, fk, fv, _randn(g, fq.shape, f32, dev), {"causal": True})
+    fwd = measure_flash(fq, fk, fv, {"causal": True})
+    B, _, H, Kv, dh = F32_SHAPE
+    q = _randn(g, (B, H, dh), f32, dev)
+    kc, vc = (_randn(g, (B, F32_DECODE_S, Kv, dh), f32, dev) for _ in range(2))
+    lengths = torch.full((B,), F32_DECODE_LEN, dtype=torch.int32, device=dev)
+    decode = measure_decode(q, kc, vc, lengths)
+    return fwd, bwd, decode
 
 
 def phase_crash_restore(dev, seed: int, workdir: Path) -> dict:
@@ -3491,7 +3567,7 @@ SERVE_EXAMPLE_SEED = 31  # the serve_lm example's prompts, drawn on the card
 def phase_mla_backward(dev, seed: int, rec: BwdRecord) -> tuple:
     """The backward kernel at MLA's (192, 128), 16 heads over 16 (no GQA),
     scale 1/√192: deepseek-v2-lite-16b's training shape (T 4096, causal,
-    bf16), T 1000, T 1, f16, f32 (route ``cuda_cores``) and 1000 queries
+    bf16), T 1000, T 1, f16, f32 (route ``tf32x3``) and 1000 queries
     over 1536 keys not causal.  Returns the training shape's inputs and
     options."""
     g = torch.Generator(device=dev).manual_seed(seed + 24)
@@ -4746,14 +4822,10 @@ def main(argv=None) -> int:
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
          build_s=build_s, sources=list(_build.SOURCES))
     spills = ptxas_report(_build.build_logs)
-    # the flash backward's CUDA-core route (f32) is not held to it
     tc_spills = {fn: n for (src, fn), n in spills.items()
-                 if (src in ("flash_attention", "decode_attention", "ssd_scan",
-                             "ssd_scan_bwd")
-                     or (src == "flash_attention_bwd"
-                         and ("wgmma" in fn or "wide" in fn)))
-                 and n}
-    check(not tc_spills, f"ptxas spills in the tensor-core kernels: {tc_spills}")
+                 if src in ("flash_attention", "flash_attention_bwd",
+                            "decode_attention", "ssd_scan", "ssd_scan_bwd") and n}
+    check(not tc_spills, f"ptxas spills in the attention and SSD kernels: {tc_spills}")
     phase_first_launch_threads(dev, args.seed)
 
     rec = KernelRecord()
@@ -4872,6 +4944,7 @@ def main(argv=None) -> int:
     bwd_rec = BwdRecord()
     t0 = time.perf_counter()
     tq, tk, tv, tdo = phase_flash_backward(dev, args.seed, bwd_rec)
+    phase_f32_flash(dev, args.seed, flash_rec, bwd_rec)
     bwd_shape = measure_flash_bwd(tq, tk, tv, tdo, {"causal": True})
     emit("flash_bwd_train_shape", card=card, **bwd_shape)
     check(bwd_shape["kernel_route"] == "wgmma",
@@ -4879,20 +4952,19 @@ def main(argv=None) -> int:
     flash_train_shape = measure_flash(tq, tk, tv, {"causal": True})
     emit("flash_train_path_shape", **flash_train_shape)
     del tq, tk, tv, tdo
-    # the f32 route (CUDA cores) at the f32_route case's shape, against its
-    # bound at the TF32 peak and SDPA's f32 forward and backward
-    g = torch.Generator(device=dev).manual_seed(args.seed + 26)
-    fq, fk, fv = flash_inputs(g, dev, 1, 1024, 16, 2, 128, torch.float32)
-    bwd_f32_shape = measure_flash_bwd(fq, fk, fv, _randn(g, fq.shape, torch.float32, dev),
-                                      {"causal": True})
+    # the f32 routes (3xTF32) at the f32_route case's shape, and the f32
+    # decode route (CUDA cores)
+    f32_shape, bwd_f32_shape, decode_f32_shape = measure_f32_routes(dev, args.seed)
     emit("flash_bwd_f32_shape", card=card, **bwd_f32_shape)
-    check(bwd_f32_shape["kernel_route"] == "cuda_cores",
-          f"the f32 backward took route {bwd_f32_shape['kernel_route']}")
-    del fq, fk, fv
+    emit("flash_f32_path_shape", card=card, **f32_shape)
+    emit("decode_f32_path_shape", card=card, **decode_f32_shape)
+    check(bwd_f32_shape["kernel_route"] == f32_shape["kernel_route"] == "tf32x3",
+          f"the f32 backward and forward took routes {bwd_f32_shape['kernel_route']} "
+          f"and {f32_shape['kernel_route']}")
     free_card()
     emit("phase_done", name="flash_backward", s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    phase_grad_check(dev, args.seed)
+    grad_out = phase_grad_check(dev, args.seed)  # f32: the tf32x3 routes
     train_out = phase_training(dev, args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         phase_crash_restore(dev, args.seed, Path(workdir))
@@ -5053,7 +5125,11 @@ def main(argv=None) -> int:
              "recurrentgemma-9b_train_4k": path_row(
                  rg_fwd_shape, rg_train["launches"]["flash_attention"]),
              "deepseek-v2-lite-16b_train_4k": path_row(
-                 mla_fwd_shape, mla_train["launches"]["flash_attention"])},
+                 mla_fwd_shape, mla_train["launches"]["flash_attention"]),
+             "f32_route": {
+                 **path_row(f32_shape, grad_out["flash_attention"]),
+                 "kernel_route": f32_shape["kernel_route"],
+                 "library_backend": f32_shape["library_backend"]}},
          "training_launches": train_launches["flash_attention"],
          "training_launches_deepseek-v2-lite-16b":
              mla_train["launches"]["flash_attention"],
@@ -5096,7 +5172,7 @@ def main(argv=None) -> int:
                  "library_fwd_ms": mla_bwd_shape["library_fwd_ms"],
                  "library_backend": mla_bwd_shape["library_backend"]},
              "f32_route": {
-                 **path_row(bwd_f32_shape, 0),
+                 **path_row(bwd_f32_shape, grad_out["flash_attention_bwd"]),
                  "kernel_route": bwd_f32_shape["kernel_route"],
                  "bound_as_run_ms": bwd_f32_shape["bound_as_run_ms"],
                  "library_fwd_ms": bwd_f32_shape["library_fwd_ms"],
@@ -5116,7 +5192,9 @@ def main(argv=None) -> int:
              "recurrentgemma-9b_ring": path_row(
                  ring_shape, rg_launches["decode_attention"]),
              "dbrx-132b_2_layers": path_row(
-                 dbrx_decode, moe_launches["decode_attention"])},
+                 dbrx_decode, moe_launches["decode_attention"]),
+             "qwen2.5-3b_f32": {**path_row(decode_f32_shape, None),
+                                "kernel_route": decode_f32_shape["kernel_route"]}},
          "return_lse": decode_lse,
          "sharded_serve_launches_per_step": {
              f"{r['model']}{'_int8' if r['quant_cache'] else ''}":

@@ -15,7 +15,7 @@
 // softmax state stays in registers; query head h reads kv head
 // h / (H / Kv) in place, so no repeated copy of K/V is made.
 //
-// Two routes, chosen by the input type alone:
+// Two routes, chosen by the input type alone, both on the tensor cores:
 //
 // * bf16 / f16: the tensor-core kernel (`flash_wgmma_kernel`).  A block
 //   is NC consumer warpgroups of 64 query rows each (NC = 2 for dv 64 and
@@ -52,21 +52,49 @@
 //     warpgroup index goes through a shuffle), or ptxas serializes every
 //     wgmma; and each softmax step runs under a uniform branch of its
 //     own, or the compiler evaluates tanh and the mask for every tile.
-// * f32: `flash_f32_kernel`, f32 CUDA-core FMAs from shared memory (wgmma
-//   has no f32 inputs, and TF32 would not hold the f32 tolerance).
+// * f32 ("tf32x3"): `flash_tf32_kernel`, on the tensor cores in 3xTF32
+//   (mma.sync m16n8k8; tf32.h).  wgmma takes TF32 only with both operands
+//   K-major in shared memory, which P.V's V is not, and one TF32 product
+//   would not hold the f32 tolerance; three do: each f32 operand is split
+//   in registers into its TF32 high part and the TF32 cut of the rest, and
+//   lo.hi + hi.lo + hi.hi are summed in f32.
+//   - A block owns 64 query rows of one (batch, head), the heaviest causal
+//     tiles first, 16 rows a warp.  Q stays in shared memory; K and V tiles
+//     stream through a two-stage cp.async ring (16-byte copies where the
+//     bases and strides allow, else 4-byte).  Two groups of 4 warps walk
+//     32 keys each of every 64-key tile, each with a softmax state of its
+//     own, folded at the end: the last q tiles' walk, which bounds the
+//     kernel at the training and prefill shapes (every block is resident
+//     at once), takes half as long.  At dh 256, 32-key tiles.
+//     Row strides of head dim + 4 floats keep every fragment read on 32
+//     banks.
+//   - S = Q.K^T: both operands by ldmatrix (rows along the head dim), split
+//     at fragment load.  The online softmax is the tensor-core route's, in
+//     f32 registers: a lane owns rows g and g + 8, the row max and sum go
+//     over the quad by two shuffles, the softcap and the masks act on the
+//     tiles that cross them, and tiles no row of a warp sees are skipped.
+//   - O += P.V without a shuffle or a trip through shared memory: the m16n8
+//     accumulator holds keys 2t, 2t + 1 of its 8, and the A fragment wants
+//     k positions t, t + 4; as the product sums over keys, k position t
+//     stands for key 2t and t + 4 for key 2t + 1, V's B fragment is read in
+//     that order (rows 2t and 2t + 1), and the exponentiated accumulators
+//     are P's A fragments as they are.
+//   The layout is free: any base and strides with the head dim contiguous.
 //
-// TMA's rules bind the tensor-core route: every base address 16-byte
+// TMA's rules bind the bf16/f16 route: every base address 16-byte
 // aligned, every batch/token/head stride a multiple of 16 bytes, the head
 // dim contiguous.  The wrapper raises on anything else.
 //
 // Arithmetic (both routes): q.k in f32, times `scale`, then
 // softcap * tanh(s / softcap), then the mask; p = exp(s - m) in f32; the
 // output is acc / max(l, 1e-30), rounded to the input type.  The
-// tensor-core route rounds p to the input type before p.v.
+// bf16/f16 route rounds p to the input type before p.v.
 //
 // What bounds it: 2 * Tq * Tk * (dqk + dv) * H operations (about half when
 // causal) against reading q, k, v and writing o once: at the prefill's
-// shapes the tensor cores' rate.  At the qwen2.5-3b prefill's shape
+// shapes the tensor cores' rate, for f32 the TF32 peak (495 TFLOP/s on an
+// H100 SXM; the f32 route runs each product three times, so its as-run
+// bound is three times that).  At the qwen2.5-3b prefill's shape
 // (B=1, T=1024, H=16, dh=128) the kernel is held back by the latency of
 // one warpgroup's chain of tiles: the block with q tiles 0 and 15 runs 16
 // key tiles on one warpgroup, most of them with its partner idle, about
@@ -87,18 +115,6 @@ namespace {
 
 constexpr float kMask = -1e30f;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 struct Args {
   const void* q;
   const void* k;
@@ -114,6 +130,7 @@ struct Args {
   float softcap;  // <= 0: off
   int causal;
   int window;  // <= 0: none
+  int vec;     // f32 route: q, k, v bases and strides 16-byte aligned (cp.async 16)
 };
 
 // The kv range [begin, end) a q tile of rows [q0, q0 + rows) can see.
@@ -123,189 +140,244 @@ __device__ __forceinline__ void kv_range(const Args& a, int q0, int rows,
   *begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
 }
 
-// -- the f32 route: CUDA-core FMAs -------------------------------------------
+// -- the f32 route: 3xTF32 on mma.sync -----------------------------------------
 
-constexpr int kF32Threads = 128;  // 4 warps
-constexpr int kF32BlockK = 32;    // keys per tile: one per lane in the softmax
+constexpr int kF32BlockQ = 64;  // query rows a block: 4 warps of 16
 
-// Shared memory, in floats: Q tile (BQ x (DQK+1)), K tile (BK x (DQK+1)),
-// V tile (BK x DV), scores/probabilities (BQ x (BK+1)), and the per-row
-// rescale factor (BQ).  The +1 pads make the column walks of the score
-// product hit 32 distinct banks.
-template <int DQK, int DV, int BQ>
-constexpr int f32_smem_floats() {
-  return BQ * (DQK + 1) + kF32BlockK * (DQK + 1) + kF32BlockK * DV +
-         BQ * (kF32BlockK + 1) + BQ;
-}
-template <int DQK, int DV, int BQ>
-__global__ void __launch_bounds__(kF32Threads)
-    flash_f32_kernel(const Args a) {
-  static_assert(DQK % 32 == 0 && DV % 32 == 0,
-                "head dims must be multiples of 32");
-  static_assert(BQ % 16 == 0, "q tile must be a multiple of 16");
-  constexpr int RPT = BQ / 16;      // score rows per thread
-  constexpr int ROWS_W = BQ / 4;    // softmax / output rows per warp
-  constexpr int COLS = DV / 32;     // output columns per lane
-  constexpr int QS = DQK + 1;       // padded row strides
-  constexpr int KS = DQK + 1;
-  constexpr int SS = kF32BlockK + 1;
+// Shared memory of an f32 block, in floats: the Q tile (64 rows), then
+// STAGES stages of a K tile and a V tile (KSPLIT * BK keys each), cp.async's
+// ring.  Every row stride is its head dim + 4 (= 4 mod 32): the eight rows
+// of an ldmatrix (Q and K) and the key-order reads of V (rows 2t and 2t +
+// 1, columns g) fall on distinct banks.  With KSPLIT 2 the ring then holds
+// the second group's o, m and l for the combine.
+template <int DQK, int DV, int BK, int KSPLIT, int STAGES>
+struct F32Layout {
+  static constexpr int QS = DQK + 4, KS = DQK + 4, VS = DV + 4;
+  static constexpr int TK = KSPLIT * BK;     // keys a stage holds
+  static constexpr int K = kF32BlockQ * QS;  // the first stage
+  static constexpr int STAGE = TK * (KS + VS);
+  static constexpr int BYTES = (K + STAGES * STAGE) * 4;
+  static_assert(KSPLIT == 1 || 4 * 32 * (DV / 2 + 4) <= STAGES * STAGE,
+                "the ring holds a group's o, m and l");
+};
 
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * QS;
-  float* sV = sK + kF32BlockK * KS;
-  float* sS = sV + kF32BlockK * DV;
-  float* sC = sS + BQ * SS;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_qt = gridDim.x;
-  const int qt = n_qt - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh % a.H;
+// A block owns one (batch, head, 64-row q tile), the heaviest causal tiles
+// first, and KSPLIT groups of 4 warps: warp w of group c takes rows 16 w ..
+// + 16 and, of each stage's KSPLIT * BK keys, keys c * BK .. + BK, with a
+// softmax state of its own.  With two groups a row's keys are walked in
+// two halves at once (the last q tiles' walk, the kernel's longest, takes
+// half as long), and the second group's state is folded into the first's
+// at the end, always in that order.
+template <int DQK, int DV, int BK, int KSPLIT, int STAGES>
+__global__ void __launch_bounds__(128 * KSPLIT)
+    flash_tf32_kernel(const Args a) {
+  using L = F32Layout<DQK, DV, BK, KSPLIT, STAGES>;
+  constexpr int NT = 128 * KSPLIT;
+  constexpr int NK = BK / 8;  // 8-key groups of a warp's keys
+  constexpr int NV = DV / 8;  // 8-column groups of the output
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = warp % 4, grp = warp / 4;
+  const int BH = a.B * a.H;
+  const int n_qt = (a.Tq + kF32BlockQ - 1) / kF32BlockQ;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / BH;  // heaviest first
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.Kv);
-  const int q0 = qt * BQ;
-
+  const int q0 = qt * kF32BlockQ;
   const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
   const float* k = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const float* v = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  float* o = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
 
-  for (int i = tid; i < BQ * DQK; i += kF32Threads) {
-    const int r = i / DQK, d = i % DQK;
-    const int row = q0 + r;
-    sQ[r * QS + d] = row < a.Tq ? q[row * a.q_st + d] : 0.f;
-  }
-
-  // kv range this q tile can see
   int k_begin, k_end;
-  kv_range(a, q0, BQ, &k_begin, &k_end);
-  const int t_begin = k_begin / kF32BlockK;
-  const int t_end = (k_end + kF32BlockK - 1) / kF32BlockK;
+  kv_range(a, q0, kF32BlockQ, &k_begin, &k_end);
+  const int t_begin = k_begin / L::TK;
+  const int n_tiles = max(0, (k_end + L::TK - 1) / L::TK - t_begin);
+  auto load_kv = [&](int it) {
+    float* st = smem + L::K + (it % STAGES) * L::STAGE;
+    const int k0 = (t_begin + it) * L::TK;
+    load_tile_async<DQK, L::TK, NT>(st, L::KS, k, a.k_st, k0, a.Tk, a.vec);
+    load_tile_async<DV, L::TK, NT>(st + L::TK * L::KS, L::VS, v, a.v_st, k0, a.Tk,
+                                   a.vec);
+  };
+  // Q lands with the first K/V tile's group
+  load_tile_async<DQK, kF32BlockQ, NT>(smem, L::QS, q, a.q_st, q0, a.Tq, a.vec);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_kv(s);
+    cp_async_commit();
+  }
 
-  // per-warp softmax state of its ROWS_W rows, one row per lane slot
-  float m_row = kMask;  // lane r < ROWS_W holds row warp*ROWS_W + r
-  float l_row = 0.f;
-  float acc[ROWS_W][COLS];
+  // warp rw owns query rows [qa, qa + 16); in the m16n8 accumulator
+  // layout a lane holds rows row0 and row1, columns 8 j + col + {0, 1} of
+  // each 8-column group j
+  const int qa = q0 + 16 * rw;
+  const int qb = qa + 15;
+  const int row0 = qa + lane / 4;
+  const int row1 = row0 + 8;
+  const int col = 2 * (lane % 4);
+  const bool capped = a.softcap > 0.f;
+  // scores to the log2 domain, as the tensor-core route does
+  const float sl = a.scale * kLog2e;
+  const bool prescaled = capped || !(sl > 0.f);
+  const float mul = prescaled ? 1.f : sl;
+  const float cap_in = a.scale / a.softcap;
+  const float cap_out = a.softcap * kLog2e;
+
+  float o[NV][4];
 #pragma unroll
-  for (int r = 0; r < ROWS_W; ++r)
+  for (int j = 0; j < NV; ++j)
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, log2 domain
+  float l0 = 0.f, l1 = 0.f;              // this lane's share of the row sums
 
-  const int rg = tid >> 3;  // score row group: rows rg*RPT + i
-  const int cg = tid & 7;   // score key columns cg + 8*j
-
-  for (int kt = t_begin; kt < t_end; ++kt) {
-    const int k0 = kt * kF32BlockK;
-    __syncthreads();  // previous tile's K/V/S fully consumed
-    for (int i = tid; i < kF32BlockK * DQK; i += kF32Threads) {
-      const int j = i / DQK, d = i % DQK;
-      const int key = k0 + j;
-      sK[j * KS + d] = key < a.Tk ? k[key * a.k_st + d] : 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + STAGES - 1 < n_tiles) load_kv(it + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // tile it (and Q) landed
+    __syncthreads();
+    const int k0 = (t_begin + it) * L::TK + grp * BK;  // this group's keys
+    // keys no row of this warp sees are skipped (warp-uniform)
+    const bool dead = (a.causal && k0 > qb) ||
+                      (a.window > 0 && qa - (k0 + BK - 1) >= a.window);
+    if (!dead) {
+      const float* sK = smem + L::K + (it % STAGES) * L::STAGE + grp * BK * L::KS;
+      const float* sV = smem + L::K + (it % STAGES) * L::STAGE + L::TK * L::KS +
+                        grp * BK * L::VS;
+      float d[1][NK][4];
+      zero(d);
+      mma3<1, NK, DQK, (DV > 128 ? 1 : 2)>(d, KRows{smem + 16 * rw * L::QS, L::QS},
+                                            KRows{sK, L::KS});
+      // softcap, the mask (only on keys that cross an edge), the new row
+      // max and exp2(s * mul - max), each step under a uniform branch
+      const bool edge = k0 + BK > a.Tk || (a.causal && k0 + BK - 1 > qa) ||
+                        (a.window > 0 && qb - k0 >= a.window);
+      if (capped) {
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[0][j][e] = cap_out * tanhf(d[0][j][e] * cap_in);
+      } else if (prescaled) {
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[0][j][e] *= sl;
+      }
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = (e & 2) ? row1 : row0;
+            const int key = k0 + 8 * j + col + (e & 1);
+            bool live = key < a.Tk;
+            if (a.causal) live = live && row >= key;
+            if (a.window > 0) live = live && row - key < a.window;
+            if (!live) d[0][j][e] = -INFINITY;
+          }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(d[0][j][0], d[0][j][1]));
+        mx1 = fmaxf(mx1, fmaxf(d[0][j][2], d[0][j][3]));
+      }
+#pragma unroll
+      for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+      }
+      // a row that has seen no key keeps max -inf: exponentiate against 0
+      const float mn0 = fmaxf(m0, mx0 * mul);
+      const float mn1 = fmaxf(m1, mx1 * mul);
+      const float z0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float z1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float c0 = ex2(m0 - z0), c1 = ex2(m1 - z1);
+      m0 = mn0;
+      m1 = mn1;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          d[0][j][e] = ex2(fmaf(d[0][j][e], mul, (e & 2) ? -z1 : -z0));
+        s0 += d[0][j][0] + d[0][j][1];
+        s1 += d[0][j][2] + d[0][j][3];
+      }
+      l0 = l0 * c0 + s0;
+      l1 = l1 * c1 + s1;
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] *= (e & 2) ? c1 : c0;
+      // O += P.V: P's accumulators are the A fragments in key order
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t pa[4];
+        acc_as_a(d[0][kk], pa);
+        mma3_pairs<NV>(o, pa, sV + 8 * kk * L::VS, L::VS);
+      }
     }
-    for (int i = tid; i < kF32BlockK * DV; i += kF32Threads) {
-      const int j = i / DV, d = i % DV;
-      const int key = k0 + j;
-      sV[j * DV + d] = key < a.Tk ? v[key * a.v_st + d] : 0.f;
+    __syncthreads();  // the stage is read before it is loaded again
+  }
+
+  if (KSPLIT == 2) {
+    // the second group's o, m and l through the ring (its loads are all
+    // consumed), folded into the first group's
+    float4* x = reinterpret_cast<float4*>(smem + L::K) + rw * (NV + 1) * 32 + lane;
+    if (grp == 1) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) x[32 * j] = make_float4(o[j][0], o[j][1], o[j][2], o[j][3]);
+      x[32 * NV] = make_float4(m0, m1, l0, l1);
     }
     __syncthreads();
-
-    // scores: RPT rows x 4 keys per thread
-    float s[RPT][4];
+    if (grp == 1) return;
+    const float4 ml = x[32 * NV];
+    const float mn0 = fmaxf(m0, ml.x), mn1 = fmaxf(m1, ml.y);
+    const float z0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float z1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float ca0 = ex2(m0 - z0), ca1 = ex2(m1 - z1);
+    const float cb0 = ex2(ml.x - z0), cb1 = ex2(ml.y - z1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 = l0 * ca0 + ml.z * cb0;
+    l1 = l1 * ca1 + ml.w * cb1;
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DQK; ++d) {
-      float qv[RPT], kv[4];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = sQ[(rg * RPT + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(cg + 8 * j) * KS + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rg * RPT + i;
-      const int qpos = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cg + 8 * j;
-        const int kpos = k0 + c;
-        float x = s[i][j] * a.scale;
-        if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
-        bool live = kpos < a.Tk;
-        if (a.causal) live = live && qpos >= kpos;
-        if (a.window > 0) live = live && qpos - kpos < a.window;
-        sS[r * SS + c] = live ? x : kMask;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: warp `warp` owns rows warp*ROWS_W .. +ROWS_W,
-    // lane = key column of the tile
-#pragma unroll
-    for (int r = 0; r < ROWS_W; ++r) {
-      const int row = warp * ROWS_W + r;
-      const float x = sS[row * SS + lane];
-      const float m_old = __shfl_sync(0xffffffffu, m_row, r);
-      const float m_new = fmaxf(m_old, warp_max(x));
-      const float p = x == kMask ? 0.f : expf(x - m_new);
-      sS[row * SS + lane] = p;
-      const float l_tile = warp_sum(p);
-      const float corr = expf(m_old - m_new);
-      if (lane == r) {
-        m_row = m_new;
-        l_row = l_row * corr + l_tile;
-      }
-      if (lane == 0) sC[row] = corr;
-    }
-    __syncwarp();
-
-    // acc = acc * corr + p . V over this warp's rows
-#pragma unroll
-    for (int r = 0; r < ROWS_W; ++r) {
-      const float c = sC[warp * ROWS_W + r];
-#pragma unroll
-      for (int cc = 0; cc < COLS; ++cc) acc[r][cc] *= c;
-    }
-#pragma unroll 4
-    for (int j = 0; j < kF32BlockK; ++j) {
-      float vv[COLS];
-#pragma unroll
-      for (int cc = 0; cc < COLS; ++cc) vv[cc] = sV[j * DV + lane + 32 * cc];
-#pragma unroll
-      for (int r = 0; r < ROWS_W; ++r) {
-        const float p = sS[(warp * ROWS_W + r) * SS + j];
-#pragma unroll
-        for (int cc = 0; cc < COLS; ++cc) acc[r][cc] = fmaf(p, vv[cc], acc[r][cc]);
-      }
+    for (int j = 0; j < NV; ++j) {
+      const float4 ob = x[32 * j];
+      o[j][0] = o[j][0] * ca0 + ob.x * cb0;
+      o[j][1] = o[j][1] * ca0 + ob.y * cb0;
+      o[j][2] = o[j][2] * ca1 + ob.z * cb1;
+      o[j][3] = o[j][3] * ca1 + ob.w * cb1;
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < ROWS_W; ++r) {
-    const int row = q0 + warp * ROWS_W + r;
-    const float l = fmaxf(__shfl_sync(0xffffffffu, l_row, r), 1e-30f);
-    if (row < a.Tq) {
-#pragma unroll
-      for (int cc = 0; cc < COLS; ++cc) {
-        o[row * a.o_st + lane + 32 * cc] = acc[r][cc] / l;
-      }
-    }
+  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
-  // lse = m + log(l); a row that saw no key gets +inf (its weights are 0)
-  if (a.lse != nullptr && lane < ROWS_W) {
-    const int row = q0 + warp * ROWS_W + lane;
-    if (row < a.Tq)
-      a.lse[(static_cast<int64_t>(b) * a.H + h) * a.Tq + row] =
-          l_row > 0.f ? m_row + logf(l_row) : INFINITY;
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // lse = (m + log2 l) ln 2; a row that saw no key gets +inf
+  if (a.lse != nullptr && col == 0) {
+    float* lrow = a.lse + (static_cast<int64_t>(b) * a.H + h) * a.Tq;
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (row0 < a.Tq)
+      lrow[row0] = m0 == -INFINITY || !(l0 > 0.f) ? INFINITY : (m0 + log2f(l0)) * kLn2;
+    if (row1 < a.Tq)
+      lrow[row1] = m1 == -INFINITY || !(l1 > 0.f) ? INFINITY : (m1 + log2f(l1)) * kLn2;
+  }
+  float* out = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = 8 * j + col;
+    if (row0 < a.Tq)
+      *reinterpret_cast<float2*>(out + row0 * a.o_st + c) =
+          make_float2(o[j][0] * inv0, o[j][1] * inv0);
+    if (row1 < a.Tq)
+      *reinterpret_cast<float2*>(out + row1 * a.o_st + c) =
+          make_float2(o[j][2] * inv1, o[j][3] * inv1);
   }
 }
 
@@ -634,35 +706,41 @@ __global__ void __launch_bounds__(TcLayout<DQK, DV, NC>::THREADS, 1)
 
 // -- host side -------------------------------------------------------------------
 
-template <int DQK, int DV, int BQ>
+template <int DQK, int DV, int BK, int KSPLIT, int STAGES>
 cudaError_t f32_launch(const Args& a, int device, cudaStream_t stream) {
-  constexpr int smem =
-      f32_smem_floats<DQK, DV, BQ>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_f32_kernel<DQK, DV, BQ>;
+  using L = F32Layout<DQK, DV, BK, KSPLIT, STAGES>;
+  static_assert(L::BYTES <= 232448, "an f32 block must fit one SM");
+  auto kernel = flash_tf32_kernel<DQK, DV, BK, KSPLIT, STAGES>;
   static PerDevice configured;  // the attribute, per kernel and device
   const cudaError_t err = configured.once(device, [&] {
     return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   });
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tq + BQ - 1) / BQ, a.B * a.H);
-  kernel<<<grid, kF32Threads, smem, stream>>>(a);
+  const int n_qt = (a.Tq + kF32BlockQ - 1) / kF32BlockQ;
+  kernel<<<n_qt * a.B * a.H, 128 * KSPLIT, L::BYTES, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The built head dims (dqk, dv): (64, 64), (128, 128), (256, 256) and
-// (192, 128); query tiles of 64 rows, 32 for dqk 256.
-cudaError_t f32_dispatch(int dqk, int dv, const Args& a, int device,
-                         cudaStream_t stream) {
-  if (dqk == 192 && dv == 128) return f32_launch<192, 128, 64>(a, device, stream);
+// The built head dims (dqk, dv) and tiles of the f32 route: 64 query rows
+// a block, two groups of 4 warps, two stages; at (64, 64), (128, 128) and
+// (192, 128) each group walks 32 keys of a 64-key K/V tile (85, 165 and
+// 213 KB of shared memory), at (256, 256) 16 of a 32-key tile (195 KB; the
+// output's 128 f32 registers a thread leave no room for more scores).
+// block_k, the keys a stage holds, is the wrapper's plan's.
+cudaError_t f32_dispatch(int dqk, int dv, int block_q, int block_k, const Args& a,
+                         int device, cudaStream_t stream) {
+  if (block_q != kF32BlockQ || block_k != (dqk == 256 ? 32 : 64))
+    return cudaErrorInvalidValue;
+  if (dqk == 192 && dv == 128) return f32_launch<192, 128, 32, 2, 2>(a, device, stream);
   if (dqk != dv) return cudaErrorInvalidValue;
   switch (dqk) {
     case 64:
-      return f32_launch<64, 64, 64>(a, device, stream);
+      return f32_launch<64, 64, 32, 2, 2>(a, device, stream);
     case 128:
-      return f32_launch<128, 128, 64>(a, device, stream);
+      return f32_launch<128, 128, 32, 2, 2>(a, device, stream);
     case 256:
-      return f32_launch<256, 256, 32>(a, device, stream);
+      return f32_launch<256, 256, 16, 2, 2>(a, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -731,8 +809,8 @@ struct Params {
   int32_t dv;  // of v and o
   int32_t causal;
   int32_t window;   // <= 0: none
-  int32_t block_q;  // tensor-core route: 128 (dh 64, 128, 192) or 64 (dh 256)
-  int32_t block_k;  // tensor-core route: 64
+  int32_t block_q;  // wgmma: 128 (dh 64, 128, 192) or 64 (dh 256); f32: 64
+  int32_t block_k;  // wgmma: 64; f32: 64, or 32 at dh 256
   float scale;
   float softcap;   // <= 0: off
   int32_t device;  // the CUDA device of q, k, v and o
@@ -756,14 +834,19 @@ extern "C" int flash_attention_launch(const Params* p, const void* q,
   if (p->Tk <= 0 || p->Kv <= 0 || p->H % p->Kv != 0 || p->device < 0 ||
       p->device >= kMaxDevices)
     return cudaErrorInvalidValue;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+  const int64_t strides = p->q_sb | p->q_st | p->q_sh | p->k_sb | p->k_st | p->k_sh |
+                          p->v_sb | p->v_st | p->v_sh;
+  const int vec = bases % 16 == 0 && strides % 4 == 0;  // f32: 4 elements
   const Args a{q,        k,        v,        o,        lse,       p->q_sb,   p->q_st,
                p->q_sh,  p->k_sb,  p->k_st,  p->k_sh,  p->v_sb,   p->v_st,
                p->v_sh,  p->o_sb,  p->o_st,  p->o_sh,  p->B,      p->Tq,
                p->Tk,    p->H,     p->Kv,    p->scale, p->softcap, p->causal,
-               p->window};
+               p->window, vec};
   switch (p->dtype) {
     case 0:
-      return f32_dispatch(p->dh, p->dv, a, p->device, stream);
+      return f32_dispatch(p->dh, p->dv, p->block_q, p->block_k, a, p->device, stream);
     case 1:
       return tc_dispatch<__nv_bfloat16>(p->dh, p->dv, p->block_q, p->block_k,
                                         a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,

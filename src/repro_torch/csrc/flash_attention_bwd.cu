@@ -116,13 +116,45 @@
 //     is rounded to the input type before dS^T (the square kernels round
 //     only dS^T), and dV's product no longer overlaps dP^T's within a
 //     warpgroup.  dq holds 96 registers of dQ and needs no change.
-// * "cuda_cores" (f32 at every pair of head dims): kernels 2 and 3 on f32
-//   CUDA-core FMAs out of shared memory (wgmma has no f32 inputs).  Tiles:
-//   64 keys x 64 query rows for D 64 and 128, 32 x 32 for D 256 and (192,
-//   128) (K and Q tiles of DQK + 1 floats a row, V and do tiles of DV + 1,
-//   the +1 pad spreading column walks over the 32 banks; P and dy tiles);
-//   256 threads; causal and window blocks skip the tiles they cannot see,
-//   the heaviest blocks first.
+// * "tf32x3" (f32 at every pair of head dims): kernels 2 and 3 on the
+//   tensor cores in 3xTF32 (mma.sync m16n8k8, tf32.h): each f32 operand
+//   split in registers into its TF32 high part and the TF32 cut of the
+//   rest, lo.hi + hi.lo + hi.hi summed in f32, as the forward's f32 route
+//   and the SSD kernels do.  wgmma takes TF32 only with its shared-memory
+//   operands K-major: dV += P^T.dO, dK += dS^T.Q and dQ += dS.K sum over
+//   the rows of dO, Q and K, which would need transposed copies, so this
+//   route uses mma.sync, whose operands come from registers.
+//   - dk/dv (`dkdv_tf32_kernel`): 4 warps of 16 keys a block (64 keys),
+//     K and V resident, Q and dO streamed by cp.async with their rows'
+//     lse2 and delta.  Keys are the M dimension: S^T = K.Q^T, P^T =
+//     exp2(S^T scale log2e - lse2), dP^T = V.dO^T, dS^T = P^T (dP^T - D)
+//     (times 1 - tanh^2 under a softcap), dV += P^T.dO, dK += dS^T.Q.  At
+//     dh 64 and 128 two such groups take 32 rows each of every 64-row q
+//     tile and sum their dk and dv at the end, which halves the first
+//     keys' walk (at T=1024 every block is resident at once, so that
+//     walk is the kernel).
+//   - dq (`dq_tf32_kernel`): 4 warps of 16 rows (64 rows), Q and dO
+//     resident with each lane's two rows' lse2 and delta in registers, K
+//     and V streamed: S = Q.K^T, dP = dO.V^T, dS, dQ += dS.K; at dh 64
+//     and 128 two groups take 32 keys each of every 64-key tile, summed
+//     at the end.
+//   - The score products read both operands by ldmatrix (rows along the
+//     head dim, as they lie in memory).  The other three take P^T, dS^T or
+//     dS from the accumulators as A fragments with no shuffle: the m16n8
+//     accumulator holds columns 2t, 2t + 1 of its 8, the A fragment k
+//     positions t, t + 4, so k position t stands for column 2t and t + 4
+//     for 2t + 1, and the B operand (dO, Q or K) is read in that order,
+//     rows 2t and 2t + 1.  No tile is transposed.
+//   - Row strides of head dim + 4 floats (= 4 mod 32) keep every fragment
+//     read on 32 banks; 16-byte cp.async where the bases and strides
+//     allow, else 4-byte, so any layout with the head dim contiguous runs.
+//   - At dh 256 and (192, 128) a dk/dv block is 8 warps: each key warp's
+//     dk and dv are split between two warps by columns, each of which
+//     makes S^T and dP^T whole (dk and dv at 256 would take 256 f32
+//     registers a thread).  Tiles at each pair: `tf32_dispatch`.
+//   - Against the bound (the TF32 peak, 495 TFLOP/s on an H100 SXM): 7
+//     products a (row, key) pair, each run three times, so the as-run
+//     bound is 3 x 7/5 of the 5 products' (PERF.md has the times).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -139,7 +171,7 @@
 
 namespace fa_bwd {
 
-constexpr int kThreads = 256;  // CUDA-core kernels: 8 warps, a 16 x 16 grid
+constexpr int kThreads = 256;  // delta_kernel: 8 warps, a row each
 constexpr int kRowPad = 128;   // the delta / lse2 buffers' row padding
 
 template <typename T>
@@ -155,21 +187,6 @@ __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
 template <>
 __device__ __forceinline__ float to_f<__half>(__half x) {
   return __half2float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
 }
 
 struct Args {
@@ -199,14 +216,8 @@ struct Args {
   float softcap;  // <= 0: off
   int causal;
   int window;  // <= 0: none
+  int vec;     // f32 route: q, k, v, do bases and strides 16-byte aligned
 };
-
-__device__ __forceinline__ bool sees(const Args& a, int row, int key) {
-  bool live = row < a.Tq && key < a.Tk;
-  if (a.causal) live = live && row >= key;
-  if (a.window > 0) live = live && row - key < a.window;
-  return live;
-}
 
 // -- 1. D = rowsum(do * o), lse * log2(e) ----------------------------------------
 
@@ -233,295 +244,409 @@ __global__ void __launch_bounds__(kThreads) delta_kernel(const Args a) {
   }
 }
 
-// -- the CUDA-core route: shared tiles ----------------------------------------
+// -- the f32 route ("tf32x3"): 3xTF32 on mma.sync ------------------------------
 
-// Shared memory of the dkdv and dq kernels, in floats: K and Q tiles of
-// DQK + 1 floats a row and V and do tiles of DV + 1 (BK rows of K and V,
-// BQ of Q and do); P and dy tiles (BQ x (BK + 1)); and the q tile's lse
-// and D (BQ each).
-template <int DQK, int DV, int BK, int BQ>
-struct Smem {
-  static constexpr int RK = DQK + 1;  // row stride of the K and Q tiles
-  static constexpr int RV = DV + 1;   // row stride of the V and do tiles
-  static constexpr int PS = BK + 1;   // row stride of the P and dy tiles
-  static constexpr int K = 0;
-  static constexpr int V = K + BK * RK;
-  static constexpr int Q = V + BK * RV;
-  static constexpr int G = Q + BQ * RK;
-  static constexpr int P = G + BQ * RV;
-  static constexpr int S = P + BQ * PS;
-  static constexpr int LSE = S + BQ * PS;
-  static constexpr int DL = LSE + BQ;
-  static constexpr int FLOATS = DL + BQ;
-  static constexpr int BYTES = FLOATS * 4;
+constexpr int kF32Rows = 64;  // keys of a dk/dv block, q rows of a dq block
+                              // (4 warps of 16)
+
+// Shared memory of dq_tf32_kernel, in floats: Q and dO resident (64 rows),
+// then STAGES stages of a K and a V tile (KSPLIT * BK rows each).  Row
+// strides are the head dims + 4 (= 4 mod 32), so that ldmatrix's eight
+// rows and the key-order reads (rows 2t and 2t + 1, columns g) fall on
+// distinct banks.
+template <int DQK, int DV, int BK, int KSPLIT, int STAGES>
+struct DqLayout {
+  static constexpr int QS = DQK + 4, GS = DV + 4, KS = DQK + 4, VS = DV + 4;
+  static constexpr int TK = KSPLIT * BK;  // keys a stage holds
+  static constexpr int G = kF32Rows * QS;
+  static constexpr int K = G + kF32Rows * GS;  // the first stage
+  static constexpr int STAGE = TK * (KS + VS);
+  static constexpr int BYTES = (K + STAGES * STAGE) * 4;
+  static_assert(KSPLIT == 1 || 4 * 32 * DQK / 2 <= STAGES * STAGE,
+                "the ring holds a group's dq");
 };
 
-// rows [r0, r0 + ROWS) of a (tokens, D) slice with token stride `st` into
-// a shared tile of row stride RS, as f32; rows at or past `n` read zeros
-template <typename T, int D, int ROWS, int RS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t st,
-                                          int r0, int n) {
-  for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int row = r0 + r;
-    dst[r * RS + d] = row < n ? to_f(src[row * st + d]) : 0.f;
-  }
-}
+// Shared memory of dkdv_tf32_kernel, in floats: K and V resident (64
+// keys), then STAGES stages of a Q and a dO tile (KSPLIT * BQ rows each)
+// with their rows' lse2 and delta.
+template <int DQK, int DV, int BQ, int KSPLIT, int STAGES>
+struct DkdvLayout {
+  static constexpr int KS = DQK + 4, VS = DV + 4, QS = DQK + 4, GS = DV + 4;
+  static constexpr int TQ = KSPLIT * BQ;          // q rows a stage holds
+  static constexpr int V = kF32Rows * KS;
+  static constexpr int Q = V + kF32Rows * VS;     // the first stage
+  static constexpr int G = TQ * QS;               // within a stage
+  static constexpr int ROWS = G + TQ * GS;        // lse2, then delta
+  static constexpr int STAGE = ROWS + 2 * TQ;
+  static constexpr int BYTES = (Q + STAGES * STAGE) * 4;
+  static_assert(KSPLIT == 1 || 4 * 32 * (DQK + DV) / 2 <= STAGES * STAGE,
+                "the ring holds a group's dk and dv");
+};
 
-// S = Q.K^T (over DQK) and dP = do.V^T (over DV) for one (q tile, kv
-// tile) pair, then P and dy into the shared P and dy tiles.  Thread (ty,
-// tx) takes rows ty + 16 i and keys tx + 16 j.  The shared columns run as
-// one loop; the rest of the wider of the two after it.
-template <int DQK, int DV, int BK, int BQ>
-__device__ __forceinline__ void scores(const Args& a, float* sm, int q0, int k0) {
-  using L = Smem<DQK, DV, BK, BQ>;
-  constexpr int RI = BQ / 16, KJ = BK / 16;
-  constexpr int DMIN = DQK < DV ? DQK : DV;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* sQ = sm + L::Q;
-  const float* sG = sm + L::G;
-  const float* sK = sm + L::K;
-  const float* sV = sm + L::V;
-  float s[RI][KJ], dp[RI][KJ];
+// P and dS in place of the m16n8 accumulators s and dp, as `grads` makes
+// them on the wgmma route: p = exp2(y log2e - lse2), ds = p (dp - delta)
+// (times 1 - tanh^2 under a softcap); element (j, e)'s lse2 and delta from
+// row_of(j, e).
+template <int NJ, typename RowOf>
+__device__ __forceinline__ void grads_tf32(float (&s)[1][NJ][4], float (&dp)[1][NJ][4],
+                                           bool capped, float sl, float cap_in,
+                                           float cap_out, RowOf row_of) {
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int j = 0; j < KJ; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DMIN; ++d) {
-    float qv[RI], gv[RI], kv[KJ], vv[KJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      qv[i] = sQ[(ty + 16 * i) * L::RK + d];
-      gv[i] = sG[(ty + 16 * i) * L::RV + d];
-    }
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      kv[j] = sK[(tx + 16 * j) * L::RK + d];
-      vv[j] = sV[(tx + 16 * j) * L::RV + d];
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll 4
-  for (int d = DMIN; d < DQK; ++d) {
-    float qv[RI], kv[KJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) qv[i] = sQ[(ty + 16 * i) * L::RK + d];
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) kv[j] = sK[(tx + 16 * j) * L::RK + d];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-  }
-#pragma unroll 4
-  for (int d = DMIN; d < DV; ++d) {
-    float gv[RI], vv[KJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) gv[i] = sG[(ty + 16 * i) * L::RV + d];
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) vv[j] = sV[(tx + 16 * j) * L::RV + d];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-  }
-  const bool capped = a.softcap > 0.f;
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = ty + 16 * i;
-    const float lse = sm[L::LSE + r];
-    const float del = sm[L::DL + r];
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      const int c = tx + 16 * j;
-      float y = s[i][j] * a.scale;
-      float t = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      float lse2, del;
+      row_of(j, e, &lse2, &del);
       if (capped) {
-        t = tanhf(y / a.softcap);
-        y = a.softcap * t;
+        const float t = tanhf(s[0][j][e] * cap_in);
+        const float p = ex2(fmaf(t, cap_out, -lse2));
+        s[0][j][e] = p;
+        dp[0][j][e] = p * (dp[0][j][e] - del) * (1.f - t * t);
+      } else {
+        const float p = ex2(fmaf(s[0][j][e], sl, -lse2));
+        s[0][j][e] = p;
+        dp[0][j][e] = p * (dp[0][j][e] - del);
       }
-      const float p = sees(a, q0 + r, k0 + c) ? expf(y - lse) : 0.f;
-      float dy = p * (dp[i][j] - del);
-      if (capped) dy *= 1.f - t * t;
-      sm[L::P + r * L::PS + c] = p;
-      sm[L::S + r * L::PS + c] = dy;
     }
+}
+
+// A warp's accumulators (N floats a lane) into `x` (shared memory all of
+// whose loads are consumed), float4 by float4 at 32 float4s a step, and
+// back added onto another warp's: the second group of warps stashes, and
+// after a __syncthreads the first folds them into its own, in that order.
+template <int N>
+__device__ __forceinline__ void stash(const float (&acc)[N / 4][4], float* x, int w,
+                                      int lane) {
+  float4* p = reinterpret_cast<float4*>(x) + w * (N / 4) * 32 + lane;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    p[32 * j] = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+}
+template <int N>
+__device__ __forceinline__ void fold(float (&acc)[N / 4][4], const float* x, int w,
+                                     int lane) {
+  const float4* p = reinterpret_cast<const float4*>(x) + w * (N / 4) * 32 + lane;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float4 b = p[32 * j];
+    acc[j][0] += b.x;
+    acc[j][1] += b.y;
+    acc[j][2] += b.z;
+    acc[j][3] += b.w;
   }
 }
 
-// -- the CUDA-core route: dk, dv per (kv tile, batch, query head) -------------
-
-template <typename T, int DQK, int DV, int BK, int BQ>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
-  using L = Smem<DQK, DV, BK, BQ>;
-  constexpr int KI = BK / 16, CQ = DQK / 16, CV = DV / 16;
-  extern __shared__ float sm[];
+// dk, dv per (64-key tile, batch, query head) into the query head's f32
+// slots.  Warp w takes keys 16 (w % 4) .. + 16; with CS column groups,
+// columns (w / 4) % CS of CS of dk and dv; with KSPLIT row groups, rows
+// (w / 4 / CS) * BQ .. + BQ of each stage's KSPLIT * BQ.  Per q tile, in
+// order: S^T = K.Q^T and dP^T = V.dO^T (K, V, Q and dO by ldmatrix; with
+// CS 2 the two column groups of a key warp each make them whole), P^T and
+// dS^T, then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T as A fragments
+// in key order and dO and Q read by rows 2t, 2t + 1.  The row groups' dk
+// and dv are summed at the end, the first's then the second's.  The first
+// keys, which see the most rows under a causal mask, run first.
+template <int DQK, int DV, int BQ, int CS, int KSPLIT, int STAGES>
+__global__ void __launch_bounds__(128 * CS * KSPLIT) dkdv_tf32_kernel(const Args a) {
+  using L = DkdvLayout<DQK, DV, BQ, KSPLIT, STAGES>;
+  constexpr int NT = 128 * CS * KSPLIT;
+  constexpr int NQ = BQ / 8;          // 8-row groups of a warp's rows
+  constexpr int WK = DQK / CS;        // columns of dk a warp holds
+  constexpr int WV = DV / CS;         // of dv
+  constexpr int UNROLL = DQK + DV > 192 ? 1 : 2;  // registers: 0 spills
+  extern __shared__ __align__(16) float sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kw = warp % 4, cg = (warp / 4) % CS, grp = warp / (4 * CS);
   const int BH = a.B * a.H;
-  const int kt = blockIdx.x / BH;  // small kv tiles first: under a causal
-  const int bh = blockIdx.x % BH;  // mask they see the most q tiles
+  const int kt = static_cast<int>(blockIdx.x) / BH;
+  const int bh = static_cast<int>(blockIdx.x) % BH;
   const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.Kv);
-  const int k0 = kt * BK;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* g = static_cast<const T*>(a.g) + b * a.g_sb + h * a.g_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  const float* lse = a.lse + static_cast<int64_t>(bh) * a.Tq;
+  const int k0 = kt * kF32Rows;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* g = static_cast<const float*>(a.g) + b * a.g_sb + h * a.g_sh;
+  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const float* lse2 = a.lse2 + static_cast<int64_t>(bh) * a.Tp;
   const float* delta = a.delta + static_cast<int64_t>(bh) * a.Tp;
 
-  load_tile<T, DQK, BK, L::RK>(sm + L::K, k, a.k_st, k0, a.Tk);
-  load_tile<T, DV, BK, L::RV>(sm + L::V, v, a.v_st, k0, a.Tk);
-
-  // the q tiles with a row that sees a key of [k0, k0 + BK)
-  const int n_qt = (a.Tq + BQ - 1) / BQ;
-  const int qt_begin = a.causal ? k0 / BQ : 0;
+  // the q tiles with a row that may see a key of [k0, k0 + 64)
+  const int n_qt = (a.Tq + L::TQ - 1) / L::TQ;
+  const int qt_begin = a.causal ? min(n_qt, k0 / L::TQ) : 0;
   int qt_end = n_qt;
-  if (a.window > 0) qt_end = min(n_qt, (k0 + BK - 2 + a.window) / BQ + 1);
+  if (a.window > 0) qt_end = min(n_qt, (k0 + kF32Rows - 2 + a.window) / L::TQ + 1);
+  const int n_it = max(0, qt_end - qt_begin);
 
-  float dk[KI][CQ], dv[KI][CV];
-#pragma unroll
-  for (int i = 0; i < KI; ++i) {
-#pragma unroll
-    for (int c = 0; c < CQ; ++c) dk[i][c] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CV; ++c) dv[i][c] = 0.f;
+  load_tile_async<DQK, kF32Rows, NT>(sm, L::KS, k, a.k_st, k0, a.Tk, a.vec);
+  load_tile_async<DV, kF32Rows, NT>(sm + L::V, L::VS, v, a.v_st, k0, a.Tk, a.vec);
+  // a stage: Q and dO rows, and the rows' lse2 and delta (padded to Tp, a
+  // multiple of TQ: past Tq lse2 +inf and delta 0, so P = dS = 0 there)
+  auto load_q = [&](int it) {
+    float* st = sm + L::Q + (it % STAGES) * L::STAGE;
+    const int q0 = (qt_begin + it) * L::TQ;
+    load_tile_async<DQK, L::TQ, NT>(st, L::QS, q, a.q_st, q0, a.Tq, a.vec);
+    load_tile_async<DV, L::TQ, NT>(st + L::G, L::GS, g, a.g_st, q0, a.Tq, a.vec);
+    const int i = static_cast<int>(threadIdx.x);
+    if (i < L::TQ / 4)
+      cp_async16(smem_addr(st + L::ROWS + 4 * i), lse2 + q0 + 4 * i, 16);
+    else if (i < L::TQ / 2)
+      cp_async16(smem_addr(st + L::ROWS + L::TQ + 4 * (i - L::TQ / 4)),
+                 delta + q0 + 4 * (i - L::TQ / 4), 16);
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_it) load_q(s);
+    cp_async_commit();
   }
 
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // the previous q tile is consumed
-    load_tile<T, DQK, BQ, L::RK>(sm + L::Q, q, a.q_st, q0, a.Tq);
-    load_tile<T, DV, BQ, L::RV>(sm + L::G, g, a.g_st, q0, a.Tq);
-    for (int r = threadIdx.x; r < BQ; r += kThreads) {
-      const bool in = q0 + r < a.Tq;
-      sm[L::LSE + r] = in ? lse[q0 + r] : INFINITY;
-      sm[L::DL + r] = in ? delta[q0 + r] : 0.f;
-    }
-    __syncthreads();
-    scores<DQK, DV, BK, BQ>(a, sm, q0, k0);
-    __syncthreads();
-    // dv += P^T do, dk += dy^T q: thread (ty, tx) owns keys ty + 16 i and
-    // columns tx + 16 c
-#pragma unroll 2
-    for (int r = 0; r < BQ; ++r) {
-      float pk[KI], sk[KI], gc[CV], qc[CQ];
+  // warp kw owns keys [ka, ka + 16): a lane holds keys key0 and key1, and
+  // q rows 8 j + col + {0, 1} of each 8-row group j of its group's rows
+  const int ka = k0 + 16 * kw;
+  const int key0 = ka + lane / 4;
+  const int key1 = key0 + 8;
+  const int col = 2 * (lane % 4);
+  const bool capped = a.softcap > 0.f;
+  const float sl = a.scale * kLog2e;
+  const float cap_in = a.scale / a.softcap;
+  const float cap_out = a.softcap * kLog2e;
+  const float* sK = sm + 16 * kw * L::KS;
+  const float* sV = sm + L::V + 16 * kw * L::VS;
+
+  float dk[WK / 8][4], dv[WV / 8][4];
 #pragma unroll
-      for (int i = 0; i < KI; ++i) {
-        pk[i] = sm[L::P + r * L::PS + ty + 16 * i];
-        sk[i] = sm[L::S + r * L::PS + ty + 16 * i];
+  for (int j = 0; j < WK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < WV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + STAGES - 1 < n_it) load_q(it + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // tile it (and K, V) landed
+    __syncthreads();
+    const int q0 = (qt_begin + it) * L::TQ + grp * BQ;  // this group's rows
+    // rows none of which sees a key of this warp's (warp-uniform)
+    const bool dead = ka >= a.Tk || (a.causal && q0 + BQ - 1 < ka) ||
+                      (a.window > 0 && q0 - (ka + 15) >= a.window);
+    if (!dead) {
+      const float* st = sm + L::Q + (it % STAGES) * L::STAGE;
+      const float* sQ = st + grp * BQ * L::QS;
+      const float* sG = st + L::G + grp * BQ * L::GS;
+      const float* lse_s = st + L::ROWS + grp * BQ;
+      const float* del_s = lse_s + L::TQ;
+      float s[1][NQ][4], dp[1][NQ][4];
+      zero(s);
+      zero(dp);
+      mma3<1, NQ, DQK, UNROLL>(s, KRows{sK, L::KS}, KRows{sQ, L::QS});
+      mma3<1, NQ, DV, UNROLL>(dp, KRows{sV, L::VS}, KRows{sG, L::GS});
+      // element (j, e): key (e & 2 ? key1 : key0), q row q0 + 8 j + col + (e & 1)
+      grads_tf32(s, dp, capped, sl, cap_in, cap_out, [&](int j, int e, float* l, float* d_) {
+        const int c = 8 * j + col + (e & 1);
+        *l = lse_s[c];
+        *d_ = del_s[c];
+      });
+      const bool edge = (a.causal && ka + 15 > q0) ||
+                        (a.window > 0 && q0 + BQ - 1 - ka >= a.window);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = (e & 2) ? key1 : key0;
+            const int row = q0 + 8 * j + col + (e & 1);
+            bool live = true;
+            if (a.causal) live = row >= key;
+            if (a.window > 0) live = live && row - key < a.window;
+            if (!live) s[0][j][e] = dp[0][j][e] = 0.f;
+          }
       }
 #pragma unroll
-      for (int c = 0; c < CV; ++c) gc[c] = sm[L::G + r * L::RV + tx + 16 * c];
-#pragma unroll
-      for (int c = 0; c < CQ; ++c) qc[c] = sm[L::Q + r * L::RK + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < KI; ++i) {
-#pragma unroll
-        for (int c = 0; c < CV; ++c) dv[i][c] = fmaf(pk[i], gc[c], dv[i][c]);
-#pragma unroll
-        for (int c = 0; c < CQ; ++c) dk[i][c] = fmaf(sk[i], qc[c], dk[i][c]);
+      for (int kk = 0; kk < NQ; ++kk) {
+        uint32_t pa[4], da[4];
+        acc_as_a(s[0][kk], pa);
+        mma3_pairs<WV / 8>(dv, pa, sG + 8 * kk * L::GS + cg * WV, L::GS);
+        acc_as_a(dp[0][kk], da);
+        mma3_pairs<WK / 8>(dk, da, sQ + 8 * kk * L::QS + cg * WK, L::QS);
       }
     }
+    __syncthreads();  // the stage is read before it is loaded again
   }
 
-  float* dkp = a.dk_part + static_cast<int64_t>(bh) * a.Tk * DQK;
-  float* dvp = a.dv_part + static_cast<int64_t>(bh) * a.Tk * DV;
+  if (KSPLIT == 2) {  // the row groups' sums, the first's then the second's
+    float* xk = sm + L::Q;
+    float* xv = xk + 4 * CS * 32 * WK / 2;
+    const int w = warp % (4 * CS);
+    if (grp == 1) {
+      stash<WK / 2>(dk, xk, w, lane);
+      stash<WV / 2>(dv, xv, w, lane);
+    }
+    __syncthreads();
+    if (grp == 1) return;
+    fold<WK / 2>(dk, xk, w, lane);
+    fold<WV / 2>(dv, xv, w, lane);
+  }
+  float* dkp = a.dk_part + static_cast<int64_t>(bh) * a.Tk * DQK + cg * WK + col;
+  float* dvp = a.dv_part + static_cast<int64_t>(bh) * a.Tk * DV + cg * WV + col;
 #pragma unroll
-  for (int i = 0; i < KI; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= a.Tk) continue;
+  for (int j = 0; j < WK / 8; ++j) {
+    if (key0 < a.Tk)
+      *reinterpret_cast<float2*>(dkp + static_cast<int64_t>(key0) * DQK + 8 * j) =
+          make_float2(dk[j][0] * a.scale, dk[j][1] * a.scale);
+    if (key1 < a.Tk)
+      *reinterpret_cast<float2*>(dkp + static_cast<int64_t>(key1) * DQK + 8 * j) =
+          make_float2(dk[j][2] * a.scale, dk[j][3] * a.scale);
+  }
 #pragma unroll
-    for (int c = 0; c < CQ; ++c)
-      dkp[static_cast<int64_t>(key) * DQK + tx + 16 * c] = dk[i][c] * a.scale;
-#pragma unroll
-    for (int c = 0; c < CV; ++c)
-      dvp[static_cast<int64_t>(key) * DV + tx + 16 * c] = dv[i][c];
+  for (int j = 0; j < WV / 8; ++j) {
+    if (key0 < a.Tk)
+      *reinterpret_cast<float2*>(dvp + static_cast<int64_t>(key0) * DV + 8 * j) =
+          make_float2(dv[j][0], dv[j][1]);
+    if (key1 < a.Tk)
+      *reinterpret_cast<float2*>(dvp + static_cast<int64_t>(key1) * DV + 8 * j) =
+          make_float2(dv[j][2], dv[j][3]);
   }
 }
 
-// -- the CUDA-core route: dq per (q tile, batch, head) ------------------------
-
-template <typename T, int DQK, int DV, int BK, int BQ>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
-  using L = Smem<DQK, DV, BK, BQ>;
-  constexpr int RI = BQ / 16, C = DQK / 16;
-  extern __shared__ float sm[];
+// dq per (64-row q tile, batch, head).  Warp w takes rows 16 (w % 4) .. +
+// 16 and, with KSPLIT key groups, keys (w / 4) * BK .. + BK of each stage's
+// KSPLIT * BK; per kv tile: S = Q.K^T and dP = dO.V^T (by ldmatrix), dS,
+// then dQ += dS.K with dS as A fragments in key order and K read by rows
+// 2t, 2t + 1.  The key groups' dq are summed at the end, the first's then
+// the second's.  Under a causal mask the last q tiles, which see the most
+// keys, run first.
+template <int DQK, int DV, int BK, int KSPLIT, int STAGES>
+__global__ void __launch_bounds__(128 * KSPLIT) dq_tf32_kernel(const Args a) {
+  using L = DqLayout<DQK, DV, BK, KSPLIT, STAGES>;
+  constexpr int NT = 128 * KSPLIT;
+  constexpr int NK = BK / 8;  // 8-key groups of a warp's keys
+  constexpr int UNROLL = DQK > 128 ? 1 : 2;  // registers: 0 spills
+  extern __shared__ __align__(16) float sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = warp % 4, grp = warp / 4;
   const int BH = a.B * a.H;
-  const int n_qt = (a.Tq + BQ - 1) / BQ;
-  // causal: the last q tiles see the most kv tiles, so they run first
+  const int n_qt = (a.Tq + kF32Rows - 1) / kF32Rows;
   const int qt = a.causal ? n_qt - 1 - static_cast<int>(blockIdx.x) / BH
                           : static_cast<int>(blockIdx.x) / BH;
-  const int bh = blockIdx.x % BH;
+  const int bh = static_cast<int>(blockIdx.x) % BH;
   const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.Kv);
-  const int q0 = qt * BQ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q0 = qt * kF32Rows;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* g = static_cast<const float*>(a.g) + b * a.g_sb + h * a.g_sh;
+  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* g = static_cast<const T*>(a.g) + b * a.g_sb + h * a.g_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-
-  load_tile<T, DQK, BQ, L::RK>(sm + L::Q, q, a.q_st, q0, a.Tq);
-  load_tile<T, DV, BQ, L::RV>(sm + L::G, g, a.g_st, q0, a.Tq);
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    const bool in = q0 + r < a.Tq;
-    sm[L::LSE + r] = in ? a.lse[static_cast<int64_t>(bh) * a.Tq + q0 + r] : INFINITY;
-    sm[L::DL + r] = in ? a.delta[static_cast<int64_t>(bh) * a.Tp + q0 + r] : 0.f;
-  }
-
-  // the kv tiles with a key that a row of [q0, q0 + BQ) sees
-  const int n_kt = (a.Tk + BK - 1) / BK;
+  // the kv tiles with a key that a row of [q0, q0 + 64) sees
+  const int n_kt = (a.Tk + L::TK - 1) / L::TK;
   int kt_end = n_kt;
-  if (a.causal) kt_end = min(n_kt, (q0 + BQ - 1) / BK + 1);
-  const int kt_begin = a.window > 0 ? max(0, q0 - a.window + 1) / BK : 0;
+  if (a.causal) kt_end = min(n_kt, (q0 + kF32Rows - 1) / L::TK + 1);
+  const int kt_begin = a.window > 0 ? max(0, q0 - a.window + 1) / L::TK : 0;
+  const int n_it = max(0, kt_end - kt_begin);
 
-  float dq[RI][C];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) dq[i][c] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous kv tile is consumed
-    load_tile<T, DQK, BK, L::RK>(sm + L::K, k, a.k_st, k0, a.Tk);
-    load_tile<T, DV, BK, L::RV>(sm + L::V, v, a.v_st, k0, a.Tk);
-    __syncthreads();
-    scores<DQK, DV, BK, BQ>(a, sm, q0, k0);
-    __syncthreads();
-    // dq += dy k: thread (ty, tx) owns rows ty + 16 i, columns tx + 16 c
-#pragma unroll 2
-    for (int j = 0; j < BK; ++j) {
-      float sr[RI], kc[C];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) sr[i] = sm[L::S + (ty + 16 * i) * L::PS + j];
-#pragma unroll
-      for (int c = 0; c < C; ++c) kc[c] = sm[L::K + j * L::RK + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c) dq[i][c] = fmaf(sr[i], kc[c], dq[i][c]);
-    }
+  load_tile_async<DQK, kF32Rows, NT>(sm, L::QS, q, a.q_st, q0, a.Tq, a.vec);
+  load_tile_async<DV, kF32Rows, NT>(sm + L::G, L::GS, g, a.g_st, q0, a.Tq, a.vec);
+  auto load_kv = [&](int it) {
+    float* st = sm + L::K + (it % STAGES) * L::STAGE;
+    const int k0 = (kt_begin + it) * L::TK;
+    load_tile_async<DQK, L::TK, NT>(st, L::KS, k, a.k_st, k0, a.Tk, a.vec);
+    load_tile_async<DV, L::TK, NT>(st + L::TK * L::KS, L::VS, v, a.v_st, k0, a.Tk,
+                                   a.vec);
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_it) load_kv(s);
+    cp_async_commit();
   }
 
-  T* out = static_cast<T*>(a.dq);
+  // warp rw owns rows [qa, qa + 16): a lane holds rows row0 and row1
+  // (their lse2 and delta in registers: the buffers are padded to Tp, past
+  // Tq +inf and 0), keys 8 j + col + {0, 1} of each 8-key group j
+  const int qa = q0 + 16 * rw;
+  const int qb = qa + 15;
+  const int row0 = qa + lane / 4;
+  const int row1 = row0 + 8;
+  const int col = 2 * (lane % 4);
+  const float* lse2 = a.lse2 + static_cast<int64_t>(bh) * a.Tp;
+  const float* delta = a.delta + static_cast<int64_t>(bh) * a.Tp;
+  const float lse0 = lse2[row0], lse1 = lse2[row1];
+  const float del0 = delta[row0], del1 = delta[row1];
+  const bool capped = a.softcap > 0.f;
+  const float sl = a.scale * kLog2e;
+  const float cap_in = a.scale / a.softcap;
+  const float cap_out = a.softcap * kLog2e;
+  const float* sQ = sm + 16 * rw * L::QS;
+  const float* sG = sm + L::G + 16 * rw * L::GS;
+
+  float dq[DQK / 8][4];
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= a.Tq) continue;
-    T* orow = out + ((static_cast<int64_t>(b) * a.Tq + row) * a.H + h) * DQK;
+  for (int j = 0; j < DQK / 8; ++j)
 #pragma unroll
-    for (int c = 0; c < C; ++c) orow[tx + 16 * c] = from_f<T>(dq[i][c] * a.scale);
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + STAGES - 1 < n_it) load_kv(it + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // tile it (and Q, dO) landed
+    __syncthreads();
+    const int k0 = (kt_begin + it) * L::TK + grp * BK;  // this group's keys
+    const bool dead = (a.causal && k0 > qb) ||
+                      (a.window > 0 && qa - (k0 + BK - 1) >= a.window);
+    if (!dead) {
+      const float* sK = sm + L::K + (it % STAGES) * L::STAGE + grp * BK * L::KS;
+      const float* sV = sm + L::K + (it % STAGES) * L::STAGE + L::TK * L::KS +
+                        grp * BK * L::VS;
+      float s[1][NK][4], dp[1][NK][4];
+      zero(s);
+      zero(dp);
+      mma3<1, NK, DQK, UNROLL>(s, KRows{sQ, L::QS}, KRows{sK, L::KS});
+      mma3<1, NK, DV, UNROLL>(dp, KRows{sG, L::GS}, KRows{sV, L::VS});
+      grads_tf32(s, dp, capped, sl, cap_in, cap_out, [&](int, int e, float* l, float* d_) {
+        *l = (e & 2) ? lse1 : lse0;
+        *d_ = (e & 2) ? del1 : del0;
+      });
+      const bool edge = k0 + BK > a.Tk || (a.causal && k0 + BK - 1 > qa) ||
+                        (a.window > 0 && qb - k0 >= a.window);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = (e & 2) ? row1 : row0;
+            const int key = k0 + 8 * j + col + (e & 1);
+            bool live = key < a.Tk;
+            if (a.causal) live = live && row >= key;
+            if (a.window > 0) live = live && row - key < a.window;
+            if (!live) dp[0][j][e] = 0.f;
+          }
+      }
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t da[4];
+        acc_as_a(dp[0][kk], da);
+        mma3_pairs<DQK / 8>(dq, da, sK + 8 * kk * L::KS, L::KS);
+      }
+    }
+    __syncthreads();  // the stage is read before it is loaded again
+  }
+
+  if (KSPLIT == 2) {  // the key groups' sums, the first's then the second's
+    if (grp == 1) stash<DQK / 2>(dq, sm + L::K, rw, lane);
+    __syncthreads();
+    if (grp == 1) return;
+    fold<DQK / 2>(dq, sm + L::K, rw, lane);
+  }
+  float* out = static_cast<float*>(a.dq) + col;
+#pragma unroll
+  for (int j = 0; j < DQK / 8; ++j) {
+    if (row0 < a.Tq)
+      *reinterpret_cast<float2*>(
+          out + ((static_cast<int64_t>(b) * a.Tq + row0) * a.H + h) * DQK + 8 * j) =
+          make_float2(dq[j][0] * a.scale, dq[j][1] * a.scale);
+    if (row1 < a.Tq)
+      *reinterpret_cast<float2*>(
+          out + ((static_cast<int64_t>(b) * a.Tq + row1) * a.H + h) * DQK + 8 * j) =
+          make_float2(dq[j][2] * a.scale, dq[j][3] * a.scale);
   }
 }
 
@@ -1512,39 +1637,52 @@ cudaError_t launch_reduce(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int DQK, int DV, int BK, int BQ>
-cudaError_t cc_launch(const Args& a, int device, cudaStream_t stream) {
-  using L = Smem<DQK, DV, BK, BQ>;
-  static_assert(L::BYTES <= 232448, "a CUDA-core block must fit one SM");
+// One f32 route's tiles: dk/dv blocks of 64 keys in CS column groups and
+// KSPLIT_K row groups walking q tiles of KSPLIT_K * BQ rows, QSTAGES deep;
+// dq blocks of 64 rows in KSPLIT_Q key groups walking kv tiles of KSPLIT_Q
+// * BK keys, KSTAGES deep.
+template <int DQK, int DV, int BQ, int CS, int KSPLIT_K, int QSTAGES, int BK,
+          int KSPLIT_Q, int KSTAGES>
+cudaError_t tf32_launch(const Args& a, int device, cudaStream_t stream) {
+  using LK = DkdvLayout<DQK, DV, BQ, KSPLIT_K, QSTAGES>;
+  using LQ = DqLayout<DQK, DV, BK, KSPLIT_Q, KSTAGES>;
+  static_assert(LK::BYTES <= 232448 && LQ::BYTES <= 232448,
+                "an f32 block must fit one SM");
   static PerDevice dkdv_done, dq_done;  // the attributes, per kernel and device
-  auto dkdv = dkdv_kernel<T, DQK, DV, BK, BQ>;
-  auto dq = dq_kernel<T, DQK, DV, BK, BQ>;
-  cudaError_t err = configure(dkdv, L::BYTES, device, dkdv_done);
+  auto dkdv = dkdv_tf32_kernel<DQK, DV, BQ, CS, KSPLIT_K, QSTAGES>;
+  auto dq = dq_tf32_kernel<DQK, DV, BK, KSPLIT_Q, KSTAGES>;
+  cudaError_t err = configure(dkdv, LK::BYTES, device, dkdv_done);
   if (err != cudaSuccess) return err;
-  err = configure(dq, L::BYTES, device, dq_done);
+  err = configure(dq, LQ::BYTES, device, dq_done);
   if (err != cudaSuccess) return err;
   const int BH = a.B * a.H;
-  if ((err = launch_delta<T>(a, stream)) != cudaSuccess) return err;
-  dkdv<<<((a.Tk + BK - 1) / BK) * BH, kThreads, L::BYTES, stream>>>(a);
+  if ((err = launch_delta<float>(a, stream)) != cudaSuccess) return err;
+  dkdv<<<((a.Tk + kF32Rows - 1) / kF32Rows) * BH, 128 * CS * KSPLIT_K, LK::BYTES,
+         stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dq<<<((a.Tq + BQ - 1) / BQ) * BH, kThreads, L::BYTES, stream>>>(a);
+  dq<<<((a.Tq + kF32Rows - 1) / kF32Rows) * BH, 128 * KSPLIT_Q, LQ::BYTES, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_reduce<T>(a, stream);
+  return launch_reduce<float>(a, stream);
 }
 
-// The CUDA-core route: f32 only (bf16 and f16 run on the tensor cores at
-// every head dim they are built for), at the square head dims and MLA's
-// (192, 128).
-cudaError_t cc_dispatch(const Args& a, int device, cudaStream_t stream) {
-  if (a.D == 192 && a.Dv == 128) return cc_launch<float, 192, 128, 32, 32>(a, device, stream);
+// The f32 route's tiles at each pair of head dims.  At 64 and 128 both
+// kernels split each stage's walked axis between two groups of 4 warps
+// (the last q tiles' or the first keys' walk, the longest, takes half as
+// long), two stages deep: dk/dv 103 and 199 KB of shared memory, dq 102
+// and 198 KB.  At 256 and (192, 128) a dk/dv block's 8 warps split dk and
+// dv by columns instead (at 256 they would take 256 f32 registers a
+// thread), and the dq blocks are one group of 4 warps (195 and 164 KB).
+cudaError_t tf32_dispatch(const Args& a, int device, cudaStream_t stream) {
+  if (a.D == 192 && a.Dv == 128)
+    return tf32_launch<192, 128, 32, 2, 1, 2, 32, 1, 2>(a, device, stream);
   if (a.Dv != a.D) return cudaErrorInvalidValue;
   switch (a.D) {
     case 64:
-      return cc_launch<float, 64, 64, 64, 64>(a, device, stream);
+      return tf32_launch<64, 64, 32, 1, 2, 2, 32, 2, 2>(a, device, stream);
     case 128:
-      return cc_launch<float, 128, 128, 64, 64>(a, device, stream);
+      return tf32_launch<128, 128, 32, 1, 2, 2, 32, 2, 2>(a, device, stream);
     case 256:
-      return cc_launch<float, 256, 256, 32, 32>(a, device, stream);
+      return tf32_launch<256, 256, 32, 2, 1, 1, 32, 1, 1>(a, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1644,7 +1782,7 @@ struct Params {
   int32_t Dv;  // of v, o and do
   int32_t causal;
   int32_t window;  // <= 0: none
-  int32_t route;   // 0 cuda_cores, 1 wgmma: the wrapper's plan
+  int32_t route;   // 0 tf32x3, 1 wgmma: the wrapper's plan
   float scale;
   float softcap;  // <= 0: off
   int32_t device;
@@ -1660,7 +1798,7 @@ static_assert(sizeof(Params) == 176 && offsetof(Params, dtype) == 120 &&
 // without synchronising.  `delta` and `lse2` (B, H, Tq rounded up to 128)
 // and `dk_part` (B, H, Tk, D), `dv_part` (B, H, Tk, Dv) are f32 scratch.
 // The route is "wgmma" for bf16 and f16 at (D, Dv) = (64, 64), (128, 128),
-// (192, 128) or (256, 256), "cuda_cores" for f32 at the same pairs.
+// (192, 128) or (256, 256), "tf32x3" for f32 at the same pairs.
 // Returns a cudaError_t
 // (cudaErrorInvalidValue for an unsupported dtype or head dims, a route
 // other than this rule's, or a layout TMA refuses).
@@ -1676,13 +1814,18 @@ extern "C" int flash_attention_bwd_launch(const Params* p, const void* q,
   const bool tc = p->dtype != 0 && tc_built(p->D, p->Dv);
   if (p->route != (tc ? 1 : 0)) return cudaErrorInvalidValue;
   const int Tp = (p->Tq + kRowPad - 1) / kRowPad * kRowPad;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g);
+  const int64_t strides = p->q_sb | p->q_st | p->q_sh | p->k_sb | p->k_st | p->k_sh |
+                          p->v_sb | p->v_st | p->v_sh | p->g_sb | p->g_st | p->g_sh;
+  const int vec = bases % 16 == 0 && strides % 4 == 0;  // f32: 4 elements
   const Args a{q,       k,       v,       o,       g,        lse,      delta,
                lse2,    dk_part, dv_part, dq,      dk,       dv,       p->q_sb,
                p->q_st, p->q_sh, p->k_sb, p->k_st, p->k_sh,  p->v_sb,  p->v_st,
                p->v_sh, p->o_sb, p->o_st, p->o_sh, p->g_sb,  p->g_st,  p->g_sh,
                p->B,    p->Tq,   p->Tk,   p->H,    p->Kv,    p->D,     p->Dv,
-               Tp,      p->scale, p->softcap, p->causal, p->window};
-  if (p->dtype == 0) return cc_dispatch(a, p->device, stream);
+               Tp,      p->scale, p->softcap, p->causal, p->window, vec};
+  if (p->dtype == 0) return tf32_dispatch(a, p->device, stream);
   if (!tc) return cudaErrorInvalidValue;
   switch (p->dtype) {
     case 1:

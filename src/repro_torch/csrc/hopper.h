@@ -2,7 +2,8 @@
 // shared by the flash forward (flash_attention.cu) and backward
 // (flash_attention_bwd.cu): mbarriers, TMA loads, wgmma descriptors and
 // instructions, the warpgroup split, the accumulator-to-A-fragment
-// repacking, and the host side's tensor-map encoder.
+// repacking, and the host side's tensor-map encoder.  The f32 routes'
+// 3xTF32 blocks (mma.sync, ldmatrix, cp.async) come from tf32.h.
 //
 // Tiles live in shared memory as column chunks of (rows x 128 bytes): 64
 // head-dim columns of a 2-byte type a row, written by TMA with the
@@ -20,11 +21,12 @@
 #include <cstring>
 #include <mutex>
 
+#include "tf32.h"  // kLog2e, and the f32 routes' 3xTF32 blocks
+
 namespace {
 
 constexpr int kChunk = 64;  // head-dim columns per 128-byte swizzled row
 constexpr int kRowBytes = 128;
-constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

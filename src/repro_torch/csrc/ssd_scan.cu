@@ -57,7 +57,7 @@
 #include <cstdint>
 
 #include "per_device.h"
-#include "ssd_tf32.h"
+#include "tf32.h"
 
 namespace {
 

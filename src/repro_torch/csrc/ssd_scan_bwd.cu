@@ -27,7 +27,7 @@
 // chunk (it is -inf elsewhere, so exp gives 0 without an inf * 0).
 //
 // Every product runs on the tensor cores in 3xTF32 (mma.sync m16n8k8,
-// ssd_tf32.h): each f32 operand split into its TF32 high part and the
+// tf32.h): each f32 operand split into its TF32 high part and the
 // rest, lo.hi, hi.lo and hi.hi summed in f32, close to f32 accuracy.  A
 // block of 256 threads (8 warps) takes a product of 64 rows as 4 x 2 warp
 // tiles.  Operands whose rows run along the product's k axis in shared
@@ -79,7 +79,7 @@
 #include <cstdint>
 
 #include "per_device.h"
-#include "ssd_tf32.h"
+#include "tf32.h"
 
 namespace ssd_bwd {
 
@@ -168,154 +168,6 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src, int64_t s
     const bool in = first + i < valid;
     cp_async4(smem_addr(dst + i), src + (in ? first + i : 0) * st, in ? 4 : 0);
   }
-}
-
-template <int MI, int NJ>
-__device__ __forceinline__ void zero(float (&acc)[MI][NJ][4]) {
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-}
-
-// A tile of shared memory whose rows run along k: element (r, k) at
-// p[r * s + k], every row 16-byte aligned (s a multiple of 4, = 4 mod 8 so
-// that ldmatrix's eight rows fall on distinct banks).
-struct KRows {
-  const float* p;
-  int s;
-};
-
-// The same, each row r scaled by e[r & 8 ? 1 : 0] (a warp's two rows g and
-// g + 8 of one m16 tile, for MI = 1).
-struct KRowsScaled {
-  const float* p;
-  int s;
-  float e[2];
-};
-
-// Four 8 x 4 f32 matrices (8 x 8 as b16) from shared memory: lane i gives
-// the address of row i % 8 of matrix i / 8, and receives element (lane / 4,
-// lane % 4) of each matrix.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(row)));
-}
-__device__ __forceinline__ void ldsm2(uint32_t& r0, uint32_t& r1, const float* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(row)));
-}
-
-// The raw f32 A fragments of rows [16 i, 16 i + 16) and columns [k, k +
-// 8): elements (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of each.
-template <int MI>
-__device__ __forceinline__ void frag_a(const KRows& a, int k, uint32_t (&x)[MI][4]) {
-  const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-    ldsm4(x[i], a.p + (16 * i + 8 * (q & 1) + r) * a.s + k + 4 * (q >> 1));
-}
-template <int MI>
-__device__ __forceinline__ void frag_a(const KRowsScaled& a, int k,
-                                       uint32_t (&x)[MI][4]) {
-  static_assert(MI == 1, "one m16 tile: rows g and g + 8");
-  frag_a<1>(KRows{a.p, a.s}, k, x);
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-    x[0][u] = __float_as_uint(__uint_as_float(x[0][u]) * a.e[u & 1]);
-}
-template <int MI, typename F>
-__device__ __forceinline__ void frag_a(F f, int k, uint32_t (&x)[MI][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    x[i][0] = __float_as_uint(f(16 * i + g, k + t));
-    x[i][1] = __float_as_uint(f(16 * i + g + 8, k + t));
-    x[i][2] = __float_as_uint(f(16 * i + g, k + t + 4));
-    x[i][3] = __float_as_uint(f(16 * i + g + 8, k + t + 4));
-  }
-}
-
-// The raw f32 B fragments of n tiles j: elements (k + t, 8 j + g) and (k +
-// t + 4, 8 j + g), from a tile whose rows are n (KRows) or through f(k, n).
-template <int NJ>
-__device__ __forceinline__ void frag_b(const KRows& b, int k, uint32_t (&x)[NJ][2]) {
-  const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int j = 0; j + 1 < NJ; j += 2) {
-    uint32_t v[4];
-    ldsm4(v, b.p + (8 * (j + (q >> 1)) + r) * b.s + k + 4 * (q & 1));
-    x[j][0] = v[0];
-    x[j][1] = v[1];
-    x[j + 1][0] = v[2];
-    x[j + 1][1] = v[3];
-  }
-  if (NJ & 1)
-    ldsm2(x[NJ - 1][0], x[NJ - 1][1],
-          b.p + (8 * (NJ - 1) + r) * b.s + k + 4 * (q & 1));
-}
-template <int NJ, typename F>
-__device__ __forceinline__ void frag_b(F f, int k, uint32_t (&x)[NJ][2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    x[j][0] = __float_as_uint(f(k + t, 8 * j + g));
-    x[j][1] = __float_as_uint(f(k + t + 4, 8 * j + g));
-  }
-}
-
-// v = hi + lo: hi cut to TF32 in place, lo the rest, left uncut (the
-// tensor cores read a TF32 operand's top 19 bits).
-__device__ __forceinline__ void split_raw(uint32_t& v, uint32_t& lo) {
-  const uint32_t hi = v & 0xffffe000u;
-  lo = __float_as_uint(__uint_as_float(v) - __uint_as_float(hi));
-  v = hi;
-}
-
-// acc += A.B for this warp's (16 MI) x (8 NJ) corner of a product, over k
-// in [0, K) (a multiple of 8), in 3xTF32.  a and b are KRows tiles (read by
-// ldmatrix) or functions a(m, k), b(k, n) of one element, m and n counted
-// from the warp's corner.  acc[i][j] holds rows 16 i + g (+ 8 for elements
-// 2, 3) and columns 8 j + 2 t (+ 1 for elements 1, 3), g = lane / 4, t =
-// lane % 4.  hi.hi goes onto acc and lo.hi + hi.lo into an accumulator of
-// their own, two chains of products that do not wait for each other; acc
-// takes the second at the end.  One fixed order of every sum.
-template <int MI, int NJ, int K, typename FA, typename FB>
-__device__ __forceinline__ void mma3(float (&acc)[MI][NJ][4], const FA& a, const FB& b) {
-  float cross[MI][NJ][4];
-  zero(cross);
-#pragma unroll 2
-  for (int k = 0; k < K; k += 8) {
-    uint32_t ah[MI][4], al[MI][4], bh[NJ][2], bl[NJ][2];
-    frag_a<MI>(a, k, ah);
-    frag_b<NJ>(b, k, bh);
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) split_raw(ah[i][u], al[i][u]);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) split_raw(bh[j][u], bl[j][u]);
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        mma_tf32(cross[i][j], al[i], bh[j][0], bh[j][1]);
-        mma_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
-        mma_tf32(cross[i][j], ah[i], bl[j][0], bl[j][1]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] += cross[i][j][e];
 }
 
 // The (q tile, key tile) pair `pair` of the tiles on or below the diagonal.

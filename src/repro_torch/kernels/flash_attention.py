@@ -10,11 +10,11 @@ reads q as ``(B, Tq, H, dqk)``, k as ``(B, Tk, Kv, dqk)`` and v as ``(B,
 Tk, Kv, dv)`` through their strides and maps query head ``h`` to kv head
 ``h // (H // Kv)``, so no copy is made.  The head dims it is built for
 are :data:`HEAD_DIM_PAIRS`: the dense models' square 64, 128 and 256, and
-MLA's expanded prefill, q/k of 192 against v of 128.  One block owns one (batch, head, q tile) and loops over
-the kv tiles with an f32 online softmax; causal blocks skip the tiles
-above the diagonal.
+MLA's expanded prefill, q/k of 192 against v of 128.  One block owns one
+(batch, head, q tile) and loops over the kv tiles with an f32 online
+softmax; causal blocks skip the tiles above the diagonal.
 
-:func:`_plan` routes by dtype alone:
+:func:`_plan` routes by dtype alone, both routes on the tensor cores:
 
 * ``"wgmma"`` for bf16 and f16: a tensor-core kernel.  Consumer
   warpgroups of 64 query rows each (two a block for dv 64 and 128, one
@@ -25,13 +25,23 @@ above the diagonal.
   strides multiples of 16 bytes, the head dim contiguous; anything else
   raises ``ValueError`` (the path's q, k and v are contiguous projections
   and always qualify).
-* ``"f32"`` for float32: the same algorithm on CUDA cores (``wgmma`` has
-  no f32 inputs; TF32 would not hold the f32 tolerance).
+* ``"tf32x3"`` for float32: the same algorithm in 3xTF32 on ``mma.sync``
+  m16n8k8 (``csrc/tf32.h``): each f32 operand is split into its TF32
+  high part and the TF32 cut of the rest, and ``lo·hi + hi·lo + hi·hi``
+  is summed in f32, which holds the f32 tolerance where one TF32 product
+  would not.  A block takes :data:`F32_BLOCK_Q` query rows, 16 a warp, Q
+  in shared memory, and K/V tiles of :data:`F32_BLOCK_K` keys through a
+  two-stage ``cp.async`` ring, two groups of 4 warps walking half the
+  keys each and folding their softmax states at the end; ``P·V`` takes
+  P's accumulators as its A fragments in key order (no shuffle).  Any
+  layout with the head dim contiguous (16-byte copies where bases and
+  strides allow, else 4-byte).
 
 What bounds it: ``2·Tq·Tk·(dqk + dv)·H`` operations (about half when causal)
 against one read of q, k, v and one write of o, so at prefill shapes the
-tensor cores' rate is the bound; the kernel sits above it by the latency
-of one warpgroup's chain of key tiles (PERF.md has its time beside the
+tensor cores' rate is the bound (for f32 the TF32 peak; the f32 route runs
+each product three times); the bf16 kernel sits above it by the latency
+of one warpgroup's chain of key tiles (PERF.md has the times beside the
 bound).  The wrapper's host time counts in every call, so its checks,
 plan and argument list are prepared once per signature (shapes, strides,
 types, devices, options) and reused.
@@ -75,6 +85,11 @@ MASK_VALUE = -1e30
 #: thread and takes one warpgroup; (192, 128) holds dv 128's 64.
 BLOCK_Q = {64: 128, 128: 128, 192: 128, 256: 64}
 BLOCK_K = 64  #: keys per kv tile of the tensor-core route
+F32_BLOCK_Q = 64  #: query rows per block of the f32 route (4 warps of 16)
+#: keys per K/V tile of the f32 route, by q/k head dim, which two groups
+#: of 4 warps walk half each: 64, and 32 at dh 256 (whose output takes 128
+#: f32 registers a thread)
+F32_BLOCK_K = {64: 64, 128: 64, 192: 64, 256: 32}
 TMA_ALIGN = 16  # bytes: TMA's rule for base addresses and strides
 _count_lock = threading.Lock()
 _entry = None
@@ -185,7 +200,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 class Plan(NamedTuple):
     """How one call runs: the route, its tiles and its grid."""
 
-    route: str  # "wgmma" (bf16/f16, tensor cores) or "f32" (CUDA cores)
+    route: str  # "wgmma" (bf16/f16) or "tf32x3" (f32), both tensor cores
     block_q: int  # query rows per block
     block_k: int  # keys per kv tile
     grid: Tuple[int, ...]  # blocks (the kernel derives the same from Tq)
@@ -204,8 +219,8 @@ def _plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
     if qs[3] != 1 or ks[3] != 1 or vs[3] != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
     if q.dtype == torch.float32:
-        bq = 32 if dh == 256 else 64
-        return Plan("f32", bq, 32, (-(-Tq // bq), B * H))
+        return Plan("tf32x3", F32_BLOCK_Q, F32_BLOCK_K[dh],
+                    (-(-Tq // F32_BLOCK_Q) * B * H,))
     # TMA: 16-byte aligned bases and strides (8 elements of 2 bytes; one
     # OR tests them all, since 8 is a power of two)
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % TMA_ALIGN:

@@ -24,8 +24,15 @@ raises.
   and do: each base 16-byte aligned, the batch, token and head strides
   multiples of 16 bytes, the head dim contiguous; anything else raises
   ``ValueError``.
-* ``"cuda_cores"`` for f32: the same algorithm on f32 CUDA-core FMAs
-  (``wgmma`` has no f32 inputs).
+* ``"tf32x3"`` for f32: the same algorithm in 3xTF32 on ``mma.sync``
+  m16n8k8, as the forward's f32 route: each product three TF32 products
+  (``lo·hi + hi·lo + hi·hi``) summed in f32.  dk/dv blocks of 64 keys
+  take keys as the M dimension (Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dV += Pᵀ·dO,
+  dK += dSᵀ·Q), dq blocks of 64 rows (S, dP, dQ += dS·K); Pᵀ, dSᵀ and dS
+  pass from the accumulators to the next product as A fragments in key
+  order, and no tile is transposed (``wgmma`` takes TF32 only with both
+  operands K-major in shared memory).  Any layout with the head dim
+  contiguous.
 
 Either route is four launches a call (``rowsum(do·o)``; dk and dv per
 kv tile and query head; dq per q tile; the sum over each kv head's query
@@ -63,7 +70,7 @@ __all__ = ["FlashAttention", "flash_attention_bwd", "flash_attention_bwd_torch",
 
 #: calls that launched the kernel so far (the plain CPU version does not count).
 launches = 0
-ROUTE_CODES = {"cuda_cores": 0, "wgmma": 1}
+ROUTE_CODES = {"tf32x3": 0, "wgmma": 1}
 ROW_PAD = 128  #: the kernel's per-row scratch (rowsum(do·o), lse) is padded to it
 _count_lock = threading.Lock()
 _entry = None
@@ -170,11 +177,11 @@ def _check(q, k, v, o, do, lse) -> None:
 def _plan(q, k, v, o, do) -> str:
     """The route of a call: ``"wgmma"`` for bf16 and f16 (at every pair of
     head dims the kernel is built for, :data:`HEAD_DIM_PAIRS`),
-    ``"cuda_cores"`` for f32; raises ``ValueError`` on bases or strides the
-    tensor-core route's TMA loads refuse.  Reads only strides, the dtype
+    ``"tf32x3"`` for f32; raises ``ValueError`` on bases or strides the
+    ``wgmma`` route's TMA loads refuse.  Reads only strides, the dtype
     and the base addresses."""
     if q.dtype == torch.float32:
-        return "cuda_cores"
+        return "tf32x3"
     tensors = (q, k, v, o, do)  # head dims contiguous: `_check`
     # 16-byte aligned bases and strides (8 elements of 2 bytes; one OR
     # tests them all, since 8 is a power of two)

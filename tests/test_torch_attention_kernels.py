@@ -227,14 +227,14 @@ def _qkv(B, T, H, Kv, dh, dtype, Tk=None):
 @pytest.mark.parametrize("dh", [64, 128, 256])
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
                                          (torch.float16, "wgmma"),
-                                         (torch.float32, "f32")])
+                                         (torch.float32, "tf32x3")])
 def test_flash_plan_routes_by_dtype(dtype, route, dh):
     plan = fa._plan(*_qkv(1, 100, 8, 2, dh, dtype))
     assert plan.route == route
     if route == "wgmma":  # 64 query rows per consumer warpgroup
         assert plan.block_q == (64 if dh == 256 else 128) and plan.block_k == 64
-    else:
-        assert plan.block_k == 32
+    else:  # 64 rows, 16 a warp; 64-key tiles, 32 at dh 256
+        assert plan.block_q == 64 and plan.block_k == (32 if dh == 256 else 64)
 
 
 @pytest.mark.parametrize("B,T,H,Kv,dh,grid", [
@@ -249,9 +249,9 @@ def test_flash_plan_grid(B, T, H, Kv, dh, grid):
     assert plan.grid == grid
 
 
-def test_flash_plan_f32_grid_is_the_cuda_core_kernels():
+def test_flash_plan_f32_grid_is_the_tf32x3_kernels():
     plan = fa._plan(*_qkv(2, 475, 16, 2, 256, torch.float32))
-    assert plan == fa.Plan("f32", 32, 32, (15, 32))
+    assert plan == fa.Plan("tf32x3", 64, 32, (8 * 32,))  # ceil(475 / 64) x B*H
 
 
 @pytest.mark.parametrize("bad", ["stride", "base", "head_dim", "batch_stride"])

@@ -77,7 +77,8 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("path", sorted(
     [ROOT / "chip_smoke.py", ROOT / "chip_flash_tiles.py", ROOT / "chip_train_lr.py",
-     ROOT / "chip_dist4.py", *(ROOT / "src" / "repro_torch").rglob("*.py")]
+     ROOT / "chip_dist4.py", ROOT / "chip_flash_f32.py",
+     *(ROOT / "src" / "repro_torch").rglob("*.py")]
 ), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_banned_import_in_source(path):
     assert path.exists()

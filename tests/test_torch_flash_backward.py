@@ -153,11 +153,11 @@ def _bwd_meta(dtype, D, B=1, T=64, H=8, Kv=2, Dv=None):
 @pytest.mark.parametrize("D", [64, 128, 256, 192])
 def test_backward_route_plan(dtype, D):
     """bf16 and f16 take the tensor cores at head dims 64, 128 and 256 and
-    MLA's (192, 128) (D 192 here: v's head dim 128); f32 the CUDA-core
+    MLA's (192, 128) (D 192 here: v's head dim 128); f32 the 3xTF32
     route.  The plan is pure Python: it reads shapes, strides, the dtype
     and base addresses only."""
     q, k, v, o, do, lse = _bwd_meta(dtype, D, Dv=128 if D == 192 else None)
-    want = "wgmma" if dtype != torch.float32 else "cuda_cores"
+    want = "wgmma" if dtype != torch.float32 else "tf32x3"
     assert fb._plan(q, k, v, o, do) == want
     assert fb._prepare(q, k, v, o, do, lse, True, None, None, None).route == want
 
@@ -179,8 +179,8 @@ def _misaligned_token_stride(t):
 @pytest.mark.parametrize("fault", ["base", "stride"])
 def test_backward_tma_layout_rules(which, fault):
     """Each of q, k, v, o and do must have a 16-byte aligned base and
-    strides (TMA): the tensor-core route raises, the CUDA-core route (f32)
-    takes the same layout."""
+    strides (TMA): the wgmma route raises, the tf32x3 route (f32, cp.async
+    copies of 4 bytes where 16 do not fit) takes the same layout."""
     bad = _misaligned_base if fault == "base" else _misaligned_token_stride
     for dtype, raises in ((torch.bfloat16, True), (torch.float32, False)):
         args = list(_bwd_meta(dtype, 128))
@@ -189,7 +189,7 @@ def test_backward_tma_layout_rules(which, fault):
             with pytest.raises(ValueError, match="TMA"):
                 fb._prepare(*args, True, None, None, None)
         else:
-            assert fb._prepare(*args, True, None, None, None).route == "cuda_cores"
+            assert fb._prepare(*args, True, None, None, None).route == "tf32x3"
 
 
 def test_backward_refuses_non_square_head_dims_on_the_card():

@@ -135,7 +135,7 @@ def test_flash_plan_takes_192_128_and_refuses_other_pairs():
     k = torch.zeros(1, 1024, 16, 192, dtype=torch.bfloat16)
     v = torch.zeros(1, 1024, 16, 128, dtype=torch.bfloat16)
     assert fa._plan(q, k, v) == fa.Plan("wgmma", 128, 64, (8 * 16,))
-    assert fa._plan(q.float(), k.float(), v.float()).route == "f32"
+    assert fa._plan(q.float(), k.float(), v.float()).route == "tf32x3"
     call = fa._prepare(q, k, v, True, 1 / np.sqrt(192), None, None)
     p = call.params
     assert call.out_shape == (1, 1024, 16, 128)
